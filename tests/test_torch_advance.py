@@ -72,6 +72,8 @@ PULLS = {
     "S-min": ("S", "min", False, False, "f32"),             # CC hook
     "G-or-bool": ("G", "or", False, False, "bool"),         # BFS bottom-up
     "S-add-srcorder": ("S", "add", False, True, "f32"),
+    "G-or-bool-srcorder": ("G", "or", False, True, "bool"),  # DO-BFS bottom-up
+    "G-or-i32-srcorder": ("G", "or", False, True, "i32"),    # MS-BFS words
 }
 
 
@@ -82,6 +84,11 @@ def test_advance_pull_value_matches_jax(graphs, case):
     rng = np.random.default_rng(4)
     if dtype == "f32":
         x = rng.uniform(0, 5, jg.v_pad).astype(np.float32)
+    elif dtype == "i32":
+        # full int32 range: words with bit 31 set must OR unsigned-exact
+        x = rng.integers(-2**31, 2**31 - 1, jg.v_pad,
+                         dtype=np.int64).astype(np.int32)
+        x[::7] |= np.int32(-2**31)
     else:
         x = rng.integers(0, 2, jg.v_pad).astype(bool)
     jd, td = _dirs(d)

@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the route-gather kernel against its plain version
-(bit for bit), its launch count, its argument checks, and the slice on CUDA
-against the slice on the CPU. Every test here needs an NVIDIA GPU and skips
+"""PyTorch port on the card: the route-gather and scatter-combine kernels
+against their plain versions (bit for bit), their launch counts, their
+argument checks, and the slices (PageRank, BFS) on CUDA against the same
+slices on the CPU. Every test here needs an NVIDIA GPU and skips
 without one. The file needs no JAX (the card's host has none), so on the card
 run it without tests/conftest.py, which imports jax:
 
@@ -13,8 +14,11 @@ torch = pytest.importorskip("torch")
 
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph
 from vectorgraphlibrary_tpu_torch.io import generation
-from vectorgraphlibrary_tpu_torch.models import pr
+from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
+from vectorgraphlibrary_tpu_torch.models import bfs, common, pr
+from vectorgraphlibrary_tpu_torch.ops import monoid
 from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
+from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as sc
 
 pytestmark = pytest.mark.gpu
 
@@ -81,3 +85,88 @@ def test_page_rank_on_cuda_matches_cpu(cuda):
     assert rg.route_gather_finish.launches == 1 + 2 * iters
     np.testing.assert_allclose(ranks.values.cpu().numpy(),
                                cpu.values.numpy(), rtol=1e-5, atol=1e-8)
+
+
+def _i32(rng, n):
+    return rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+
+
+# (n_out, n messages, destinations): uniform with an eighth dropped (past the
+# end or negative), heavy duplicates on 5 targets, all dropped, empty
+SCATTER_CASES = {
+    "uniform": (1 << 16, 1 << 17, "uniform"),
+    "duplicates": (1 << 10, 1 << 16, "dup"),
+    "all-dropped": (1 << 10, 1 << 12, "drop"),
+    "empty": (1 << 10, 0, "uniform"),
+}
+
+
+@pytest.mark.parametrize("op", ["min", "max", "or"])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_combine_equals_plain_version(cuda, case, op):
+    n_out, n, kind = SCATTER_CASES[case]
+    rng = np.random.default_rng(2)
+    if kind == "dup":
+        idx = rng.integers(0, 5, n)
+    elif kind == "drop":
+        idx = np.where(rng.random(n) < 0.5, n_out + rng.integers(0, 9, n),
+                       -1 - rng.integers(0, 9, n))
+    else:
+        idx = rng.integers(0, n_out, n)
+        idx[rng.random(n) < 1 / 8] = n_out
+        idx[rng.random(n) < 1 / 64] = -3
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    out = torch.from_numpy(_i32(rng, n_out)).to(cuda)
+    for msg in (torch.from_numpy(_i32(rng, n)).to(cuda), 1, -2**31):
+        before = sc.scatter_combine.launches
+        got = sc.scatter_combine(out, idx, msg, op)
+        torch.cuda.synchronize()
+        assert sc.scatter_combine.launches == before + 1
+        assert torch.equal(got, sc.scatter_combine_ref(out, idx, msg, op))
+    if kind == "drop" or n == 0:
+        assert torch.equal(got, out)
+
+
+def test_scatter_combine_rejects_what_it_does_not_take(cuda):
+    out = torch.zeros(8, dtype=torch.int32, device=cuda)
+    idx = torch.arange(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        sc.scatter_combine(out.float(), idx, 1, "min")
+    with pytest.raises(TypeError):
+        sc.scatter_combine(out, idx.long(), 1, "min")
+    with pytest.raises(ValueError):
+        sc.scatter_combine(out, idx, 1, "add")
+    with pytest.raises(ValueError):
+        sc.scatter_combine(out, idx, idx.cpu(), "max")
+    # scatter_at on the card: only int32 min/max have a kernel
+    with pytest.raises(TypeError):
+        monoid.ADD.scatter_at(out, idx, idx)
+    with pytest.raises(TypeError):
+        monoid.MIN.scatter_at(out.float(), idx, idx.float())
+    with pytest.raises(NotImplementedError):
+        monoid.OR.scatter_at(out, idx, idx)
+
+
+def test_bfs_on_cuda_matches_cpu(cuda):
+    ec = generation.rmat(10, 8, seed=3, weighted=False)
+    cg, g = import_graph(ec, device="cpu"), import_graph(ec, device=cuda)
+    roots = [common.select_random_source(ec, seed=s) for s in range(3)]
+    for src in roots:
+        trace = []
+        sc.scatter_combine.launches = 0
+        rg.route_gather_finish.launches = 0
+        got = bfs.vgl_bfs_device(g, src, id_cap=1 << 10, edge_cap=1 << 13,
+                                 trace=trace)
+        torch.cuda.synchronize()
+        td = sum(t[0] == "td" for t in trace)
+        assert sc.scatter_combine.launches == 2 * td
+        assert (rg.route_gather_finish.launches > 0) == (td < len(trace))
+        want = bfs.vgl_bfs_device(cg, src, id_cap=1 << 10, edge_cap=1 << 13)
+        assert torch.equal(got.values.cpu(), want.values)
+        np.testing.assert_array_equal(as_original_numpy(got, g),
+                                      bfs.seq_top_down(ec, src))
+    for fn in (bfs.vgl_top_down, lambda gr, s: bfs.vgl_bfs(gr, s, alpha=1e-9)):
+        assert torch.equal(fn(g, roots[0]).values.cpu(),
+                           fn(cg, roots[0]).values)
+    assert torch.equal(bfs.vgl_msbfs(g, roots * 11).values.cpu(),
+                       bfs.vgl_msbfs(cg, roots * 11).values)

@@ -39,3 +39,8 @@ def outdegrees_in(graph: VGLGraph, direction: TraversalDirection) -> torch.Tenso
 def indegrees_in(graph: VGLGraph, direction: TraversalDirection) -> torch.Tensor:
     return to_direction(graph, graph.incoming.degrees,
                         TraversalDirection.GATHER, direction)
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two >= x (1 for x <= 1)."""
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()

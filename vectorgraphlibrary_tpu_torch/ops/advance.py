@@ -12,10 +12,15 @@ A pull advance here is the reference's fused path, step for step:
 
 No step reads adjacency. `advance_cells` is the one pass that does, for
 structural counts such as self-loops.
+
+`advance_push_sparse` is the work-efficient push from a compacted frontier:
+it expands the frontier's CSR rows into a flat edge list of static capacity
+and scatter-combines one message per edge into the destination array (two
+scatter-combine kernel launches on the card: the owner mark and the combine).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict
 
 import torch
 
@@ -184,3 +189,68 @@ def advance_cells(graph: VGLGraph,
         parts.append(mon.reduce_axis(msg, 1)[:b.rows])
         covered = b.row_start + b.rows
     return _assemble(parts, covered, graph.v_pad, ident, dtype, dev)
+
+
+def advance_push_sparse(graph: VGLGraph,
+                        frontier_ids: torch.Tensor,     # int32 [cap], pad = v_pad
+                        frontier_valid: torch.Tensor,   # bool [cap]
+                        edge_capacity: int,
+                        src_arrays: Dict[str, torch.Tensor],
+                        edge_op: Callable,
+                        combine,
+                        out: torch.Tensor,
+                        direction: TraversalDirection = TraversalDirection.SCATTER,
+                        ) -> torch.Tensor:
+    """Work-efficient push from a compacted frontier (reference
+    advance.py:686-758; the analog of the C++ reference's sparse collective
+    kernel `nec/advance_sparse.hpp:190-250`).
+
+    Expands the frontier's rows into a flat edge list of static size
+    ``edge_capacity``, makes one message per edge with
+    ``edge_op(src_vals, {}, None)`` (src_vals[k]: [edge_capacity, 1]) and
+    scatter-combines it into ``out`` ([v_pad], same ordering); returns the
+    new array. Edges past the capacity (a frontier whose degree sum exceeds
+    it) are dropped. Nothing is read back to the host."""
+    mon = M.get(combine)
+    dg = graph.direction(direction)
+    cap = frontier_ids.shape[0]
+    dev = out.device
+    i32 = torch.int32
+    ids = frontier_ids.long()
+
+    def take(a, index):
+        """jnp.take(a, index, mode="clip")"""
+        return a[index.clamp(0, a.shape[0] - 1)]
+
+    degs = torch.where(frontier_valid, take(dg.degrees, ids), 0)
+    row_start_c = take(dg.row_ptr, ids)
+    ends = torch.cumsum(degs, 0, dtype=i32)                     # inclusive
+    starts_local = ends - degs
+    # per-frontier-row constant: e_slot = pos + delta[owner]
+    delta_c = row_start_c - starts_local
+    sv_cap = {k: take(a, ids) for k, a in src_arrays.items()}
+    total = ends[-1] if cap > 0 else torch.zeros((), dtype=i32, device=dev)
+
+    pos = torch.arange(edge_capacity, dtype=i32, device=dev)
+    # owner row of each flat edge slot: each nonempty row's index is marked
+    # at its start offset, then a running max fills the run. Zero-degree rows
+    # share start offsets and must not mark; rows starting past the capacity
+    # drop (a clamp would steal the last slot's ownership).
+    frontier_idx = torch.arange(cap, dtype=i32, device=dev)
+    mark_slot = torch.where(frontier_valid & (degs > 0)
+                            & (starts_local < edge_capacity),
+                            starts_local, edge_capacity)
+    owner_c = M.MAX.scatter_at(
+        torch.full((edge_capacity,), -1, dtype=i32, device=dev), mark_slot,
+        frontier_idx)
+    owner_c = torch.cummax(owner_c, 0).values
+    evalid = (pos < total) & (owner_c >= 0)
+    owner_c = owner_c.clamp(0, cap - 1).long()
+
+    e_slot = torch.where(evalid, pos + take(delta_c, owner_c), dg.e_pad)
+    dsts = take(dg.col_idx, e_slot.long())
+    sv = {k: take(a, owner_c)[:, None] for k, a in sv_cap.items()}
+    msg = edge_op(sv, {}, None)[:, 0].to(out.dtype)
+
+    scatter_idx = torch.where(evalid, dsts, out.shape[0])   # OOB -> dropped
+    return mon.scatter_at(out, scatter_idx, msg, mode="drop")

@@ -1,4 +1,4 @@
-"""The route-gather kernel: wrapper, plain PyTorch version, loader and launch count.
+"""The route-gather kernel: wrapper, plain PyTorch version and launch count.
 
 `route_gather_finish` computes, for every output slot i,
 
@@ -17,83 +17,16 @@ raises. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parents[2]
-_CSRC = _PKG_DIR / "csrc"
-# gitignored: the repository's .gitignore lists .cache/
-_BUILD_DIR = _PKG_DIR.parent / ".cache" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import build
 
 _WOPS = {None: 0, "add": 1, "min": 2, "max": 3, "mul": 4}
 _ENTRY = {torch.float32: ("vgl_route_gather_f32", ctypes.c_float),
           torch.int32: ("vgl_route_gather_i32", ctypes.c_int),
           torch.int8: ("vgl_route_gather_i8", ctypes.c_int)}
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""          # nvcc's output (ptxas register/spill report) of the build
-build_seconds = 0.0
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
-                           "are built from csrc/ at first use")
-    return found
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the port's kernel library."""
-    global _lib, build_log, build_seconds
-    with _lock:
-        if _lib is not None:
-            return _lib
-        sources = sorted(_CSRC.glob("*.cu"))
-        h = hashlib.sha256()
-        for src in sources:
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        so = _BUILD_DIR / f"libvgl_kernels_{h.hexdigest()[:16]}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        for name, ident_t in set(_ENTRY.values()):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ident_t,
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
 
 
 def route_gather_finish_ref(x: torch.Tensor, idx: torch.Tensor,
@@ -154,8 +87,10 @@ def route_gather_finish(x: torch.Tensor, idx: torch.Tensor,
             raise ValueError(f"{name}: shape {tuple(t.shape)} != ({n},)")
     if x.dim() != 1:
         raise ValueError("x must be 1-D")
-    fn_name, _ = _ENTRY[x.dtype]
-    fn = getattr(load_library(), fn_name)
+    fn_name, ident_t = _ENTRY[x.dtype]
+    fn = build.entry(fn_name, [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ident_t,
+        ctypes.c_void_p])
     out = torch.empty(n, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ident_c = float(ident) if x.dtype == torch.float32 else int(ident)

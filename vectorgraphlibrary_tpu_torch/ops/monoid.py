@@ -2,7 +2,8 @@
 vectorgraphlibrary_tpu/ops/monoid.py).
 
 Each monoid has an identity, an elementwise combine, a reduction along one
-axis and a reduction over sorted segments. Segments are given by their
+axis, a reduction over sorted segments and a scatter (scatter_at, the sparse
+push's combine). Segments are given by their
 lengths, which are static graph structure (graph.device.HugeTile.seg_lengths),
 so no reduction has to read a device value back to the host. Float sums over
 segments use torch.segment_reduce, which reduces each segment in one pass in a
@@ -14,6 +15,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from .cuda.scatter_combine import scatter_combine, scatter_reduce_drop
 
 
 def _segment(reduce: str):
@@ -92,6 +95,37 @@ class Monoid:
         lengths[j] elements (int64 lengths summing to len(data)); an empty
         segment gets the identity."""
         return self._segment_reduce(self, data, lengths)
+
+    def scatter_at(self, target: torch.Tensor, idx: torch.Tensor,
+                   vals: torch.Tensor, mode: str = "drop") -> torch.Tensor:
+        """New tensor: `target` with vals[i] combined into target[idx[i]]
+        (reference monoid.py:41-58, `target.at[idx].<op>(vals, mode="drop")`).
+        add, min, max and any01 (as max) work; or works on bool (as max) and
+        raises NotImplementedError on int bitmasks, as in the reference.
+        mode "drop" drops every index outside [0, len(target)); JAX's would
+        wrap a negative index first, and no caller passes one.
+
+        On the card an int32 min or max is one scatter_combine kernel launch
+        and any other (op, dtype) raises; on the CPU every case runs in plain
+        PyTorch (int32 min/max through the kernel's plain version)."""
+        if mode != "drop":
+            raise ValueError(f"scatter_at: mode {mode!r} (only 'drop')")
+        op = self.name
+        if op == "any01":
+            op = "max"
+        if op == "or":
+            if target.dtype != torch.bool and vals.dtype != torch.bool:
+                raise NotImplementedError(
+                    "int bitwise-or scatter: use a pull/segment formulation "
+                    "(max only equals OR for {0,1} values)")
+            op = "max"
+        if op in ("min", "max") and target.dtype == torch.int32:
+            return scatter_combine(target, idx.contiguous(),
+                                   vals.to(torch.int32).contiguous(), op)
+        if target.device.type != "cpu":
+            raise TypeError(f"scatter_at: no kernel for {self.name} over "
+                            f"{target.dtype} on {target.device}")
+        return scatter_reduce_drop(target, idx, vals, op)
 
 
 def _sum(a, dim):

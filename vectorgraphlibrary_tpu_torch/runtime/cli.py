@@ -2,7 +2,8 @@
 vectorgraphlibrary_tpu/runtime/cli.py that the ported apps use).
 
 Reference flag surface `vgl_runtime/helpers/cmd_parser/cmd_parser.hpp:58-228`:
-synthetic graph (-s/-e with -rmat/-ru, -seed), -check, -it, -dev.
+synthetic graph (-s/-e with -rmat/-ru, -seed), -check, -it, -dev, and the
+BFS variant flags -td/-bu/-do (cfg.algorithm_variant).
 """
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
     p.add_argument("-ru", "-random_uniform", dest="ru", action="store_true")
     p.add_argument("-check", dest="check", action="store_true")
     p.add_argument("-it", "-iterations", dest="iterations", type=int, default=10)
+    p.add_argument("-td", dest="variant_td", action="store_true")
+    p.add_argument("-bu", dest="variant_bu", action="store_true")
+    p.add_argument("-do", dest="variant_do", action="store_true")
     p.add_argument("-dev", "-device", dest="device", default="cuda",
                    help="torch device; 'cuda' (default) needs a card, 'cpu' "
                         "runs the kernels' plain PyTorch versions")
@@ -31,6 +35,10 @@ def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
 
 def parse_args(argv=None, app: str = "vgl") -> VGLConfig:
     ns = build_parser(app).parse_args(argv)
+    variant = "auto"
+    for name in ("td", "bu", "do"):
+        if getattr(ns, f"variant_{name}"):
+            variant = name
     return VGLConfig(
         scale=ns.scale,
         avg_degree=ns.avg_degree,
@@ -38,6 +46,7 @@ def parse_args(argv=None, app: str = "vgl") -> VGLConfig:
                         else SyntheticGraphType.RMAT),
         check=ns.check,
         iterations=ns.iterations,
+        algorithm_variant=variant,
         device=ns.device,
         seed=ns.seed,
     )
