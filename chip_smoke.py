@@ -25,20 +25,37 @@ result line):
    with error count 0 against seq_top_down, scatter_combine launched twice
    per top-down level and the route kernel in the bottom-up levels),
    vgl_top_down and vgl_bfs (-bu) on one root, vgl_msbfs on 64 roots (4
-   rows checked); per-root DO GTEPS and MS-BFS aggregate GTEPS, medians of 3.
+   rows checked); per-root DO GTEPS and MS-BFS aggregate GTEPS, medians of 3;
+7. kernel: lane_shuffle against its plain version on the card, bit for bit,
+   at [2^17, 128] (n = 2^24): random per-row permutations of f32, i32 and
+   int8 values, and the forward and inverse lane indices of the phase-4
+   RMAT-18 advance route from the port's Beneš router (timed); kernel, plain
+   and torch.gather times;
+8. slice: persistence on the phase-4 RMAT-18 graph: save (uncompressed, to a
+   temporary directory), load on the card (exactly 8 lane_shuffle launches:
+   two per plan), every plan's indices and flags and every tile equal to the
+   phase-4 graph's; vgl_page_rank (100 iterations) on the loaded graph equal
+   to the phase-4 ranks and error count 0 against seq_page_rank; one
+   vgl_bfs_device root equal to the phase-4 graph's levels; the same load
+   from a slim copy of the file (word masks only, as a TPU host saves it).
 
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}. --profile DIR also writes torch.profiler
+The line before the last is {"kernels": [...]}: for each kernel its launches
+on each path, its error against the plain version, and its time, its plain
+version's time, the one-call PyTorch time (library_ms) and its bound
+(bound_ms: the bytes it must move at the H100's 3.35 TB/s) at the main
+path's shapes. The last line is {"ok": true, "device": {...}}. --profile DIR also writes torch.profiler
 tables of one 10-iteration PageRank run and one DO-BFS root to DIR (not part
 of the default run).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,6 +68,14 @@ DEVICE = "cuda"
 REPLACES = ("vectorgraphlibrary_tpu/ops/pallas/route_fused.py:157 (_mid_kernel), "
             "vectorgraphlibrary_tpu/ops/pallas/route_fused.py:202 (_big_kernel)")
 REPLACES_SCATTER = "apps/exp_push.py:59 (make_c), apps/exp_push.py:41 (_kern)"
+REPLACES_LANE = "vectorgraphlibrary_tpu/ops/route.py:146 (_lane_shuffle_tpu)"
+# H100 SXM device memory rate (NVIDIA data sheet); every kernel here is
+# bound by the bytes it moves, far below the card's operation rates
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def _smi() -> str:
@@ -185,9 +210,15 @@ def phase_pagerank(rg, smi: str):
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        pr.vgl_page_rank(graph, max_iterations=ITERS, use_convergence=False)
+        last, _ = pr.vgl_page_rank(graph, max_iterations=ITERS,
+                                   use_convergence=False)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    # two runs on one graph give the same bits unless some op on the path
+    # sums in a varying order; phase 8 holds the loaded graph to that
+    deterministic = torch.equal(vals, last.values)
+    print(f"  two vgl_page_rank runs on one graph: "
+          f"{'bit-identical' if deterministic else 'DIFFER'}")
     rates = sorted(ec.edges_count * ITERS / t / 1e6 for t in times)
     print(f"  PR RMAT-{SCALE} MTEPS median {rates[1]:.1f} (min {rates[0]:.1f}, "
           f"max {rates[2]:.1f}; runs {', '.join(f'{t:.4f}' for t in times)} s) "
@@ -214,10 +245,24 @@ def phase_pagerank(rg, smi: str):
             msgs, plan.fwd_idx, flags=plan.flags_fwd, exclude_self_loops=True,
             ident=0.0)))
     k_ms, p_ms = statistics.median(ks), statistics.median(ps)
+    # one-call PyTorch: the same gather without the finish
+    lib_ms = statistics.median(
+        _cuda_ms(lambda: torch.index_select(msgs, 0, plan.fwd_idx))
+        for _ in range(3))
+    # bytes it must move: flags and out for every slot, idx and x only for
+    # the slots the finish keeps (valid, not a self-loop)
+    f = plan.flags_fwd
+    kept = int(((f & 1 != 0) & (f & 2 == 0)).sum())
+    bound = _bound_ms(plan.n * (1 + 4) + kept * (4 + 4))
     print(f"  RMAT-{SCALE} advance route f32 fwd finish: kernel {k_ms:.4f} ms "
           f"(runs {', '.join(f'{t:.4f}' for t in ks)}), plain {p_ms:.4f} ms "
-          f"(runs {', '.join(f'{t:.4f}' for t in ps)})")
-    return graph, launches, max_err, k_ms, p_ms
+          f"(runs {', '.join(f'{t:.4f}' for t in ps)}), index_select "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({kept} of {plan.n} slots "
+          f"kept) on {smi}")
+    return dict(graph=graph, ec=ec, ranks=vals, oracle=want,
+                deterministic=deterministic, launches=launches,
+                max_err=max_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=bound)
 
 
 def _median3(label: str, unit: str, values, smi: str) -> float:
@@ -227,9 +272,9 @@ def _median3(label: str, unit: str, values, smi: str) -> float:
     return v[1]
 
 
-def phase_scatter(scm, smi: str) -> tuple[float, float, float]:
+def phase_scatter(scm, smi: str) -> dict:
     """scatter_combine against its plain version at the BFS push's shapes
-    (V = 2^20 vertices); returns (max_abs_err, ms, plain_ms) of the BFS
+    (V = 2^20 vertices); returns the max abs error and the times of the BFS
     combine (min) at the largest default tier, 2^16 messages."""
     from vectorgraphlibrary_tpu_torch.apps import exp_push
     rng = np.random.default_rng(SEED)
@@ -272,10 +317,22 @@ def phase_scatter(scm, smi: str) -> tuple[float, float, float]:
         ps.append(_cuda_ms(lambda: scm.scatter_combine_ref(out, idx, msg, "min")))
     k_ms = _median3("scatter_combine min 2^16 -> 2^20, kernel", "ms", ks, smi)
     p_ms = _median3("scatter_combine min 2^16 -> 2^20, plain", "ms", ps, smi)
+    # one-call PyTorch: scatter_reduce of the in-range messages
+    keep = (idx >= 0) & (idx < v)
+    idx_in, msg_in = idx[keep].long(), msg[keep]
+    lib_ms = _median3("scatter_combine min 2^16 -> 2^20, scatter_reduce", "ms",
+                      [_cuda_ms(lambda: torch.scatter_reduce(
+                          out, 0, idx_in, msg_in, "amin")) for _ in range(3)],
+                      smi)
+    # bytes it must move: out read and the copy written (4 B each per
+    # vertex), every index, the messages that land
+    bound = _bound_ms(8 * v + 4 * idx.shape[0] + 4 * idx_in.shape[0])
+    print(f"  scatter_combine bound {bound:.4f} ms")
     res = exp_push.measure(DEVICE)
     print("  exp_push (ms per scatter of message 1 into 2^20): "
           + ", ".join(f"{k} {t:.4f}" for k, t in res.items()))
-    return max_err, k_ms, p_ms
+    return dict(max_err=max_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=bound)
 
 
 def phase_bfs(rg, scm, smi: str):
@@ -385,6 +442,182 @@ def phase_bfs(rg, scm, smi: str):
     return graph, roots[0], sc_total, rg_total
 
 
+def phase_lane_shuffle(ls, graph, smi: str) -> dict:
+    """lane_shuffle against its plain version at the RMAT-18 advance route's
+    shape, [2^17, 128] (n = 2^24): random per-row permutations of f32, i32
+    and int8 values, and the lane indices of that route from the port's
+    router. Times the main path's call (the loader routes int32 indices
+    through the advance plan's lanes)."""
+    from vectorgraphlibrary_tpu_torch.ops.route import make_benes_plan
+    dev = torch.device(DEVICE)
+    n = graph.advance_route.n
+    rows = n // 128
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rand_idx = torch.rand(rows, 128, device=dev, generator=gen).argsort(
+        dim=1).int()
+    xs = {"f32": torch.randn(rows, 128, device=dev, generator=gen),
+          "i32": torch.randint(-2**31, 2**31 - 1, (rows, 128), device=dev,
+                               generator=gen).int(),
+          "i8": torch.randint(-128, 128, (rows, 128), device=dev,
+                              generator=gen).to(torch.int8)}
+    t0 = time.perf_counter()
+    bplan = make_benes_plan(graph.advance_route.fwd_idx.cpu().numpy(),
+                            device=DEVICE)
+    router_s = time.perf_counter() - t0
+    print(f"  Beneš router on the RMAT-{SCALE} advance route (n = {n}): "
+          f"{router_s:.2f} s on the host")
+    cases = [(f"random perm {k}", x, rand_idx) for k, x in xs.items()]
+    cases += [(f"RMAT-{SCALE} {lanes} {k}", xs[k], getattr(bplan, lanes))
+              for lanes in ("lane_idx", "lane_inv") for k in ("f32", "i32")]
+    max_err = 0.0
+    for label, x, idx in cases:
+        got = ls.lane_shuffle(x, idx)
+        want = ls.lane_shuffle_ref(x, idx)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        ok = got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+        print(f"  lane_shuffle {label}: {'bit-exact' if ok else 'MISMATCH'} "
+              f"(max abs err {err})")
+        if not ok:
+            raise AssertionError(f"lane_shuffle != plain version: {label}")
+        max_err = max(max_err, err)
+
+    x, idx = xs["i32"], bplan.lane_idx
+    idx64 = idx.long()
+    k_ms = _median3(f"lane_shuffle RMAT-{SCALE} lanes i32, kernel", "ms",
+                    [_cuda_ms(lambda: ls.lane_shuffle(x, idx))
+                     for _ in range(3)], smi)
+    p_ms = _median3(f"lane_shuffle RMAT-{SCALE} lanes i32, plain", "ms",
+                    [_cuda_ms(lambda: ls.lane_shuffle_ref(x, idx))
+                     for _ in range(3)], smi)
+    lib_ms = _median3(f"lane_shuffle RMAT-{SCALE} lanes i32, torch.gather", "ms",
+                      [_cuda_ms(lambda: torch.gather(x, 1, idx64))
+                       for _ in range(3)], smi)
+    bound = _bound_ms(n * (4 + 4 + 4))     # x, idx, out
+    print(f"  lane_shuffle bound {bound:.4f} ms")
+    return dict(max_err=max_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=bound, router_s=router_s)
+
+
+def _graph_tensors(obj, prefix=""):
+    """A port graph as {path: tensor or scalar}."""
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    if dataclasses.is_dataclass(obj):
+        out = {}
+        for f in dataclasses.fields(obj):
+            out.update(_graph_tensors(getattr(obj, f.name),
+                                      f"{prefix}.{f.name}"))
+        return out
+    if isinstance(obj, (tuple, list)):
+        out = {}
+        for i, x in enumerate(obj):
+            out.update(_graph_tensors(x, f"{prefix}[{i}]"))
+        return out
+    return {prefix: obj}
+
+
+def _assert_same_graph(label: str, got, want) -> None:
+    """Every plan's indices and flags, every tile and every scalar equal."""
+    a, b = _graph_tensors(got), _graph_tensors(want)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{label}: graph fields differ")
+    for k in a:
+        same = (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                if isinstance(a[k], torch.Tensor) else a[k] == b[k])
+        if not same:
+            raise AssertionError(f"{label}: {k} differs from the fresh graph")
+    print(f"  {label}: all {len(a)} fields equal the fresh graph's")
+
+
+def phase_persistence(ls, rg, scm, fresh: dict, router_s: float,
+                      smi: str) -> dict:
+    """Save the phase-4 graph, load it on the card (full and slim), and run
+    PageRank and one DO-BFS root on the loaded graph; returns the kernels'
+    launch counts on this path."""
+    from vectorgraphlibrary_tpu_torch.graph.persistence import (
+        load_graph_from_binary_file, save_graph_to_binary_file)
+    from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
+    from vectorgraphlibrary_tpu_torch.models import bfs, common, pr
+    from vectorgraphlibrary_tpu_torch.utils.verify import verify_ranking_results
+
+    graph, ec = fresh["graph"], fresh["ec"]
+    src = common.select_random_source(ec, seed=100)
+    want_levels = bfs.vgl_bfs_device(graph, src).values
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"rmat{SCALE}.npz")
+        t0 = time.perf_counter()
+        save_graph_to_binary_file(graph, path, compressed=False)
+        save_s = time.perf_counter() - t0
+        print(f"  save: {save_s:.2f} s (the Beneš router alone took "
+              f"{router_s:.2f} s on the advance route in phase 7), file "
+              f"{os.path.getsize(path) / 2**20:.1f} MiB")
+
+        ls.lane_shuffle.launches = 0
+        rg.route_gather_finish.launches = 0
+        scm.scatter_combine.launches = 0
+        t0 = time.perf_counter()
+        g = load_graph_from_binary_file(path, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_ls = ls.lane_shuffle.launches
+        ranks, _ = pr.vgl_page_rank(g, max_iterations=ITERS,
+                                    use_convergence=False)
+        lv = bfs.vgl_bfs_device(g, src).values
+        torch.cuda.synchronize()
+        counts = dict(lane_shuffle=n_ls,
+                      route_gather_finish=rg.route_gather_finish.launches,
+                      scatter_combine=scm.scatter_combine.launches)
+        print(f"  load on {DEVICE}: {load_s:.2f} s; launches on this path "
+              f"(load, vgl_page_rank, one DO-BFS root): {counts}")
+        if n_ls != 8:
+            raise AssertionError(f"load launched lane_shuffle {n_ls} times, "
+                                 "expected 8 (two per plan)")
+        if not all(counts.values()):
+            raise AssertionError(f"a kernel of this path did not launch: "
+                                 f"{counts}")
+        _assert_same_graph("loaded graph", g, graph)
+
+        vals = ranks.values
+        if fresh["deterministic"]:
+            same = torch.equal(vals, fresh["ranks"])
+            print(f"  PageRank on the loaded graph: "
+                  f"{'bit-identical to' if same else 'DIFFERS from'} phase 4")
+        else:          # the card's runs on one graph already differ
+            same = torch.allclose(vals, fresh["ranks"], rtol=1e-5, atol=1e-8)
+            print(f"  PageRank on the loaded graph: within rtol 1e-5 of "
+                  f"phase 4: {same}")
+        if not same:
+            raise AssertionError("PageRank on the loaded graph differs")
+        errors = verify_ranking_results(as_original_numpy(ranks, g),
+                                        fresh["oracle"])
+        if errors:
+            raise AssertionError(f"PageRank on the loaded graph: error count "
+                                 f"{errors}")
+        if not torch.equal(lv, want_levels):
+            raise AssertionError(f"DO-BFS root {src} on the loaded graph "
+                                 "differs from the fresh graph's levels")
+        print(f"  DO-BFS root {src} on the loaded graph: levels equal")
+
+        slim = os.path.join(d, f"rmat{SCALE}_slim.npz")
+        with np.load(path) as z:
+            np.savez(slim, **{k: z[k] for k in z.files if k.rsplit(".", 1)[-1]
+                              not in ("in_masks", "out_masks", "lane_idx")})
+        os.remove(path)
+        ls.lane_shuffle.launches = 0
+        t0 = time.perf_counter()
+        g = load_graph_from_binary_file(slim, device=DEVICE)
+        torch.cuda.synchronize()
+        print(f"  slim load (word masks only, "
+              f"{os.path.getsize(slim) / 2**20:.1f} MiB): "
+              f"{time.perf_counter() - t0:.2f} s, lane_shuffle launches "
+              f"{ls.lane_shuffle.launches}")
+        if ls.lane_shuffle.launches != 8:
+            raise AssertionError("slim load: expected 8 lane_shuffle launches")
+        _assert_same_graph("slim-loaded graph", g, graph)
+    return counts
+
+
 def profile(pr_graph, bfs_graph, bfs_root, out_dir: str) -> None:
     from torch.profiler import ProfilerActivity, profile as tprofile
     from vectorgraphlibrary_tpu_torch.models import bfs, pr
@@ -413,12 +646,13 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.manual_seed(SEED)
     from vectorgraphlibrary_tpu_torch.ops.cuda import build
+    from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
     from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
     from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as scm
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/6] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/8] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -426,42 +660,60 @@ def main() -> int:
     build.load_library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/6] build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{build.build_seconds:.2f} s, sm_90a); ptxas: "
-          + " | ".join(ptxas))
+    print(f"[2/8] build: {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
+          f"ptxas: " + " | ".join(ptxas))
 
-    print("[3/6] kernel: route_gather_finish vs plain version, n = 2^24")
+    print("[3/8] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
-    print(f"[4/6] slice: PageRank on RMAT-{SCALE}")
-    graph, launches, slice_err, k_ms, p_ms = phase_pagerank(rg, smi)
-    max_err = max(max_err, slice_err)
+    print(f"[4/8] slice: PageRank on RMAT-{SCALE}")
+    prr = phase_pagerank(rg, smi)
+    max_err = max(max_err, prr["max_err"])
 
-    print("[5/6] kernel: scatter_combine vs plain version, V = 2^20")
-    sc_err, sc_ms, sc_plain_ms = phase_scatter(scm, smi)
+    print("[5/8] kernel: scatter_combine vs plain version, V = 2^20")
+    sc = phase_scatter(scm, smi)
 
-    print(f"[6/6] slice: BFS on RMAT-{BFS_SCALE}")
+    print(f"[6/8] slice: BFS on RMAT-{BFS_SCALE}")
     bfs_graph, bfs_root, sc_launches, rg_bfs = phase_bfs(rg, scm, smi)
 
+    print(f"[7/8] kernel: lane_shuffle vs plain version, "
+          f"[{prr['graph'].advance_route.n // 128}, 128]")
+    lsr = phase_lane_shuffle(ls, prr["graph"], smi)
+
+    print(f"[8/8] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+          f"on the loaded graph")
+    loaded = phase_persistence(ls, rg, scm, prr, lsr["router_s"], smi)
+
     if "--profile" in sys.argv:
-        profile(graph, bfs_graph, bfs_root,
+        profile(prr["graph"], bfs_graph, bfs_root,
                 sys.argv[sys.argv.index("--profile") + 1])
 
+    def times(r: dict) -> dict:
+        return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    rg_paths = {f"pagerank_rmat{SCALE}": prr["launches"],
+                f"bfs_do_rmat{BFS_SCALE}": rg_bfs,
+                f"loaded_rmat{SCALE}": loaded["route_gather_finish"]}
+    sc_paths = {f"bfs_do_rmat{BFS_SCALE}": sc_launches,
+                f"loaded_rmat{SCALE}": loaded["scatter_combine"]}
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "route_gather_finish", "route": "cuda",
         "source": "vectorgraphlibrary_tpu_torch/csrc/route_gather.cu",
-        "replaces": REPLACES, "launches": launches + rg_bfs,
-        "launches_by_path": {f"pagerank_rmat{SCALE}": launches,
-                             f"bfs_do_rmat{BFS_SCALE}": rg_bfs},
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-        "random_perm_2p24_ms": rand_ms, "random_perm_2p24_plain_ms":
-            rand_plain_ms}, {
+        "replaces": REPLACES, "launches": sum(rg_paths.values()),
+        "launches_by_path": rg_paths, "max_abs_err": max_err, **times(prr),
+        "bound_by": "bytes", "random_perm_2p24_ms": rand_ms,
+        "random_perm_2p24_plain_ms": rand_plain_ms}, {
         "name": "scatter_combine", "route": "cuda",
         "source": "vectorgraphlibrary_tpu_torch/csrc/scatter_combine.cu",
-        "replaces": REPLACES_SCATTER, "launches": sc_launches,
-        "launches_by_path": {f"bfs_do_rmat{BFS_SCALE}": sc_launches},
-        "max_abs_err": sc_err, "ms": sc_ms, "plain_ms": sc_plain_ms}]}))
+        "replaces": REPLACES_SCATTER, "launches": sum(sc_paths.values()),
+        "launches_by_path": sc_paths, "max_abs_err": sc["max_err"],
+        **times(sc), "bound_by": "bytes"}, {
+        "name": "lane_shuffle", "route": "cuda",
+        "source": "vectorgraphlibrary_tpu_torch/csrc/lane_shuffle.cu",
+        "replaces": REPLACES_LANE, "launches": loaded["lane_shuffle"],
+        "launches_by_path": {f"loaded_rmat{SCALE}": loaded["lane_shuffle"]},
+        "max_abs_err": lsr["max_err"], **times(lsr), "bound_by": "bytes"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

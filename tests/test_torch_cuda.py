@@ -1,7 +1,7 @@
-"""PyTorch port on the card: the route-gather and scatter-combine kernels
-against their plain versions (bit for bit), their launch counts, their
-argument checks, and the slices (PageRank, BFS) on CUDA against the same
-slices on the CPU. Every test here needs an NVIDIA GPU and skips
+"""PyTorch port on the card: the route-gather, scatter-combine and
+lane-shuffle kernels against their plain versions (bit for bit), their
+launch counts, their argument checks, and the slices (PageRank, BFS, loading
+a saved graph) on CUDA against the same slices on the CPU. Every test here needs an NVIDIA GPU and skips
 without one. The file needs no JAX (the card's host has none), so on the card
 run it without tests/conftest.py, which imports jax:
 
@@ -13,10 +13,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph
+from vectorgraphlibrary_tpu_torch.graph.persistence import (
+    load_graph_from_binary_file, save_graph_to_binary_file)
 from vectorgraphlibrary_tpu_torch.io import generation
 from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
 from vectorgraphlibrary_tpu_torch.models import bfs, common, pr
 from vectorgraphlibrary_tpu_torch.ops import monoid
+from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
 from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
 from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as sc
 
@@ -170,3 +173,69 @@ def test_bfs_on_cuda_matches_cpu(cuda):
                            fn(cg, roots[0]).values)
     assert torch.equal(bfs.vgl_msbfs(g, roots * 11).values.cpu(),
                        bfs.vgl_msbfs(cg, roots * 11).values)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 1 << 10])
+@pytest.mark.parametrize("dtype", ["f32", "i32", "i8", "u8", "bool"])
+def test_lane_shuffle_equals_plain_version(cuda, dtype, rows):
+    rng = np.random.default_rng(rows)
+    idx = np.argsort(rng.random((rows, 128)), axis=1).astype(np.int32)
+    shape = (rows, 128)
+    x = {"f32": lambda: rng.standard_normal(shape).astype(np.float32),
+         "i32": lambda: _i32(rng, rows * 128).reshape(shape),
+         "i8": lambda: rng.integers(-128, 128, shape).astype(np.int8),
+         "u8": lambda: rng.integers(0, 256, shape).astype(np.uint8),
+         "bool": lambda: rng.integers(0, 2, shape).astype(bool)}[dtype]()
+    x, idx = torch.from_numpy(x).to(cuda), torch.from_numpy(idx).to(cuda)
+    for ix in (idx, torch.zeros_like(idx), idx.flip(1).contiguous()):
+        before = ls.lane_shuffle.launches
+        got = ls.lane_shuffle(x, ix)
+        torch.cuda.synchronize()
+        assert ls.lane_shuffle.launches == before + 1
+        want = ls.lane_shuffle_ref(x, ix)
+        assert got.dtype == want.dtype
+        if dtype == "f32":
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want)
+
+
+def test_lane_shuffle_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(4, 128, device=cuda)
+    idx = torch.zeros(4, 128, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ls.lane_shuffle(x.double(), idx)
+    with pytest.raises(TypeError):
+        ls.lane_shuffle(x, idx.long())
+    with pytest.raises(ValueError):
+        ls.lane_shuffle(torch.zeros(4, 64, device=cuda), idx[:, :64])
+    with pytest.raises(ValueError):
+        ls.lane_shuffle(x, idx.cpu())
+    with pytest.raises(ValueError):         # 4-byte offset: not 16-aligned
+        ls.lane_shuffle(torch.zeros(4 * 128 + 1, device=cuda)[1:]
+                        .view(4, 128), idx)
+
+
+def test_cuda_load_equals_cpu_load(cuda, tmp_path):
+    ec = generation.rmat(10, 8, seed=3, weighted=False)
+    path = str(tmp_path / "g.npz")
+    save_graph_to_binary_file(import_graph(ec, device="cpu"), path)
+    cg = load_graph_from_binary_file(path, device="cpu")
+    ls.lane_shuffle.launches = 0
+    g = load_graph_from_binary_file(path, device=cuda)
+    torch.cuda.synchronize()
+    assert ls.lane_shuffle.launches == 8
+    for name in ("advance_route", "vertex_route_s_from_g",
+                 "vertex_route_s_from_o", "vertex_route_g_from_o"):
+        a, b = getattr(g, name), getattr(cg, name)
+        for f in ("fwd_idx", "inv_idx", "flags_fwd", "flags_inv"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert (x is None) == (y is None), (name, f)
+            if x is not None:
+                assert torch.equal(x.cpu(), y), (name, f)
+    for d in ("outgoing", "incoming"):
+        for a, b in zip(getattr(g, d).buckets, getattr(cg, d).buckets):
+            assert torch.equal(a.adj.cpu(), b.adj)
+    ranks = pr.vgl_page_rank(g, max_iterations=20, use_convergence=False)[0]
+    want = pr.vgl_page_rank(cg, max_iterations=20, use_convergence=False)[0]
+    np.testing.assert_allclose(ranks.values.cpu().numpy(),
+                               want.values.numpy(), rtol=1e-5, atol=1e-8)

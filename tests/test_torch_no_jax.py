@@ -1,6 +1,7 @@
 """PyTorch port: no module of the port (nor chip_smoke.py) imports jax or the
-JAX package, and running the slice on the CPU neither loads the JAX package's
-native library nor launches a kernel."""
+JAX package, and running the slices on the CPU (PageRank, saving a graph,
+which runs the port's own Beneš router, and loading it) neither loads the
+JAX package's native library nor launches a kernel."""
 import os
 import subprocess
 import sys
@@ -12,7 +13,7 @@ pytest.importorskip("torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys, tempfile
 import vectorgraphlibrary_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -21,9 +22,16 @@ import chip_smoke
 from vectorgraphlibrary_tpu_torch.io import generation
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph
 from vectorgraphlibrary_tpu_torch.models import pr
+from vectorgraphlibrary_tpu_torch.graph import persistence
+from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
 from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
 g = import_graph(generation.rmat(9, 4, seed=1, weighted=False), device="cpu")
 pr.vgl_page_rank(g, max_iterations=2, use_convergence=False)
+with tempfile.TemporaryDirectory() as d:
+    persistence.save_graph_to_binary_file(g, os.path.join(d, "g.npz"))
+    g2 = persistence.load_graph_from_binary_file(os.path.join(d, "g.npz"),
+                                                 device="cpu")
+pr.vgl_page_rank(g2, max_iterations=2, use_convergence=False)
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "vectorgraphlibrary_tpu" or m.startswith("vectorgraphlibrary_tpu.")]
@@ -31,7 +39,8 @@ maps = open("/proc/self/maps").read() if sys.platform == "linux" else ""
 print("MODULES", len(names))
 print("BAD", bad)
 print("NATIVE", "libvgl_native" in maps)
-print("LAUNCHES", rg.route_gather_finish.launches)
+print("ROUTER", "libvgl_router" in maps)
+print("LAUNCHES", rg.route_gather_finish.launches + ls.lane_shuffle.launches)
 """
 
 
@@ -41,8 +50,9 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stdout + out.stderr
     lines = dict(ln.split(" ", 1) for ln in out.stdout.splitlines()
                  if ln.split(" ", 1)[0] in ("MODULES", "BAD", "NATIVE",
-                                            "LAUNCHES"))
+                                            "ROUTER", "LAUNCHES"))
     assert int(lines["MODULES"]) >= 20
     assert lines["BAD"] == "[]"
     assert lines["NATIVE"] == "False"
+    assert lines["ROUTER"] == "True"          # the port's own router ran
     assert lines["LAUNCHES"] == "0"

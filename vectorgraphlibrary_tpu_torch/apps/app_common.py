@@ -1,8 +1,9 @@
 """Shared benchmark-app skeleton (port of apps/app_common.py).
 
 Every app follows the reference main shape (`apps/bfs/bfs.cpp:15-62`):
-parse → generate and import the graph → one untimed warmup round → measured
-rounds, each checked against the sequential oracle with -check → AVG_PERF.
+parse → load or generate the edges (runtime.load_edges) and import them →
+one untimed warmup round → measured rounds, each checked against the
+sequential oracle with -check → AVG_PERF.
 
     python -m vectorgraphlibrary_tpu_torch.apps.<app> -s 14 -e 16 -it 3 -check
 
@@ -16,11 +17,9 @@ import time
 
 import torch
 
-from ..config import SyntheticGraphType
 from ..graph.device import import_graph
-from ..io import generation
 from ..models import common
-from ..runtime import cli
+from ..runtime import cli, runtime
 from ..runtime.perf_stats import PerformanceStats
 
 
@@ -45,9 +44,7 @@ def run_app(app_name: str, run_round, check_round=None,
               f"{torch.cuda.get_device_name(device)}")
     else:
         print(f"VGL (PyTorch) init: device {device}")
-    kind = "rmat" if cfg.synthetic_type == SyntheticGraphType.RMAT else "ru"
-    ec = generation.generate(kind, cfg.scale, cfg.avg_degree, cfg.seed,
-                             weighted=False)
+    ec = runtime.load_edges(cfg)
     graph = import_graph(ec, cfg, device=device)
     weights = None
     print(f"graph: |V|={graph.v} |E|={graph.e}")

@@ -1,9 +1,12 @@
 """Build and load the port's CUDA kernels (every csrc/*.cu in one library).
 
-nvcc compiles all sources for sm_90a into one shared library with a plain C
-interface, at first use, into the gitignored .cache/torch_kernels/, keyed by a
-hash of the sources and the flags; ctypes loads it. Each wrapper module asks
+nvcc compiles every source for sm_90a, one process per source, all started
+together, and links them into one shared library with a plain C interface,
+at first use, into the gitignored .cache/torch_kernels/, keyed by a hash of
+the sources and the flags; ctypes loads it. Each wrapper module asks
 for its entry points through `entry`, which declares their argument types.
+`compile_shared` is the build step itself; the host router (native.py) uses
+it with the host compiler.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -22,7 +26,7 @@ _CSRC = _PKG_DIR / "csrc"
 # gitignored: the repository's .gitignore lists .cache/
 _BUILD_DIR = _PKG_DIR.parent / ".cache" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -44,32 +48,60 @@ def _nvcc() -> str:
     return found
 
 
+def compile_shared(stem: str, sources: Sequence[Path], compiler: str,
+                   flags: Sequence[str],
+                   link_flags: Sequence[str] = ("-shared",)
+                   ) -> tuple[Path, str, float]:
+    """Compile each of `sources` to an object with `flags`, all at once, and
+    link them with `link_flags` into .cache/torch_kernels/<stem>_<hash>.so,
+    once per hash of the sources and the flags. Safe for concurrent
+    processes: each writes its own temporary files and renames the library
+    into place. Returns the library's path, the compiler's output and the
+    build's seconds (both empty when the library was already built). Raises
+    if the build fails."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join([*flags, *link_flags]).encode())
+    so = _BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so, "", 0.0
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    objs = [so.with_suffix(f".{i}.{os.getpid()}.o")
+            for i in range(len(sources))]
+    cmds = [[compiler, *flags, "-c", "-o", str(o), str(s)]
+            for o, s in zip(objs, sources)]
+    cmds.append([compiler, *link_flags, "-o", str(tmp), *map(str, objs)])
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(sources)) as pool:
+            procs = list(pool.map(lambda c: subprocess.run(
+                c, capture_output=True, text=True), cmds[:-1]))
+        if all(p.returncode == 0 for p in procs):
+            procs.append(subprocess.run(cmds[-1], capture_output=True,
+                                        text=True))
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
+    log = "".join(p.stdout + p.stderr for p in procs)
+    if any(p.returncode != 0 for p in procs):
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{compiler} failed:\n{log}")
+    os.replace(tmp, so)
+    return so, log, seconds
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the port's kernel library."""
     global _lib, build_log, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
-        sources = sorted(_CSRC.glob("*.cu"))
-        h = hashlib.sha256()
-        for src in sources:
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        so = _BUILD_DIR / f"libvgl_kernels_{h.hexdigest()[:16]}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{build_log}")
-            os.replace(tmp, so)
+        so, build_log, build_seconds = compile_shared(
+            "libvgl_kernels", sorted(_CSRC.glob("*.cu")), _nvcc(), NVCC_FLAGS)
         _lib = ctypes.CDLL(str(so))
         return _lib
 

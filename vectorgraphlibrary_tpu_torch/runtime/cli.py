@@ -2,7 +2,8 @@
 vectorgraphlibrary_tpu/runtime/cli.py that the ported apps use).
 
 Reference flag surface `vgl_runtime/helpers/cmd_parser/cmd_parser.hpp:58-228`:
-synthetic graph (-s/-e with -rmat/-ru, -seed), -check, -it, -dev, and the
+graph source (-load a binary .el_container, -import a KONECT text file, or a
+synthetic graph: -s/-e with -rmat/-ru, -seed), -check, -it, -dev, and the
 BFS variant flags -td/-bu/-do (cfg.algorithm_variant).
 """
 from __future__ import annotations
@@ -15,6 +16,10 @@ from ..config import VGLConfig, SyntheticGraphType
 def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=app,
                                 description=f"VGL (PyTorch/CUDA) {app} benchmark")
+    p.add_argument("-load", dest="load_path", default=None,
+                   help="load binary .el_container graph")
+    p.add_argument("-import", dest="import_path", default=None,
+                   help="import KONECT text graph")
     p.add_argument("-s", "-scale", dest="scale", type=int, default=14,
                    help="log2 |V| for synthetic graphs")
     p.add_argument("-e", "-edges", dest="avg_degree", type=int, default=16,
@@ -44,6 +49,8 @@ def parse_args(argv=None, app: str = "vgl") -> VGLConfig:
         avg_degree=ns.avg_degree,
         synthetic_type=(SyntheticGraphType.RANDOM_UNIFORM if ns.ru
                         else SyntheticGraphType.RMAT),
+        load_path=ns.load_path,
+        import_path=ns.import_path,
         check=ns.check,
         iterations=ns.iterations,
         algorithm_variant=variant,
