@@ -13,19 +13,33 @@ result line):
 4. slice: PageRank on RMAT-18 (average degree 32, seed 42, unweighted, 100
    iterations, no convergence test) through import_graph and vgl_page_rank;
    the ranks must pass verify_ranking_results against seq_page_rank, the
-   route kernel must have launched exactly 201 times in the vgl_page_rank
-   call, and the MTEPS (|E| * 100 / time) of three more runs are printed;
+   vgl_page_rank call must launch pull_reduce exactly 100 times and
+   route_gather_finish once (the out-degrees' vertex route), two runs must
+   give the same bits, and the MTEPS (|E| * 100 / time) of three more runs
+   are printed. Then pull_reduce against its plain version on that graph
+   (f32 add within rtol 1e-5 / atol 1e-6, every other case exactly: f32
+   add without self-loops and min over GATHER, add and max over SCATTER,
+   i32 min, max and or, int8 any01), its time beside the plain version's
+   and torch.mv of the CSR tensor; the route kernel on the graph's routes,
+   timed on the vertex route the path runs and on the 2^24 advance route;
 5. kernel: scatter_combine against its plain version on the card, bit for
    bit, into V = 2^20 int32 vertices from 2^15, 2^16 and 2^17 destinations
    (an eighth of them dropped), all dropped, and none; min and max of random
-   int32 messages and or of message 1; kernel and plain times, and the three
-   variants of apps/exp_push.py;
+   int32 messages and or of message 1; kernel and plain times, device times
+   by torch.profiler, and the three variants of apps/exp_push.py. Then
+   push_expand against its plain version, bit for bit, on the RMAT-20
+   graph's outgoing CSR: frontiers of about 2^15, 2^16 and 2^17 edges, 2^16
+   edges into a capacity of 2^15, zero-degree and invalid entries, and an
+   empty frontier, each with min, max and or; kernel and plain times;
 6. slice: BFS on RMAT-20 (average degree 16, seed 42, unweighted) through
    import_graph and the BFS entry points: vgl_bfs_device on 8 roots (each
-   with error count 0 against seq_top_down, scatter_combine launched twice
-   per top-down level and the route kernel in the bottom-up levels),
-   vgl_top_down and vgl_bfs (-bu) on one root, vgl_msbfs on 64 roots (4
-   rows checked); per-root DO GTEPS and MS-BFS aggregate GTEPS, medians of 3;
+   with error count 0 against seq_top_down, and per root push_expand
+   launched once per top-down level, pull_reduce once per bottom-up level,
+   route_gather_finish twice per bottom-up level and scatter_combine never),
+   vgl_top_down and vgl_bfs (-bu) on one root, vgl_msbfs on 64 roots (4 rows
+   checked); pull_reduce against its plain version at the bottom-up shape
+   (int8 any01 over GATHER) and on int32 words, timed; per-root DO GTEPS and
+   MS-BFS aggregate GTEPS, medians of 3;
 7. kernel: lane_shuffle against its plain version on the card, bit for bit,
    at [2^17, 128] (n = 2^24): random per-row permutations of f32, i32 and
    int8 values, and the forward and inverse lane indices of the phase-4
@@ -35,17 +49,18 @@ result line):
    temporary directory), load on the card (exactly 8 lane_shuffle launches:
    two per plan), every plan's indices and flags and every tile equal to the
    phase-4 graph's; vgl_page_rank (100 iterations) on the loaded graph equal
-   to the phase-4 ranks and error count 0 against seq_page_rank; one
-   vgl_bfs_device root equal to the phase-4 graph's levels; the same load
-   from a slim copy of the file (word masks only, as a TPU host saves it).
+   to the phase-4 ranks bit for bit and error count 0 against
+   seq_page_rank; one vgl_bfs_device root equal to the phase-4 graph's
+   levels; the same load from a slim copy of the file (word masks only, as
+   a TPU host saves it).
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
-version's time, the one-call PyTorch time (library_ms) and its bound
-(bound_ms: the bytes it must move at the H100's 3.35 TB/s) at the main
-path's shapes. The last line is {"ok": true, "device": {...}}. --profile DIR also writes torch.profiler
-tables of one 10-iteration PageRank run and one DO-BFS root to DIR (not part
-of the default run).
+version's time, the one-call PyTorch time (library_ms, null where there is
+none) and its bound (bound_ms: the bytes it must move at the H100's 3.35
+TB/s) at the main path's shapes. The last line is {"ok": true, "device":
+{...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
+PageRank run and one DO-BFS root to DIR (not part of the default run).
 """
 from __future__ import annotations
 
@@ -166,7 +181,52 @@ def phase_kernel(rg) -> tuple[float, float, float]:
     return max_err, k_ms, p_ms
 
 
-def phase_pagerank(rg, smi: str):
+def _pull_check(pl, label: str, dg, x, op: str, excl: bool) -> float:
+    """pull_reduce against its plain version on the same inputs, with the
+    graph's work units: f32 sums at rtol 1e-5 / atol 1e-6 (the plain version
+    sums each row in another order), everything else exactly. Returns the
+    max abs error."""
+    from vectorgraphlibrary_tpu_torch.ops.advance import row_groups
+    got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, row_groups(dg))
+    want = pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op, excl)
+    torch.cuda.synchronize()
+    # equal entries (identities of empty rows, inf or not) count as 0
+    err = torch.where(got == want, 0.0, (got.double() - want.double()).abs()) \
+        .max().item()
+    if op == "add" and x.dtype == torch.float32:
+        ok = bool(torch.isclose(got, want, rtol=1e-5, atol=1e-6).all())
+        how = "within rtol 1e-5, atol 1e-6"
+    else:
+        ok = torch.equal(got, want)
+        how = "exact"
+    print(f"  pull_reduce {label}: {how if ok else 'MISMATCH'} (max abs err "
+          f"{err})")
+    if not ok:
+        raise AssertionError(f"pull_reduce != plain version: {label}")
+    return err
+
+
+def _pull_times(pl, dg, x, op: str, excl: bool, label: str, smi: str) -> dict:
+    """Kernel and plain version on the same pull, medians of 3, each the mean
+    of 10 launches."""
+    from vectorgraphlibrary_tpu_torch.ops.advance import row_groups
+    groups = row_groups(dg)
+    k_ms = _median3(f"pull_reduce {label}, kernel", "ms",
+                    [_cuda_ms(lambda: pl.pull_reduce(
+                        dg.row_ptr, dg.col_idx, x, op, excl, groups))
+                     for _ in range(3)], smi)
+    p_ms = _median3(f"pull_reduce {label}, plain", "ms",
+                    [_cuda_ms(lambda: pl.pull_reduce_ref(
+                        dg.row_ptr, dg.col_idx, x, op, excl))
+                     for _ in range(3)], smi)
+    # bytes it must move: row_ptr, col_idx of the real edges, x, out
+    bound = _bound_ms((dg.v_pad + 1) * 4 + dg.e * 4
+                      + 2 * dg.v_pad * x.element_size())
+    print(f"  pull_reduce {label} bound {bound:.4f} ms (groups {groups})")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound)
+
+
+def phase_pagerank(rg, pl, smi: str):
     from vectorgraphlibrary_tpu_torch.graph.device import import_graph
     from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
     from vectorgraphlibrary_tpu_torch.io import generation
@@ -186,18 +246,20 @@ def phase_pagerank(rg, smi: str):
 
     torch.cuda.reset_peak_memory_stats()
     rg.route_gather_finish.launches = 0
+    pl.pull_reduce.launches = 0
     t0 = time.perf_counter()
     ranks, iters = pr.vgl_page_rank(graph, max_iterations=ITERS,
                                     use_convergence=False)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = rg.route_gather_finish.launches
+    launches = dict(pull_reduce=pl.pull_reduce.launches,
+                    route_gather_finish=rg.route_gather_finish.launches)
     peak = torch.cuda.max_memory_allocated()
-    print(f"  vgl_page_rank: {iters} iterations, {launches} route-gather "
-          f"launches, first run {first_s:.4f} s, peak device memory "
-          f"{peak / 2**20:.1f} MiB")
-    if launches != 1 + 2 * ITERS:
-        raise AssertionError(f"expected {1 + 2 * ITERS} launches, got {launches}")
+    print(f"  vgl_page_rank: {iters} iterations, launches {launches}, first "
+          f"run {first_s:.4f} s, peak device memory {peak / 2**20:.1f} MiB")
+    if launches != dict(pull_reduce=ITERS, route_gather_finish=1):
+        raise AssertionError(f"expected {ITERS} pull_reduce launches and 1 "
+                             f"route_gather_finish launch, got {launches}")
     vals = ranks.values
     if vals.shape != (graph.v_pad,) or not bool(torch.isfinite(vals).all()):
         raise AssertionError("ranks are not finite values of shape [v_pad]")
@@ -219,14 +281,60 @@ def phase_pagerank(rg, smi: str):
     deterministic = torch.equal(vals, last.values)
     print(f"  two vgl_page_rank runs on one graph: "
           f"{'bit-identical' if deterministic else 'DIFFER'}")
+    if not deterministic:
+        raise AssertionError("two vgl_page_rank runs on one graph differ")
     rates = sorted(ec.edges_count * ITERS / t / 1e6 for t in times)
     print(f"  PR RMAT-{SCALE} MTEPS median {rates[1]:.1f} (min {rates[0]:.1f}, "
           f"max {rates[2]:.1f}; runs {', '.join(f'{t:.4f}' for t in times)} s) "
           f"on {smi}")
 
-    # the main path's own route calls, kernel against plain version: the
-    # advance route with the PR finish, the G->S vertex route on f32 ranks,
-    # the inverse vertex route on int32 out-degrees
+    # the pull kernel against its plain version on this graph: the path's
+    # own pull (f32 add without self-loops over GATHER), then the other
+    # directions, monoids and types it takes
+    from vectorgraphlibrary_tpu_torch.models.bfs import G, S
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    v_pad = graph.v_pad
+    xf = torch.rand(v_pad, device=DEVICE, generator=gen)
+    xi = torch.randint(-2**31, 2**31 - 1, (v_pad,), device=DEVICE,
+                       generator=gen, dtype=torch.int32)
+    xb = torch.randint(0, 2, (v_pad,), device=DEVICE, generator=gen,
+                       dtype=torch.int8)
+    g_in, g_out = graph.direction(G), graph.direction(S)
+    pull_err = max(
+        _pull_check(pl, f"RMAT-{SCALE} G f32 add excl", g_in, xf, "add", True),
+        _pull_check(pl, f"RMAT-{SCALE} S f32 add", g_out, xf, "add", False),
+        _pull_check(pl, f"RMAT-{SCALE} G f32 min", g_in, xf, "min", False),
+        _pull_check(pl, f"RMAT-{SCALE} S f32 max excl", g_out, xf, "max",
+                    True),
+        _pull_check(pl, f"RMAT-{SCALE} G i32 min", g_in, xi, "min", False),
+        _pull_check(pl, f"RMAT-{SCALE} S i32 max excl", g_out, xi, "max",
+                    True),
+        _pull_check(pl, f"RMAT-{SCALE} G i32 or", g_in, xi, "or", False),
+        _pull_check(pl, f"RMAT-{SCALE} G i8 any01", g_in, xb, "any01", False),
+        _pull_check(pl, f"RMAT-{SCALE} S i8 any01 excl", g_out, xb, "any01",
+                    True))
+    pull = _pull_times(pl, g_in, xf, "add", True,
+                       f"RMAT-{SCALE} G f32 add excl", smi)
+    # one-call PyTorch: cuSPARSE SpMV of the CSR with 1.0 per edge and 0.0
+    # on self-loops (the same function up to the order of the sums)
+    e = g_in.e
+    rows = torch.repeat_interleave(
+        torch.arange(v_pad, device=DEVICE, dtype=torch.int32),
+        g_in.degrees.long(), output_size=e)
+    cols = g_in.col_idx[:e]
+    a = torch.sparse_csr_tensor(g_in.row_ptr, cols, (cols != rows).float(),
+                                size=(v_pad, v_pad))
+    lib = _median3(f"pull_reduce RMAT-{SCALE} G f32 add excl, torch.mv of a "
+                   f"CSR tensor", "ms",
+                   [_cuda_ms(lambda: torch.mv(a, xf)) for _ in range(3)], smi)
+    spmv_err = (torch.mv(a, xf) - pl.pull_reduce_ref(
+        g_in.row_ptr, g_in.col_idx, xf, "add", True)).abs().max().item()
+    print(f"  torch.mv against the plain pull: max abs err {spmv_err}")
+    pull.update(max_err=pull_err, library_ms=lib)
+
+    # the route kernel on the path: the inverse vertex route on int32
+    # out-degrees (the one launch per vgl_page_rank), against its plain
+    # version with the other routes of this graph
     fin = FinishSpec(ident=0.0, exclude_self_loops=True)
     vplan = graph.vertex_route_s_from_g
     msgs = torch.rand(plan.n, device=DEVICE)
@@ -238,31 +346,39 @@ def phase_pagerank(rg, smi: str):
                torch.rand(vplan.n, device=DEVICE), vplan.fwd_idx, {}),
         _check(rg, f"RMAT-{SCALE} vertex route i32 inv",
                graph.outgoing.degrees, vplan.inv_idx, {}))
+    degs = graph.outgoing.degrees
+    k_ms = _median3(f"route_gather_finish RMAT-{SCALE} vertex route i32 inv, "
+                    f"kernel", "ms", [_cuda_ms(lambda: rg.route_gather_finish(
+                        degs, vplan.inv_idx)) for _ in range(3)], smi)
+    p_ms = _median3(f"route_gather_finish RMAT-{SCALE} vertex route i32 inv, "
+                    f"plain", "ms", [_cuda_ms(lambda: rg.route_gather_finish_ref(
+                        degs, vplan.inv_idx)) for _ in range(3)], smi)
+    lib_ms = _median3(f"route_gather_finish RMAT-{SCALE} vertex route i32 inv, "
+                      f"index_select", "ms", [_cuda_ms(lambda: torch.index_select(
+                          degs, 0, vplan.inv_idx)) for _ in range(3)], smi)
+    bound = _bound_ms(vplan.n * (4 + 4 + 4))      # idx, x, out
+    print(f"  route_gather_finish vertex route bound {bound:.4f} ms")
+    # the advance route with the PR finish, as PRs 1-3 timed it
     ks, ps = [], []
     for _ in range(3):
         ks.append(_cuda_ms(lambda: apply_route(plan, msgs, finish=fin)))
         ps.append(_cuda_ms(lambda: rg.route_gather_finish_ref(
             msgs, plan.fwd_idx, flags=plan.flags_fwd, exclude_self_loops=True,
             ident=0.0)))
-    k_ms, p_ms = statistics.median(ks), statistics.median(ps)
-    # one-call PyTorch: the same gather without the finish
-    lib_ms = statistics.median(
-        _cuda_ms(lambda: torch.index_select(msgs, 0, plan.fwd_idx))
-        for _ in range(3))
-    # bytes it must move: flags and out for every slot, idx and x only for
-    # the slots the finish keeps (valid, not a self-loop)
+    adv_ms, adv_plain_ms = statistics.median(ks), statistics.median(ps)
     f = plan.flags_fwd
     kept = int(((f & 1 != 0) & (f & 2 == 0)).sum())
-    bound = _bound_ms(plan.n * (1 + 4) + kept * (4 + 4))
-    print(f"  RMAT-{SCALE} advance route f32 fwd finish: kernel {k_ms:.4f} ms "
-          f"(runs {', '.join(f'{t:.4f}' for t in ks)}), plain {p_ms:.4f} ms "
-          f"(runs {', '.join(f'{t:.4f}' for t in ps)}), index_select "
-          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({kept} of {plan.n} slots "
-          f"kept) on {smi}")
+    adv_bound = _bound_ms(plan.n * (1 + 4) + kept * (4 + 4))
+    print(f"  RMAT-{SCALE} advance route f32 fwd finish (no longer on the "
+          f"path): kernel {adv_ms:.4f} ms (runs "
+          f"{', '.join(f'{t:.4f}' for t in ks)}), plain {adv_plain_ms:.4f} ms, "
+          f"bound {adv_bound:.4f} ms on {smi}")
+    route = dict(max_err=max_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                 bound_ms=bound, advance_route_2p24_ms=adv_ms,
+                 advance_route_2p24_plain_ms=adv_plain_ms,
+                 advance_route_2p24_bound_ms=adv_bound)
     return dict(graph=graph, ec=ec, ranks=vals, oracle=want,
-                deterministic=deterministic, launches=launches,
-                max_err=max_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                bound_ms=bound)
+                launches=launches, route=route, pull=pull)
 
 
 def _median3(label: str, unit: str, values, smi: str) -> float:
@@ -272,11 +388,55 @@ def _median3(label: str, unit: str, values, smi: str) -> float:
     return v[1]
 
 
-def phase_scatter(scm, smi: str) -> dict:
+def _profiled_ms(fn, reps: int = 10) -> dict:
+    """Device time per call by torch.profiler over `reps` calls, in ms: each
+    device event's name (kernels, copies) with its total, and "total"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / reps / 1e3)
+    by_name["total"] = sum(by_name.values())
+    return by_name
+
+
+def _frontier(graph, rng, edges: int, zero_degree: int = 0):
+    """A compacted SCATTER-ordered frontier of random vertices whose
+    out-degrees sum to about `edges`, plus `zero_degree` vertices of degree
+    0; its capacity is twice the next power of two of its size, so it has
+    invalid entries too. Returns (ids, valid, degree sum)."""
+    from vectorgraphlibrary_tpu_torch.graph import frontier
+    from vectorgraphlibrary_tpu_torch.models import bfs, common
+    degs = graph.outgoing.degrees.cpu().numpy()[:graph.v]
+    mask = np.zeros(graph.v_pad, bool)
+    if edges:
+        # rows below the huge class, so the sum lands near `edges`
+        order = rng.permutation(np.flatnonzero((degs > 0) & (degs <= 256)))
+        mask[order[:int(np.searchsorted(np.cumsum(degs[order]), edges)) + 1]] \
+            = True
+    mask[np.flatnonzero(degs == 0)[:zero_degree]] = True
+    fr = frontier.from_mask(graph, torch.from_numpy(mask).to(DEVICE), bfs.S)
+    size = int(fr.size)
+    ids, valid = frontier.compact_ids(fr, 2 * common.next_pow2(max(size, 8)))
+    return ids, valid, int(fr.neighbours_count)
+
+
+def phase_scatter(scm, pe, graph, smi: str) -> dict:
     """scatter_combine against its plain version at the BFS push's shapes
-    (V = 2^20 vertices); returns the max abs error and the times of the BFS
-    combine (min) at the largest default tier, 2^16 messages."""
+    (V = 2^20 vertices), and push_expand against its plain version on the
+    RMAT-20 graph's outgoing CSR; returns both kernels' errors and times (the
+    BFS combine, min, at the largest default tier, 2^16 edges)."""
     from vectorgraphlibrary_tpu_torch.apps import exp_push
+    from vectorgraphlibrary_tpu_torch.models.common import next_pow2
     rng = np.random.default_rng(SEED)
     v = 1 << 20
     dev = torch.device(DEVICE)
@@ -324,36 +484,108 @@ def phase_scatter(scm, smi: str) -> dict:
                       [_cuda_ms(lambda: torch.scatter_reduce(
                           out, 0, idx_in, msg_in, "amin")) for _ in range(3)],
                       smi)
+    # device time alone (torch.profiler): the kernel, the copy of the target
+    # it returns, and the library call's kernels
+    dev_k = _profiled_ms(lambda: scm.scatter_combine(out, idx, msg, "min"))
+    dev_l = _profiled_ms(lambda: torch.scatter_reduce(out, 0, idx_in, msg_in,
+                                                      "amin"))
+    print(f"  scatter_combine min 2^16 -> 2^20, device ms per call by "
+          f"torch.profiler: {json.dumps(dev_k)}; scatter_reduce: "
+          f"{json.dumps(dev_l)}")
     # bytes it must move: out read and the copy written (4 B each per
     # vertex), every index, the messages that land
     bound = _bound_ms(8 * v + 4 * idx.shape[0] + 4 * idx_in.shape[0])
     print(f"  scatter_combine bound {bound:.4f} ms")
+    # the apps/exp_push.py path, the app that times the TPU kernel's port
+    scm.scatter_combine.launches = 0
     res = exp_push.measure(DEVICE)
+    torch.cuda.synchronize()
+    exp_launches = scm.scatter_combine.launches
     print("  exp_push (ms per scatter of message 1 into 2^20): "
-          + ", ".join(f"{k} {t:.4f}" for k, t in res.items()))
-    return dict(max_err=max_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                bound_ms=bound)
+          + ", ".join(f"{k} {t:.4f}" for k, t in res.items())
+          + f"; scatter_combine launches {exp_launches}")
+    if not exp_launches:
+        raise AssertionError("exp_push did not launch scatter_combine")
+    sc = dict(max_err=max_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+              bound_ms=bound, device_ms=dev_k["total"],
+              library_device_ms=dev_l["total"], launches=exp_launches)
+
+    # push_expand on the RMAT-20 graph's outgoing CSR, bit for bit
+    dg = graph.outgoing
+    target = torch.full((graph.v_pad,), 2**31 - 1, dtype=torch.int32,
+                        device=dev)
+    target[::3] = 2
+    frontiers = [(f"~2^{lg} edges", _frontier(graph, rng, 1 << lg), 0)
+                 for lg in (15, 16, 17)]
+    frontiers.append(("~2^16 edges past a capacity of half",
+                      _frontier(graph, rng, 1 << 16), 1 << 15))
+    frontiers.append(("zero-degree and invalid entries",
+                      _frontier(graph, rng, 1 << 12, zero_degree=500), 0))
+    frontiers.append(("empty", _frontier(graph, rng, 0), 64))
+    pe_err = 0.0
+    for label, (ids, valid, nbrs), ecap in frontiers:
+        ecap = ecap or next_pow2(nbrs)
+        for op, m, base in (("min", 5, target), ("max", 7, out[:graph.v_pad]),
+                            ("or", 1 << 9, out[:graph.v_pad])):
+            got = pe.push_expand(base, dg.row_ptr, dg.col_idx, dg.degrees, ids,
+                                 valid, ecap, m, op)
+            want = pe.push_expand_ref(base, dg.row_ptr, dg.col_idx, dg.degrees,
+                                      ids, valid, ecap, m, op)
+            torch.cuda.synchronize()
+            err = (got.double() - want.double()).abs().max().item()
+            ok = torch.equal(got, want)
+            print(f"  push_expand {label} ({int(valid.sum())} entries of "
+                  f"{ids.shape[0]}, {nbrs} edges, capacity {ecap}) {op}: "
+                  f"{'bit-exact' if ok else 'MISMATCH'} (max abs err {err})")
+            if not ok:
+                raise AssertionError(f"push_expand != plain version: {label} "
+                                     f"{op}")
+            pe_err = max(pe_err, err)
+    ids, valid, nbrs = frontiers[1][1]
+    ecap = next_pow2(nbrs)
+    args = (target, dg.row_ptr, dg.col_idx, dg.degrees, ids, valid, ecap, 5,
+            "min")
+    pk = _median3(f"push_expand min {nbrs} edges -> 2^20, kernel", "ms",
+                  [_cuda_ms(lambda: pe.push_expand(*args)) for _ in range(3)],
+                  smi)
+    pp = _median3(f"push_expand min {nbrs} edges -> 2^20, plain", "ms",
+                  [_cuda_ms(lambda: pe.push_expand_ref(*args))
+                   for _ in range(3)], smi)
+    dev_p = _profiled_ms(lambda: pe.push_expand(*args))
+    print(f"  push_expand device ms per call by torch.profiler: "
+          f"{json.dumps(dev_p)}")
+    # bytes it must move: the target read and its copy written, ids, ends
+    # and row starts of the frontier's entries, col_idx of every edge
+    p_bound = _bound_ms(8 * graph.v_pad + 12 * ids.shape[0]
+                        + 4 * min(nbrs, ecap))
+    print(f"  push_expand bound {p_bound:.4f} ms")
+    push = dict(max_err=pe_err, ms=pk, plain_ms=pp, library_ms=None,
+                bound_ms=p_bound, device_ms=dev_p["total"])
+    return dict(scatter=sc, push=push)
 
 
-def phase_bfs(rg, scm, smi: str):
-    """BFS on RMAT-20 through the port's entry points; returns the graph and
-    the two kernels' launch counts over the 8 vgl_bfs_device calls."""
+def make_bfs_graph():
     from vectorgraphlibrary_tpu_torch.graph.device import import_graph
-    from vectorgraphlibrary_tpu_torch.graph.vertices import (VertexArray,
-                                                             as_original_numpy)
     from vectorgraphlibrary_tpu_torch.io import generation
-    from vectorgraphlibrary_tpu_torch.models import bfs, common
-    from vectorgraphlibrary_tpu_torch.utils.verify import verify_results
-
     t0 = time.perf_counter()
     ec = generation.rmat(BFS_SCALE, BFS_DEGREE, seed=SEED, weighted=False)
     t1 = time.perf_counter()
     graph = import_graph(ec, device=DEVICE)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    print(f"  RMAT-{BFS_SCALE}: |V|={graph.v} |E|={graph.e}, advance route "
-          f"n={graph.advance_route.n}, generate {t1 - t0:.2f} s, import "
-          f"{t2 - t1:.2f} s")
+    print(f"  RMAT-{BFS_SCALE}: |V|={graph.v} |E|={graph.e}, generate "
+          f"{t1 - t0:.2f} s, import {t2 - t1:.2f} s")
+    return ec, graph
+
+
+def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
+    """BFS on RMAT-20 through the port's entry points; returns the kernels'
+    launch counts over the 8 vgl_bfs_device calls and the pull's check and
+    times at the bottom-up shape (int8 any01 over GATHER)."""
+    from vectorgraphlibrary_tpu_torch.graph.vertices import (VertexArray,
+                                                             as_original_numpy)
+    from vectorgraphlibrary_tpu_torch.models import bfs, common
+    from vectorgraphlibrary_tpu_torch.utils.verify import verify_results
 
     def check(label, values, src):
         if values.shape != (graph.v_pad,) or values.dtype != torch.int32:
@@ -364,50 +596,73 @@ def phase_bfs(rg, scm, smi: str):
         if errors:
             raise AssertionError(f"{label} root {src}: error count {errors}")
 
+    kernels = dict(push_expand=pe.push_expand, pull_reduce=pl.pull_reduce,
+                   route_gather_finish=rg.route_gather_finish,
+                   scatter_combine=scm.scatter_combine)
     roots = [common.select_random_source(ec, seed=100 + s)
              for s in range(BFS_ROOTS)]
     torch.cuda.reset_peak_memory_stats()
-    sc_total = rg_total = 0
+    totals = dict.fromkeys(kernels, 0)
     for src in roots:
         trace = []
-        scm.scatter_combine.launches = 0
-        rg.route_gather_finish.launches = 0
+        for k in kernels.values():
+            k.launches = 0
         t0 = time.perf_counter()
         lv = bfs.vgl_bfs_device(graph, src, trace=trace)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        n_sc = scm.scatter_combine.launches
-        n_rg = rg.route_gather_finish.launches
+        n = {name: k.launches for name, k in kernels.items()}
         td = sum(t[0] == "td" for t in trace)
+        bu = len(trace) - td
         print(f"  vgl_bfs_device root {src}: {len(trace)} levels ({td} "
-              f"top-down, {len(trace) - td} bottom-up), scatter_combine "
-              f"launches {n_sc}, route_gather launches {n_rg}, {dt:.4f} s")
-        if n_sc != 2 * td:
-            raise AssertionError(f"scatter_combine launched {n_sc} times, "
-                                 f"expected 2 x {td} top-down levels")
-        if (n_rg > 0) != (td < len(trace)):
-            raise AssertionError(f"route_gather launched {n_rg} times in "
-                                 f"{len(trace) - td} bottom-up levels")
-        sc_total += n_sc
-        rg_total += n_rg
+              f"top-down, {bu} bottom-up), launches {n}, {dt:.4f} s")
+        # one push per top-down level; one pull per bottom-up level, whose
+        # S-ordered levels take a vertex route in and one back out
+        want = dict(push_expand=td, pull_reduce=bu,
+                    route_gather_finish=2 * bu, scatter_combine=0)
+        if n != want:
+            raise AssertionError(f"launches {n}, expected {want}")
+        for name in totals:
+            totals[name] += n[name]
         check("vgl_bfs_device", lv.values, src)
-    if sc_total == 0 or rg_total == 0:
+    if not (totals["push_expand"] and totals["pull_reduce"]):
         raise AssertionError("the DO-BFS run did not launch both kernels")
+    for k in kernels.values():
+        k.launches = 0
     check("vgl_top_down", bfs.vgl_top_down(graph, roots[0]).values, roots[0])
     check("vgl_bfs -bu", bfs.vgl_bfs(graph, roots[0], alpha=1e-9).values,
           roots[0])
+    print(f"  vgl_top_down and vgl_bfs -bu, root {roots[0]}: launches "
+          f"{ {name: k.launches for name, k in kernels.items()} }")
 
     ms_roots = [common.select_random_source(ec, seed=500 + s)
                 for s in range(MS_ROOTS)]
-    rg.route_gather_finish.launches = 0
+    for k in kernels.values():
+        k.launches = 0
     lv_ms = bfs.vgl_msbfs(graph, ms_roots).values
     torch.cuda.synchronize()
-    print(f"  vgl_msbfs {MS_ROOTS} roots: route_gather launches "
-          f"{rg.route_gather_finish.launches}")
+    print(f"  vgl_msbfs {MS_ROOTS} roots: launches "
+          f"{ {name: k.launches for name, k in kernels.items()} }")
     if lv_ms.shape != (MS_ROOTS, graph.v_pad):
         raise AssertionError(f"vgl_msbfs levels of shape {tuple(lv_ms.shape)}")
     for i in (0, MS_ROOTS // 3, 2 * MS_ROOTS // 3, MS_ROOTS - 1):
         check(f"vgl_msbfs row {i}", lv_ms[i], ms_roots[i])
+
+    # the pull at the bottom-up shape: int8 any01 over GATHER, and MS-BFS's
+    # int32 word or
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    g_in = graph.direction(bfs.G)
+    xb = (torch.rand(graph.v_pad, device=DEVICE, generator=gen) < 0.05) \
+        .to(torch.int8)
+    xi = torch.randint(-2**31, 2**31 - 1, (graph.v_pad,), device=DEVICE,
+                       generator=gen, dtype=torch.int32)
+    pull_err = max(
+        _pull_check(pl, f"RMAT-{BFS_SCALE} G i8 any01", g_in, xb, "any01",
+                    False),
+        _pull_check(pl, f"RMAT-{BFS_SCALE} G i32 or", g_in, xi, "or", False))
+    pull = _pull_times(pl, g_in, xb, "any01", False,
+                       f"RMAT-{BFS_SCALE} G i8 any01", smi)
+    pull["max_err"] = pull_err
 
     # timing: graph500-style protocols of bench.py (warmed up on other roots)
     bfs.vgl_bfs_device_multi(graph, [common.select_random_source(ec, seed=s)
@@ -439,7 +694,7 @@ def phase_bfs(rg, scm, smi: str):
              [edges / t / 1e9 for t in times], smi)
     print(f"  BFS peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB on {smi}")
-    return graph, roots[0], sc_total, rg_total
+    return roots[0], totals, pull
 
 
 def phase_lane_shuffle(ls, graph, smi: str) -> dict:
@@ -530,7 +785,7 @@ def _assert_same_graph(label: str, got, want) -> None:
     print(f"  {label}: all {len(a)} fields equal the fresh graph's")
 
 
-def phase_persistence(ls, rg, scm, fresh: dict, router_s: float,
+def phase_persistence(kernels: dict, fresh: dict, router_s: float,
                       smi: str) -> dict:
     """Save the phase-4 graph, load it on the card (full and slim), and run
     PageRank and one DO-BFS root on the loaded graph; returns the kernels'
@@ -541,6 +796,7 @@ def phase_persistence(ls, rg, scm, fresh: dict, router_s: float,
     from vectorgraphlibrary_tpu_torch.models import bfs, common, pr
     from vectorgraphlibrary_tpu_torch.utils.verify import verify_ranking_results
 
+    ls = kernels["lane_shuffle"]
     graph, ec = fresh["graph"], fresh["ec"]
     src = common.select_random_source(ec, seed=100)
     want_levels = bfs.vgl_bfs_device(graph, src).values
@@ -553,40 +809,33 @@ def phase_persistence(ls, rg, scm, fresh: dict, router_s: float,
               f"{router_s:.2f} s on the advance route in phase 7), file "
               f"{os.path.getsize(path) / 2**20:.1f} MiB")
 
-        ls.lane_shuffle.launches = 0
-        rg.route_gather_finish.launches = 0
-        scm.scatter_combine.launches = 0
+        for k in kernels.values():
+            k.launches = 0
         t0 = time.perf_counter()
         g = load_graph_from_binary_file(path, device=DEVICE)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-        n_ls = ls.lane_shuffle.launches
+        n_ls = ls.launches
         ranks, _ = pr.vgl_page_rank(g, max_iterations=ITERS,
                                     use_convergence=False)
         lv = bfs.vgl_bfs_device(g, src).values
         torch.cuda.synchronize()
-        counts = dict(lane_shuffle=n_ls,
-                      route_gather_finish=rg.route_gather_finish.launches,
-                      scatter_combine=scm.scatter_combine.launches)
+        counts = {name: k.launches for name, k in kernels.items()}
         print(f"  load on {DEVICE}: {load_s:.2f} s; launches on this path "
               f"(load, vgl_page_rank, one DO-BFS root): {counts}")
         if n_ls != 8:
             raise AssertionError(f"load launched lane_shuffle {n_ls} times, "
                                  "expected 8 (two per plan)")
-        if not all(counts.values()):
-            raise AssertionError(f"a kernel of this path did not launch: "
-                                 f"{counts}")
+        if counts["scatter_combine"] or not all(
+                v for k, v in counts.items() if k != "scatter_combine"):
+            raise AssertionError(f"a kernel of this path did not launch, or "
+                                 f"scatter_combine did: {counts}")
         _assert_same_graph("loaded graph", g, graph)
 
         vals = ranks.values
-        if fresh["deterministic"]:
-            same = torch.equal(vals, fresh["ranks"])
-            print(f"  PageRank on the loaded graph: "
-                  f"{'bit-identical to' if same else 'DIFFERS from'} phase 4")
-        else:          # the card's runs on one graph already differ
-            same = torch.allclose(vals, fresh["ranks"], rtol=1e-5, atol=1e-8)
-            print(f"  PageRank on the loaded graph: within rtol 1e-5 of "
-                  f"phase 4: {same}")
+        same = torch.equal(vals, fresh["ranks"])
+        print(f"  PageRank on the loaded graph: "
+              f"{'bit-identical to' if same else 'DIFFERS from'} phase 4")
         if not same:
             raise AssertionError("PageRank on the loaded graph differs")
         errors = verify_ranking_results(as_original_numpy(ranks, g),
@@ -604,21 +853,22 @@ def phase_persistence(ls, rg, scm, fresh: dict, router_s: float,
             np.savez(slim, **{k: z[k] for k in z.files if k.rsplit(".", 1)[-1]
                               not in ("in_masks", "out_masks", "lane_idx")})
         os.remove(path)
-        ls.lane_shuffle.launches = 0
+        ls.launches = 0
         t0 = time.perf_counter()
         g = load_graph_from_binary_file(slim, device=DEVICE)
         torch.cuda.synchronize()
         print(f"  slim load (word masks only, "
               f"{os.path.getsize(slim) / 2**20:.1f} MiB): "
               f"{time.perf_counter() - t0:.2f} s, lane_shuffle launches "
-              f"{ls.lane_shuffle.launches}")
-        if ls.lane_shuffle.launches != 8:
+              f"{ls.launches}")
+        if ls.launches != 8:
             raise AssertionError("slim load: expected 8 lane_shuffle launches")
         _assert_same_graph("slim-loaded graph", g, graph)
     return counts
 
 
 def profile(pr_graph, bfs_graph, bfs_root, out_dir: str) -> None:
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     from vectorgraphlibrary_tpu_torch.models import bfs, pr
     os.makedirs(out_dir, exist_ok=True)
@@ -633,9 +883,13 @@ def profile(pr_graph, bfs_graph, bfs_root, out_dir: str) -> None:
             torch.cuda.synchronize()
         table = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=30)
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        total = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        head = (f"{fname}: {len(dev)} device events (kernels and copies), "
+                f"{total:.4f} ms of device time")
         with open(os.path.join(out_dir, fname), "w") as f:
-            f.write(table)
-        print(fname)
+            f.write(head + "\n" + table)
+        print(head)
         print("\n".join(table.splitlines()[:24]))
 
 
@@ -647,6 +901,8 @@ def main() -> int:
     torch.manual_seed(SEED)
     from vectorgraphlibrary_tpu_torch.ops.cuda import build
     from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
+    from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
     from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
     from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as scm
 
@@ -667,15 +923,19 @@ def main() -> int:
     print("[3/8] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
-    print(f"[4/8] slice: PageRank on RMAT-{SCALE}")
-    prr = phase_pagerank(rg, smi)
-    max_err = max(max_err, prr["max_err"])
+    print(f"[4/8] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+          f"version on its graph")
+    prr = phase_pagerank(rg, pl, smi)
+    prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
-    print("[5/8] kernel: scatter_combine vs plain version, V = 2^20")
-    sc = phase_scatter(scm, smi)
+    print(f"[5/8] kernel: scatter_combine vs plain version, V = 2^20, and "
+          f"push_expand vs plain version on RMAT-{BFS_SCALE}")
+    bfs_ec, bfs_graph = make_bfs_graph()
+    push = phase_scatter(scm, pe, bfs_graph, smi)
 
     print(f"[6/8] slice: BFS on RMAT-{BFS_SCALE}")
-    bfs_graph, bfs_root, sc_launches, rg_bfs = phase_bfs(rg, scm, smi)
+    bfs_root, bfs_launches, pull20 = phase_bfs(rg, pl, pe, scm, bfs_ec,
+                                               bfs_graph, smi)
 
     print(f"[7/8] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
@@ -683,7 +943,11 @@ def main() -> int:
 
     print(f"[8/8] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
-    loaded = phase_persistence(ls, rg, scm, prr, lsr["router_s"], smi)
+    kernels = dict(lane_shuffle=ls.lane_shuffle,
+                   route_gather_finish=rg.route_gather_finish,
+                   pull_reduce=pl.pull_reduce, push_expand=pe.push_expand,
+                   scatter_combine=scm.scatter_combine)
+    loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
     if "--profile" in sys.argv:
         profile(prr["graph"], bfs_graph, bfs_root,
@@ -691,29 +955,40 @@ def main() -> int:
 
     def times(r: dict) -> dict:
         return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    rg_paths = {f"pagerank_rmat{SCALE}": prr["launches"],
-                f"bfs_do_rmat{BFS_SCALE}": rg_bfs,
-                f"loaded_rmat{SCALE}": loaded["route_gather_finish"]}
-    sc_paths = {f"bfs_do_rmat{BFS_SCALE}": sc_launches,
-                f"loaded_rmat{SCALE}": loaded["scatter_combine"]}
+
+    def paths(kernel: str) -> dict:
+        by_path = {f"pagerank_rmat{SCALE}": prr["launches"].get(kernel, 0),
+                   f"bfs_do_rmat{BFS_SCALE}": bfs_launches.get(kernel, 0),
+                   f"loaded_rmat{SCALE}": loaded[kernel]}
+        if kernel == "scatter_combine":
+            by_path["exp_push"] = push["scatter"]["launches"]
+        return by_path
+
+    def row(kernel: str, source: str, replaces: str, r: dict, **extra):
+        by_path = paths(kernel)
+        return {"name": kernel, "route": "cuda",
+                "source": f"vectorgraphlibrary_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": r["max_err"],
+                **times(r), "bound_by": "bytes", **extra}
+    route = prr["route"]
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "route_gather_finish", "route": "cuda",
-        "source": "vectorgraphlibrary_tpu_torch/csrc/route_gather.cu",
-        "replaces": REPLACES, "launches": sum(rg_paths.values()),
-        "launches_by_path": rg_paths, "max_abs_err": max_err, **times(prr),
-        "bound_by": "bytes", "random_perm_2p24_ms": rand_ms,
-        "random_perm_2p24_plain_ms": rand_plain_ms}, {
-        "name": "scatter_combine", "route": "cuda",
-        "source": "vectorgraphlibrary_tpu_torch/csrc/scatter_combine.cu",
-        "replaces": REPLACES_SCATTER, "launches": sum(sc_paths.values()),
-        "launches_by_path": sc_paths, "max_abs_err": sc["max_err"],
-        **times(sc), "bound_by": "bytes"}, {
-        "name": "lane_shuffle", "route": "cuda",
-        "source": "vectorgraphlibrary_tpu_torch/csrc/lane_shuffle.cu",
-        "replaces": REPLACES_LANE, "launches": loaded["lane_shuffle"],
-        "launches_by_path": {f"loaded_rmat{SCALE}": loaded["lane_shuffle"]},
-        "max_abs_err": lsr["max_err"], **times(lsr), "bound_by": "bytes"}]}))
+    print(json.dumps({"kernels": [
+        row("route_gather_finish", "route_gather.cu", REPLACES, route,
+            random_perm_2p24_ms=rand_ms,
+            random_perm_2p24_plain_ms=rand_plain_ms,
+            **{k: v for k, v in route.items() if k.startswith("advance_")}),
+        row("pull_reduce", "pull_reduce.cu", REPLACES, prr["pull"],
+            rmat20_i8_any01_ms=pull20["ms"],
+            rmat20_i8_any01_plain_ms=pull20["plain_ms"],
+            rmat20_i8_any01_bound_ms=pull20["bound_ms"],
+            rmat20_max_abs_err=pull20["max_err"]),
+        row("scatter_combine", "scatter_combine.cu", REPLACES_SCATTER,
+            push["scatter"], device_ms=push["scatter"]["device_ms"],
+            library_device_ms=push["scatter"]["library_device_ms"]),
+        row("push_expand", "push_expand.cu", REPLACES_SCATTER, push["push"],
+            device_ms=push["push"]["device_ms"]),
+        row("lane_shuffle", "lane_shuffle.cu", REPLACES_LANE, lsr)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

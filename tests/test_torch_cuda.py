@@ -1,7 +1,9 @@
-"""PyTorch port on the card: the route-gather, scatter-combine and
-lane-shuffle kernels against their plain versions (bit for bit), their
-launch counts, their argument checks, and the slices (PageRank, BFS, loading
-a saved graph) on CUDA against the same slices on the CPU. Every test here needs an NVIDIA GPU and skips
+"""PyTorch port on the card: the route-gather, CSR pull, scatter-combine,
+expand-and-scatter and lane-shuffle kernels against their plain versions (bit
+for bit, but f32 sums of the pull at rtol 1e-5 / atol 1e-6: another order),
+their launch counts, their argument checks, and the slices (PageRank, BFS,
+loading a saved graph) on CUDA against the same slices on the CPU. Every test
+here needs an NVIDIA GPU and skips
 without one. The file needs no JAX (the card's host has none), so on the card
 run it without tests/conftest.py, which imports jax:
 
@@ -18,8 +20,11 @@ from vectorgraphlibrary_tpu_torch.graph.persistence import (
 from vectorgraphlibrary_tpu_torch.io import generation
 from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
 from vectorgraphlibrary_tpu_torch.models import bfs, common, pr
-from vectorgraphlibrary_tpu_torch.ops import monoid
+from vectorgraphlibrary_tpu_torch.graph import frontier
+from vectorgraphlibrary_tpu_torch.ops import advance, monoid
 from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
+from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
+from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
 from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
 from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as sc
 
@@ -83,9 +88,11 @@ def test_page_rank_on_cuda_matches_cpu(cuda):
                            max_iterations=iters, use_convergence=False)[0]
     g = import_graph(ec, device=cuda)
     rg.route_gather_finish.launches = 0
+    pl.pull_reduce.launches = 0
     ranks = pr.vgl_page_rank(g, max_iterations=iters, use_convergence=False)[0]
     torch.cuda.synchronize()
-    assert rg.route_gather_finish.launches == 1 + 2 * iters
+    assert rg.route_gather_finish.launches == 1        # the out-degrees
+    assert pl.pull_reduce.launches == iters
     np.testing.assert_allclose(ranks.values.cpu().numpy(),
                                cpu.values.numpy(), rtol=1e-5, atol=1e-8)
 
@@ -158,12 +165,18 @@ def test_bfs_on_cuda_matches_cpu(cuda):
         trace = []
         sc.scatter_combine.launches = 0
         rg.route_gather_finish.launches = 0
+        pl.pull_reduce.launches = 0
+        pe.push_expand.launches = 0
         got = bfs.vgl_bfs_device(g, src, id_cap=1 << 10, edge_cap=1 << 13,
                                  trace=trace)
         torch.cuda.synchronize()
         td = sum(t[0] == "td" for t in trace)
-        assert sc.scatter_combine.launches == 2 * td
-        assert (rg.route_gather_finish.launches > 0) == (td < len(trace))
+        bu = len(trace) - td
+        assert sc.scatter_combine.launches == 0
+        assert pe.push_expand.launches == td
+        assert pl.pull_reduce.launches == bu
+        # a bottom-up level routes the levels into GATHER order and back
+        assert rg.route_gather_finish.launches == 2 * bu
         want = bfs.vgl_bfs_device(cg, src, id_cap=1 << 10, edge_cap=1 << 13)
         assert torch.equal(got.values.cpu(), want.values)
         np.testing.assert_array_equal(as_original_numpy(got, g),
@@ -239,3 +252,136 @@ def test_cuda_load_equals_cpu_load(cuda, tmp_path):
     want = pr.vgl_page_rank(cg, max_iterations=20, use_convergence=False)[0]
     np.testing.assert_allclose(ranks.values.cpu().numpy(),
                                want.values.numpy(), rtol=1e-5, atol=1e-8)
+
+
+@pytest.fixture(scope="module")
+def rmat12_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU mode)")
+    ec = generation.rmat(12, 16, seed=5, weighted=False)
+    return ec, import_graph(ec, device="cuda")
+
+
+PULL_CASES = [("f32", "add"), ("f32", "min"), ("f32", "max"), ("i32", "add"),
+              ("i32", "min"), ("i32", "max"), ("i32", "or"), ("i8", "add"),
+              ("i8", "min"), ("i8", "max"), ("i8", "or"), ("i8", "any01")]
+
+
+@pytest.mark.parametrize("d", ["G", "S"])
+@pytest.mark.parametrize("dtype,op", PULL_CASES)
+def test_pull_reduce_equals_plain_version(rmat12_cuda, d, dtype, op):
+    """Every work-unit split (the graph's classes, a warp per row, a thread
+    per row, blocks then 4 threads) gives the plain version's result."""
+    _, g = rmat12_cuda
+    dg = g.direction(bfs.G if d == "G" else bfs.S)
+    n = g.v_pad
+    rng = np.random.default_rng(3)
+    x = {"f32": lambda: rng.random(n).astype(np.float32),
+         "i32": lambda: _i32(rng, n),
+         "i8": lambda: (rng.integers(0, 2, n) if op == "any01"
+                        else rng.integers(-128, 128, n)).astype(np.int8)
+         }[dtype]()
+    x = torch.from_numpy(x).cuda()
+    splits = (advance.row_groups(dg), None, ((n, 1),),
+              ((16, pl.BLOCK), (n, 4)))
+    for excl in (False, True):
+        want = pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op, excl)
+        for groups in splits:
+            before = pl.pull_reduce.launches
+            got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, groups)
+            torch.cuda.synchronize()
+            assert pl.pull_reduce.launches == before + 1
+            assert got.dtype == want.dtype and got.shape == (n,)
+            if (dtype, op) == ("f32", "add"):
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+                again = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl,
+                                       groups)
+                assert torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32))
+            else:
+                assert torch.equal(got, want)
+
+
+def test_pull_reduce_propagates_nan(cuda):
+    """min/max take NaN over any number, as torch.minimum/maximum do."""
+    row_ptr = torch.tensor([0, 3, 5, 5], dtype=torch.int32, device=cuda)
+    col_idx = torch.tensor([0, 1, 2, 2, 3], dtype=torch.int32, device=cuda)
+    x = torch.tensor([1.0, float("nan"), -2.0, 4.0], device=cuda)
+    for op, rest in (("min", -2.0), ("max", 4.0)):
+        for groups in (None, ((3, 1),), ((3, pl.BLOCK),)):
+            got = pl.pull_reduce(row_ptr, col_idx, x, op, groups=groups).cpu()
+            assert torch.isnan(got[0]) and got[1].item() == rest
+            assert got[2].item() == (float("inf") if op == "min"
+                                     else float("-inf"))
+
+
+def test_pull_reduce_rejects_what_it_does_not_take(cuda):
+    row_ptr = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda)
+    col_idx = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    x = torch.zeros(2, device=cuda)
+    with pytest.raises(TypeError):
+        pl.pull_reduce(row_ptr, col_idx, x.double(), "add")
+    with pytest.raises(TypeError):
+        pl.pull_reduce(row_ptr, col_idx, x, "or")
+    with pytest.raises(ValueError):
+        pl.pull_reduce(row_ptr.long(), col_idx, x, "add")
+    with pytest.raises(ValueError):
+        pl.pull_reduce(row_ptr, col_idx.cpu(), x, "add")
+    with pytest.raises(ValueError):
+        pl.pull_reduce(row_ptr, col_idx, x, "mul")
+    for groups in (((1, 32),), ((2, 64),), ((2, 32), (1, 1))):
+        with pytest.raises(ValueError):
+            pl.pull_reduce(row_ptr, col_idx, x, "add", groups=groups)
+
+
+PUSH_CASES = ["2^10", "2^14", "overflow", "zero-degree", "empty"]
+
+
+@pytest.mark.parametrize("op", ["min", "max", "or"])
+@pytest.mark.parametrize("case", PUSH_CASES)
+def test_push_expand_equals_plain_version(rmat12_cuda, case, op):
+    _, g = rmat12_cuda
+    dg = g.outgoing
+    rng = np.random.default_rng(4)
+    degs = dg.degrees.cpu().numpy()
+    order = rng.permutation(np.flatnonzero(degs[:g.v] > 0))
+    target = {"2^10": 1 << 10, "overflow": 1 << 12}.get(case, 1 << 14)
+    pick = order[:max(int(np.searchsorted(np.cumsum(degs[order]), target)), 1)]
+    mask = np.zeros(g.v_pad, bool)
+    if case != "empty":
+        mask[pick] = True
+    if case == "zero-degree":
+        mask[np.flatnonzero(degs[:g.v] == 0)[:64]] = True
+    fr = frontier.from_mask(g, torch.from_numpy(mask).cuda(), bfs.S)
+    size, nbrs = int(fr.size), int(fr.neighbours_count)
+    ids, valid = frontier.compact_ids(fr, common.next_pow2(max(size, 8)) * 2)
+    ecap = max(nbrs // 2 if case == "overflow" else nbrs, 64)
+    out = torch.from_numpy(_i32(rng, g.v_pad)).cuda()
+    msg = {"min": 5, "max": 7, "or": -2**31 | 5}[op]
+    before = pe.push_expand.launches
+    got = pe.push_expand(out, dg.row_ptr, dg.col_idx, dg.degrees, ids, valid,
+                         ecap, msg, op)
+    torch.cuda.synchronize()
+    assert pe.push_expand.launches == before + 1
+    want = pe.push_expand_ref(out, dg.row_ptr, dg.col_idx, dg.degrees, ids,
+                              valid, ecap, msg, op)
+    assert torch.equal(got, want)
+    assert torch.equal(got, out) == (case == "empty")
+
+
+def test_push_expand_rejects_what_it_does_not_take(cuda):
+    out = torch.zeros(8, dtype=torch.int32, device=cuda)
+    rp = torch.zeros(9, dtype=torch.int32, device=cuda)
+    ci = torch.zeros(8, dtype=torch.int32, device=cuda)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    valid = torch.ones(4, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        pe.push_expand(out.float(), rp, ci, ci, ids, valid, 8, 1, "min")
+    with pytest.raises(ValueError):
+        pe.push_expand(out, rp, ci, ci, ids.long(), valid, 8, 1, "min")
+    with pytest.raises(ValueError):
+        pe.push_expand(out, rp, ci, ci, ids.cpu(), valid, 8, 1, "min")
+    with pytest.raises(ValueError):
+        pe.push_expand(out, rp, ci, ci, ids, valid, 8, 1, "add")
+    with pytest.raises(ValueError):
+        pe.push_expand(out, rp, ci, ci, ids, valid, 8, 2**31, "min")

@@ -1,7 +1,7 @@
 """PyTorch port: no module of the port (nor chip_smoke.py) imports jax or the
-JAX package, and running the slices on the CPU (PageRank, saving a graph,
-which runs the port's own Beneš router, and loading it) neither loads the
-JAX package's native library nor launches a kernel."""
+JAX package, and running the slices on the CPU (PageRank, a DO-BFS root,
+saving a graph, which runs the port's own Beneš router, and loading it)
+neither loads the JAX package's native library nor launches a kernel."""
 import os
 import subprocess
 import sys
@@ -23,10 +23,15 @@ from vectorgraphlibrary_tpu_torch.io import generation
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph
 from vectorgraphlibrary_tpu_torch.models import pr
 from vectorgraphlibrary_tpu_torch.graph import persistence
+from vectorgraphlibrary_tpu_torch.models import bfs
 from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
+from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
+from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
 from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
+from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as sc
 g = import_graph(generation.rmat(9, 4, seed=1, weighted=False), device="cpu")
 pr.vgl_page_rank(g, max_iterations=2, use_convergence=False)
+bfs.vgl_bfs_device(g, 0, id_cap=64, edge_cap=256)
 with tempfile.TemporaryDirectory() as d:
     persistence.save_graph_to_binary_file(g, os.path.join(d, "g.npz"))
     g2 = persistence.load_graph_from_binary_file(os.path.join(d, "g.npz"),
@@ -40,7 +45,9 @@ print("MODULES", len(names))
 print("BAD", bad)
 print("NATIVE", "libvgl_native" in maps)
 print("ROUTER", "libvgl_router" in maps)
-print("LAUNCHES", rg.route_gather_finish.launches + ls.lane_shuffle.launches)
+print("LAUNCHES", rg.route_gather_finish.launches + ls.lane_shuffle.launches
+      + pl.pull_reduce.launches + pe.push_expand.launches
+      + sc.scatter_combine.launches)
 """
 
 

@@ -1,4 +1,5 @@
-"""PyTorch port, the sparse push and its scatter: advance_push_sparse and
+"""PyTorch port, the sparse push and its scatter: advance_push_sparse,
+advance_push_sparse_const (the expand-and-scatter kernel's plain version) and
 Monoid.scatter_at against the JAX package on RMAT-10 and RU-9, and the
 scatter_combine kernel's plain version against the semantics of the TPU
 kernel it replaces (apps/exp_push.py `_kern`: out[d] |= 1 for d < V) and of
@@ -28,6 +29,7 @@ from vectorgraphlibrary_tpu_torch.models import bfs as tbfs
 from vectorgraphlibrary_tpu_torch.models import common as tcommon
 from vectorgraphlibrary_tpu_torch.ops import advance as tadvance
 from vectorgraphlibrary_tpu_torch.ops import monoid as tmonoid
+from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
 from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
 from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as sc
 
@@ -94,6 +96,64 @@ def test_advance_push_sparse_matches_jax(graphs, graph, form, ecap_kind):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # the push changed something
     assert (got.numpy() != out).any()
+
+
+# frontiers of the constant push: capacity an exact fit, half of it (edges
+# past it drop), zero-degree vertices with invalid padding entries, empty
+CONST_CASES = ["exact", "overflow", "zero-degree", "empty"]
+CONST_MSG = {"min": 5, "max": 7, "or": (1 << 20) | 3}
+
+
+@pytest.mark.parametrize("graph", ["small_rmat", "small_ru"])
+@pytest.mark.parametrize("op", ["min", "max", "or"])
+@pytest.mark.parametrize("case", CONST_CASES)
+def test_advance_push_sparse_const_matches_jax(graphs, graph, op, case):
+    """advance_push_sparse_const (on the CPU: push_expand's plain version)
+    against JAX's advance_push_sparse with the constant edge op (min, max;
+    JAX has no int32 or-scatter) and against numpy (all three)."""
+    _, jg, tg = graphs(graph)
+    rng = np.random.default_rng(12)
+    degs = np.asarray(jg.outgoing.degrees)
+    mask = rng.random(jg.v_pad) < 0.1
+    if case == "empty":
+        mask[:] = False
+    elif case == "zero-degree":
+        zero = np.flatnonzero(degs[:jg.v] == 0)
+        assert graph == "small_ru" or len(zero) > 0
+        mask[zero[:20]] = True
+    jf = jfrontier.from_mask(jg, jnp.asarray(mask), JDir.SCATTER)
+    size = int(jf.size)
+    cap = tcommon.next_pow2(max(size, 8)) * (2 if case == "zero-degree" else 1)
+    jids, jvalid = jfrontier.compact_ids(jf, cap)
+    deg_sum = int(jf.neighbours_count)
+    ecap = max(deg_sum // 2 if case == "overflow" else deg_sum, 8)
+    out = (np.where(rng.random(jg.v_pad) < 0.5, INT32_MAX,
+                    rng.integers(1, 9, jg.v_pad)).astype(np.int32)
+           if op == "min" else _i32(rng, jg.v_pad))
+    msg = CONST_MSG[op]
+    ids, valid = np.array(jids), np.array(jvalid)
+    assert (~valid).any() or case not in ("zero-degree", "empty")
+    got = tadvance.advance_push_sparse_const(
+        tg, torch.from_numpy(ids), torch.from_numpy(valid), ecap, msg, op,
+        torch.from_numpy(out), direction=TDir.SCATTER)
+    assert got.dtype == torch.int32
+
+    rp = np.asarray(jg.outgoing.row_ptr)
+    ci = np.asarray(jg.outgoing.col_idx)
+    dsts = np.concatenate([ci[rp[i]:rp[i + 1]] for i in ids[valid]]
+                          + [np.zeros(0, np.int32)])[:ecap]
+    want = out.copy()
+    {"min": np.minimum, "max": np.maximum, "or": np.bitwise_or}[op].at(
+        want, dsts, np.int32(msg))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "empty":
+        np.testing.assert_array_equal(got.numpy(), out)
+    if op != "or":
+        jwant = jadvance.advance_push_sparse(
+            jg, jids, jvalid, ecap, {},
+            lambda s, d, w: jnp.full((ecap, 1), msg, jnp.int32), op,
+            jnp.asarray(out), direction=JDir.SCATTER)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jwant))
 
 
 SCATTERS = [("add", "f32"), ("add", "i32"), ("min", "f32"), ("min", "i32"),
@@ -195,9 +255,11 @@ def test_cpu_run_launches_no_kernel(graphs):
     ec, _, tg = graphs("small_ru")
     sc.scatter_combine.launches = 0
     rg.route_gather_finish.launches = 0
+    pe.push_expand.launches = 0
     trace = []
     tbfs.vgl_bfs_device(tg, tcommon.select_random_source(ec, seed=1),
                         id_cap=64, edge_cap=256, trace=trace)
     assert any(t[0] == "td" for t in trace) and any(t[0] == "bu" for t in trace)
     assert sc.scatter_combine.launches == 0
     assert rg.route_gather_finish.launches == 0
+    assert pe.push_expand.launches == 0

@@ -18,11 +18,11 @@
 // scattered read of x[idx[i]]: a 4-byte value costs a whole 32-byte sector
 // unless neighbouring slots hit the same sector, so the random read dominates
 // the bytes moved. Masked slots (non-edges, self-loops) skip that read. This
-// first version is a grid-stride loop, one slot per thread. The follow-on is to
-// fuse the broadcast before it: the advance's x is a per-vertex vector
-// broadcast over the source tiles, so reading src_vec[src_row(idx[i])] directly
-// (a vector of ~1 MB at RMAT-18 that stays in the 50 MB L2) removes the
-// slot-sized intermediate, and then the per-destination reduction after it.
+// first version is a grid-stride loop, one slot per thread. The advance pull
+// no longer runs through it: csrc/pull_reduce.cu computes the whole chain
+// (broadcast, this route with the finish, the per-destination reduction)
+// over the direction's CSR in one launch. On the paths this kernel runs the
+// vertex routes between orderings.
 //
 // Offsets are 64-bit: 2^29 slots x 4 B overflows int32.
 //

@@ -10,9 +10,10 @@
 // one-hot bit into a VMEM-resident int32 [V/128, 128] array, one destination
 // at a time, in a sequential grid over SMEM blocks of 4096 destinations
 // (out-of-range destinations dropped). That is the case op = or, msg = 1.
-// On the port's path the same kernel is the scatter stage of the sparse push
-// (ops/advance.advance_push_sparse): the owner mark (max) and the combine (min
-// for BFS levels), where the JAX package uses XLA's scatter.
+// In the port the same kernel is the scatter stage of the generic sparse
+// push (ops/advance.advance_push_sparse): the owner mark (max) and the
+// combine, where the JAX package uses XLA's scatter. The BFS push runs
+// csrc/push_expand.cu instead.
 //
 // What bounds it on Hopper: one 4-byte atomic per message, plus streaming idx
 // and msg (8 B per message). At the BFS push's shapes the target (4 MB at

@@ -39,9 +39,16 @@ class TileBucket:
         return self.rows_pad * self.width
 
 
+# a huge row of more chunks than this is wide: the pull kernel gives it a
+# block of threads, and every other huge row a warp (ops/advance.row_groups)
+WIDE_ROW_CHUNKS = 4
+
+
 @dataclasses.dataclass(frozen=True)
 class HugeTile:
-    """Row-split high-degree class: rows cut into chunks of chunk_w slots."""
+    """Row-split high-degree class: rows cut into chunks of chunk_w slots.
+    The first n_wide_rows rows (degree-sorted) have more than
+    WIDE_ROW_CHUNKS chunks."""
 
     adj: torch.Tensor               # int32 [n_chunks_pad, chunk_w]
     seg_ids: torch.Tensor           # int32 [n_chunks_pad], ascending row ids
@@ -50,6 +57,21 @@ class HugeTile:
     n_rows: int
     n_chunks: int
     n_chunks_pad: int
+    n_wide_rows: int
+
+
+def huge_tile(adj: torch.Tensor, seg_ids: np.ndarray, chunk_w: int,
+              n_rows: int, n_chunks: int, n_chunks_pad: int,
+              device) -> HugeTile:
+    """A HugeTile on `device` from its host arrays; the chunks per row and
+    the count of wide rows come from the host's seg_ids."""
+    lengths = np.bincount(seg_ids, minlength=n_rows + 1)
+    return HugeTile(adj=adj, seg_ids=_i32(seg_ids, device),
+                    seg_lengths=torch.from_numpy(
+                        lengths.astype(np.int64)).to(device),
+                    chunk_w=chunk_w, n_rows=n_rows, n_chunks=n_chunks,
+                    n_chunks_pad=n_chunks_pad,
+                    n_wide_rows=int((lengths[:n_rows] > WIDE_ROW_CHUNKS).sum()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,13 +106,8 @@ def _to_device_directed(h, device) -> DeviceDirectedGraph:
     huge = None
     if h.huge is not None:
         hh = h.huge
-        lengths = np.bincount(hh.seg_ids, minlength=hh.n_rows + 1)
-        huge = HugeTile(adj=_i32(hh.adj, device),
-                        seg_ids=_i32(hh.seg_ids, device),
-                        seg_lengths=torch.from_numpy(
-                            lengths.astype(np.int64)).to(device),
-                        chunk_w=hh.chunk_w, n_rows=hh.n_rows,
-                        n_chunks=hh.n_chunks, n_chunks_pad=hh.n_chunks_pad)
+        huge = huge_tile(_i32(hh.adj, device), hh.seg_ids, hh.chunk_w,
+                         hh.n_rows, hh.n_chunks, hh.n_chunks_pad, device)
     return DeviceDirectedGraph(
         row_ptr=_i32(h.row_ptr, device), col_idx=_i32(h.col_idx, device),
         degrees=_i32(h.degrees, device),

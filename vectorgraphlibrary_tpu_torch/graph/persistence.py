@@ -33,7 +33,7 @@ from ..ops.route import (RoutePlan, benes_plan_from_packed, inverse_lanes,
                          pack_masks, plan_from_benes)
 from ..ops.route_words import (build_word_masks, split_levels,
                                unpack_word_masks, word_flags)
-from .device import DeviceDirectedGraph, HugeTile, TileBucket, VGLGraph
+from .device import DeviceDirectedGraph, TileBucket, VGLGraph, huge_tile
 
 # the value of the "format" key: the only format the port builds
 FORMAT = GraphFormat.TILE_CSR.value
@@ -95,14 +95,8 @@ def _unpack_directed(prefix: str, z, device) -> DeviceDirectedGraph:
     huge = None
     if has_huge:
         cw, nr, nc, ncp = z[f"{prefix}.huge.meta"].tolist()
-        seg_ids = z[f"{prefix}.huge.seg_ids"]
-        # chunks per row, then the padding chunks (graph/device.py)
-        lengths = np.bincount(seg_ids, minlength=nr + 1)
-        huge = HugeTile(adj=_i32(z, f"{prefix}.huge.adj", device),
-                        seg_ids=_i32(z, f"{prefix}.huge.seg_ids", device),
-                        seg_lengths=torch.from_numpy(
-                            lengths.astype(np.int64)).to(device),
-                        chunk_w=cw, n_rows=nr, n_chunks=nc, n_chunks_pad=ncp)
+        huge = huge_tile(_i32(z, f"{prefix}.huge.adj", device),
+                         z[f"{prefix}.huge.seg_ids"], cw, nr, nc, ncp, device)
     return DeviceDirectedGraph(
         row_ptr=_i32(z, f"{prefix}.row_ptr", device),
         col_idx=_i32(z, f"{prefix}.col_idx", device),

@@ -6,12 +6,12 @@ top-down; `bfs/hardwired_do_bfs.hpp` direction-optimizing state machine).
 Levels follow the reference: source level = FIRST_LEVEL = 1, unvisited = -1
 (`bfs/change_state/change_state.h:21-23`).
 
-- A top-down step is the sparse push (`advance_push_sparse`) from the
-  compacted frontier, min-combining candidate levels: two scatter-combine
-  kernel launches on the card (the owner mark and the combine).
+- A top-down step is the sparse push from the compacted frontier,
+  min-combining the constant next level (`advance_push_sparse_const`): one
+  expand-and-scatter kernel launch on the card.
 - A bottom-up step is the dense pull over incoming edges asking "is any
-  in-neighbour on the current level?" (a bool `or` pull, one route-gather
-  launch for the advance route plus vertex routes).
+  in-neighbour on the current level?" (a bool `or` pull: one CSR pull kernel
+  launch, plus vertex routes where the levels are in the other ordering).
 - The direction choice uses Beamer's thresholds on frontier neighbour counts
   (the analog of `hardwired_do_bfs.hpp:925-990`).
 
@@ -31,7 +31,7 @@ from ..config import TraversalDirection
 from ..graph.device import VGLGraph
 from ..graph.frontier import Frontier, compact_ids
 from ..graph.vertices import VertexArray
-from ..ops.advance import advance_pull_value, advance_push_sparse
+from ..ops.advance import advance_pull_value, advance_push_sparse_const
 from . import common
 
 S, G = TraversalDirection.SCATTER, TraversalDirection.GATHER
@@ -53,10 +53,8 @@ def _push(graph: VGLGraph, levels_s: torch.Tensor, ids, valid, ecap: int,
     """Levels after one top-down push from the compacted frontier (ids,
     valid) in SCATTER ordering: every out-neighbour takes min(level, cur + 1).
     Unvisited is INF, so the min-combine is monotone."""
-    return advance_push_sparse(
-        graph, ids, valid, ecap, {"l": levels_s},
-        lambda s, d, w: torch.zeros_like(s["l"]) + (cur + 1),
-        "min", levels_s, direction=S)
+    return advance_push_sparse_const(graph, ids, valid, ecap, cur + 1, "min",
+                                     levels_s, direction=S)
 
 
 def _counts(newly: torch.Tensor, degrees: torch.Tensor):

@@ -3,9 +3,10 @@
 Capability match for the reference PR (`algorithms/pr/pr.hpp:6-148`): damping
 d=0.85, k=(1-d)/|V|, self-loop-excluded degrees, dangling-vertex
 redistribution, fixed iteration count or an L1 convergence test. Each
-iteration is one fused pull over incoming edges (messages
-old_rank[u]/outdeg_wo_loops[u]) in an eager loop: two route-gather launches
-(the G→S vertex route and the advance route) plus elementwise work.
+iteration is one pull over incoming edges (messages
+old_rank[u]/outdeg_wo_loops[u]) in an eager loop: one CSR pull kernel
+launch plus elementwise work; the out-degrees take one vertex route before
+the loop.
 
 Rank flows src→dst along edge direction, as in the JAX package (the C++
 reference propagates along reversed edges, pr.hpp:110-117); the bundled oracle
@@ -57,8 +58,7 @@ def _pr_run(graph: VGLGraph, max_iterations: int, use_convergence: bool,
     while it < max_iterations:
         dangling = vgl_reduce(graph, torch.where(dangling_mask, ranks, zero),
                               "add", direction=G) / v
-        # one restricted-form advance: self-loop exclusion rides the route's
-        # static flag bits — no per-edge id comparison anywhere
+        # one restricted-form advance: the pull kernel skips self-loops
         acc = advance_pull_value(graph, ranks * rev_deg, "add",
                                  exclude_self_loops=True, direction=G)
         new_ranks = compute(

@@ -1,22 +1,26 @@
 """Advance: edge traversal — the framework's hot path (port of the fused
-value-pull of vectorgraphlibrary_tpu/ops/advance.py).
+value-pull and the sparse push of vectorgraphlibrary_tpu/ops/advance.py).
 
-A pull advance here is the reference's fused path, step for step:
+The reference's fused pull broadcasts the source vector over the source
+tiles, moves one message per edge slot through the advance route (a Beneš
+network, because per-element gathers were its chip's slow operation), masks
+non-edge and self-loop slots and reduces each destination's tile rows. That
+whole chain computes, over the direction's own CSR,
 
-1. the source vector goes to the source side's ordering (a vertex route),
-2. it is broadcast over the source-side tiles (one message per edge slot),
-3. the advance route moves the messages into destination slot order and the
-   fused finish masks non-edge and self-loop slots to the combine identity
-   (ops/route.py; one route-gather kernel launch on the card),
-4. each destination row reduces its slots.
+    out[v] = combine over in-row k of v of x[col_idx[k]]   (self-loops optional)
 
-No step reads adjacency. `advance_cells` is the one pass that does, for
+which is what `advance_pull_value` runs here: one launch of the CSR pull
+kernel (ops/cuda/pull_reduce.py), after one vertex route when the input is in
+the source side's ordering. `advance_cells` keeps the tile pass, for
 structural counts such as self-loops.
 
-`advance_push_sparse` is the work-efficient push from a compacted frontier:
-it expands the frontier's CSR rows into a flat edge list of static capacity
-and scatter-combines one message per edge into the destination array (two
-scatter-combine kernel launches on the card: the owner mark and the combine).
+`advance_push_sparse` is the work-efficient push from a compacted frontier
+for any edge op: it expands the frontier's CSR rows into a flat edge list of
+static capacity and scatter-combines one message per edge into the
+destination array (two scatter-combine kernel launches on the card: the
+owner mark and the combine). `advance_push_sparse_const`, its case of one
+constant int32 message (the BFS top-down step), is one expand-and-scatter
+kernel launch (ops/cuda/push_expand.py).
 """
 from __future__ import annotations
 
@@ -28,14 +32,10 @@ from ..config import TraversalDirection
 from ..graph.device import DeviceDirectedGraph, VGLGraph
 from . import monoid as M
 from . import tiles as T
-from .route import FinishSpec, apply_route
-
-
-def _ext_tail(a: torch.Tensor, extra: int = 128) -> torch.Tensor:
-    """Append `extra` zero slots so tile row slices can run past v_pad: a
-    tail bucket's rows_pad may extend up to 127 rows beyond the last real
-    row, and torch slicing would silently cut the slice short."""
-    return torch.cat([a, a.new_zeros(extra)])
+from .cuda.pull_reduce import BLOCK as PULL_BLOCK, UNROLL as PULL_UNROLL
+from .cuda.pull_reduce import pull_reduce
+from .cuda.push_expand import push_expand
+from .route import apply_route
 
 
 def _assemble(parts, covered: int, v_pad: int, ident: torch.Tensor, dtype,
@@ -46,64 +46,30 @@ def _assemble(parts, covered: int, v_pad: int, ident: torch.Tensor, dtype,
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def _broadcast_over_tiles(dg: DeviceDirectedGraph, src_vec: torch.Tensor,
-                          n: int) -> torch.Tensor:
-    """Per-edge-slot messages [n]: src_vec broadcast over the source-side
-    tiles (huge chunks, then each bucket, row-major), zero-padded to n. Each
-    tile's broadcast view is written once, straight into its slice."""
-    out = torch.empty(n, dtype=src_vec.dtype, device=src_vec.device)
-    offset = 0
+def row_groups(dg: DeviceDirectedGraph) -> tuple:
+    """The pull kernel's work units over one direction's rows, from the
+    degree classes the graph holds as Python ints: one block per wide huge
+    row, one warp per other huge row, width / UNROLL threads (1 to 32) per
+    row of each bucket, so that a row takes one round of loads, one thread
+    per row of degree 0 (and padding) up to v_pad. Ascending (row_end,
+    threads) pairs; neighbours with the same thread count merge, and a
+    class without rows adds nothing."""
+    groups = []
+
+    def add(row_end, g):
+        if row_end == (groups[-1][0] if groups else 0):
+            return
+        if groups and groups[-1][1] == g:
+            groups[-1] = (row_end, g)
+        else:
+            groups.append((row_end, g))
     if dg.huge is not None:
-        h = dg.huge
-        seg_vals = src_vec[h.seg_ids.clamp(max=src_vec.shape[0] - 1).long()]
-        size = h.n_chunks_pad * h.chunk_w
-        out[:size].view(h.n_chunks_pad, h.chunk_w).copy_(
-            seg_vals[:, None].expand(-1, h.chunk_w))
-        offset = size
-    src_ext = _ext_tail(src_vec)
+        add(dg.huge.n_wide_rows, PULL_BLOCK)
+        add(dg.huge.n_rows, 32)
     for b in dg.buckets:
-        rows = src_ext[b.row_start:b.row_start + b.rows_pad]
-        out[offset:offset + b.slots].view(b.rows_pad, b.width).copy_(
-            T.broadcast_rows_flat(rows, b.width))
-        offset += b.slots
-    out[offset:].zero_()
-    return out
-
-
-def _reduce_dst_tiles(dst_dg: DeviceDirectedGraph, finished: torch.Tensor,
-                      mon, dtype, v_pad_out: int,
-                      ident: torch.Tensor) -> torch.Tensor:
-    """Per-destination-row reduction over PRE-MASKED route output:
-    `finished` already carries the monoid identity in every non-edge slot
-    (the fused finish), so no adjacency tile is read."""
-    parts = []
-    covered = 0
-    offset = 0
-    if dst_dg.huge is not None:
-        h = dst_dg.huge
-        size = h.n_chunks_pad * h.chunk_w
-        vals = finished[offset:offset + size].view(h.n_chunks_pad, h.chunk_w)
-        offset += size
-        chunk_red = mon.reduce_axis(vals, 1)
-        parts.append(mon.segment_reduce(chunk_red, h.seg_lengths)[:h.n_rows])
-        covered = h.n_rows
-    for b in dst_dg.buckets:
-        parts.append(T.group_reduce_flat(finished[offset:offset + b.slots],
-                                         b.width, mon, b.rows))
-        offset += b.slots
-        covered = b.row_start + b.rows
-    return _assemble(parts, covered, v_pad_out, ident, dtype, finished.device)
-
-
-def _mask_value(mon, dtype):
-    """Value that makes a source's messages act as the combine identity."""
-    if mon.name in ("add", "or", "any01"):
-        return 0
-    if mon.name == "min":
-        return torch.inf if dtype.is_floating_point else torch.iinfo(dtype).max
-    if mon.name == "max":
-        return -torch.inf if dtype.is_floating_point else torch.iinfo(dtype).min
-    raise ValueError(mon.name)
+        add(b.row_start + b.rows, min(max(b.width // PULL_UNROLL, 1), 32))
+    add(dg.v_pad, 1)
+    return tuple(groups)
 
 
 def advance_pull_value(graph: VGLGraph,
@@ -113,45 +79,31 @@ def advance_pull_value(graph: VGLGraph,
                        direction: TraversalDirection = TraversalDirection.GATHER,
                        out_dtype=None,
                        src_in_src_order: bool = False) -> torch.Tensor:
-    """Restricted-form advance: per-edge message = the source's value, masked
-    to the combine identity on non-edge slots and, optionally, self-loop
-    slots; combined per destination. Covers PR (add, no self-loops), BFS
-    bottom-up (or over bool), CC hook (min) and HITS (add).
+    """Restricted-form advance: per-edge message = the source's value,
+    optionally not on self-loops, combined per destination. Covers PR (add,
+    no self-loops), BFS bottom-up (or over bool), CC hook (min) and HITS
+    (add).
 
     ``src_vec`` [v_pad] is in the traversal direction's ordering, the result
-    [v_pad] too. src_in_src_order=True: ``src_vec`` is already in the SOURCE
-    side's sorted ordering (SCATTER when direction=GATHER and vice versa), and
-    the input's vertex route is skipped."""
+    [v_pad] too. src_in_src_order=True: ``src_vec`` is in the SOURCE side's
+    sorted ordering (SCATTER when direction=GATHER and vice versa), and one
+    vertex route brings it into the direction's ordering first."""
     mon = M.get(combine)
-    plan = graph.advance_route
-    if direction == TraversalDirection.GATHER:
-        src_dg, dst_dg = graph.outgoing, graph.incoming
-        inverse = False
-    else:
-        src_dg, dst_dg = graph.incoming, graph.outgoing
-        inverse = True
+    dg = graph.direction(direction)
     is_bool = src_vec.dtype == torch.bool
     if is_bool:
-        # bool pulls ride the route as int8 (1 B per slot)
+        # bool pulls run as int8 (1 B per vertex read)
         src_vec = src_vec.to(torch.int8)
         if mon.name == "or":
             mon = M.ANY01            # or over {0,1} == max, identity 0
     dtype = out_dtype or src_vec.dtype
     src_vec = src_vec.to(dtype)
-    assert dtype.itemsize in (1, 4), dtype
-    # bool-or runs as max over {0,1}: the mask/empty-row identity stays 0
-    ident = 0 if is_bool else _mask_value(mon, dtype)
-
-    if not src_in_src_order:
-        # G -> S forward, S -> G inverse
+    if src_in_src_order:
+        # S -> G is the inverse of s_from_g, G -> S its forward
         src_vec = apply_route(graph.vertex_route_s_from_g, src_vec,
-                              inverse=inverse)
-    msgs = _broadcast_over_tiles(src_dg, src_vec, plan.n)
-    routed = apply_route(plan, msgs, inverse=inverse,
-                         finish=FinishSpec(ident=ident,
-                                           exclude_self_loops=exclude_self_loops))
-    out = _reduce_dst_tiles(dst_dg, routed, mon, dtype, graph.v_pad,
-                            torch.tensor(ident, dtype=dtype))
+                              inverse=direction == TraversalDirection.GATHER)
+    out = pull_reduce(dg.row_ptr, dg.col_idx, src_vec, mon.name,
+                      exclude_self_loops, row_groups(dg))
     if is_bool:
         # strictly-positive test, not a cast (reference advance.py:605-609)
         out = out > 0
@@ -254,3 +206,21 @@ def advance_push_sparse(graph: VGLGraph,
 
     scatter_idx = torch.where(evalid, dsts, out.shape[0])   # OOB -> dropped
     return mon.scatter_at(out, scatter_idx, msg, mode="drop")
+
+
+def advance_push_sparse_const(graph: VGLGraph,
+                              frontier_ids: torch.Tensor,  # int32 [cap]
+                              frontier_valid: torch.Tensor,  # bool [cap]
+                              edge_capacity: int,
+                              msg: int,
+                              combine,
+                              out: torch.Tensor,
+                              direction: TraversalDirection
+                              = TraversalDirection.SCATTER) -> torch.Tensor:
+    """`advance_push_sparse` for the edge op ``lambda s, d, w: msg`` (one
+    int32 constant per edge) combined by min, max or or into the int32
+    array ``out``; returns the new array. One push_expand launch on the
+    card; edges past the capacity drop, as there."""
+    dg = graph.direction(direction)
+    return push_expand(out, dg.row_ptr, dg.col_idx, dg.degrees, frontier_ids,
+                       frontier_valid, edge_capacity, msg, M.get(combine).name)

@@ -6,10 +6,11 @@ at first use, into the gitignored .cache/torch_kernels/, keyed by a hash of
 the sources and the flags; ctypes loads it. Each wrapper module asks
 for its entry points through `entry`, which declares their argument types.
 `compile_shared` is the build step itself; the host router (native.py) uses
-it with the host compiler.
+it with the host compiler. `on_device` is the device context of a launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,6 +21,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 _CSRC = _PKG_DIR / "csrc"
@@ -116,3 +119,11 @@ def entry(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _entries[name] = fn
     return fn
+
+
+def on_device(device: torch.device):
+    """The context to launch on `device` in: none when it is already the
+    current device (the usual case), else torch.cuda.device(device)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

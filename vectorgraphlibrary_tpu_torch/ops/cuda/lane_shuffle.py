@@ -63,7 +63,7 @@ def lane_shuffle(x2d: torch.Tensor, idx2d: torch.Tensor) -> torch.Tensor:
         ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(x2d)
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    with torch.cuda.device(x2d.device):
+    with build.on_device(x2d.device):
         rc = fn(x2d.data_ptr(), idx2d.data_ptr(), out.data_ptr(),
                 x2d.shape[0], _ELEM_BYTES[x2d.dtype], stream)
     if rc != 0:

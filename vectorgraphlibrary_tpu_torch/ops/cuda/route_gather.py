@@ -94,7 +94,7 @@ def route_gather_finish(x: torch.Tensor, idx: torch.Tensor,
     out = torch.empty(n, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ident_c = float(ident) if x.dtype == torch.float32 else int(ident)
-    with torch.cuda.device(x.device):
+    with build.on_device(x.device):
         rc = fn(x.data_ptr(), idx.data_ptr(),
                 None if flags is None else flags.data_ptr(),
                 None if weights is None else weights.data_ptr(),

@@ -5,8 +5,9 @@
 {"min", "max", "or"}; a message whose index lies outside [0, len(out)) is
 dropped. `msg` is an int32 tensor shaped like `idx`, or one int for every
 message. It replaces the TPU kernel of apps/exp_push.py (make_c/_kern, the
-case op="or", msg=1) and runs the scatter stage of the sparse push
-(ops/advance.advance_push_sparse); csrc/scatter_combine.cu says what bounds
+case op="or", msg=1) and runs the scatter stages of the generic sparse push
+(ops/advance.advance_push_sparse, through Monoid.scatter_at); the BFS push
+runs csrc/push_expand.cu instead. csrc/scatter_combine.cu says what bounds
 it on the card.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
@@ -23,6 +24,7 @@ import torch
 from . import build
 
 _OPS = {"min": 0, "max": 1, "or": 2}
+_fn = None          # the library's entry, looked up at the first launch
 _REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
 
 
@@ -103,14 +105,17 @@ def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
         if not -2**31 <= msg_const < 2**31:
             raise ValueError(f"scatter_combine: message {msg} is not int32")
         msg_ptr = None
-    fn = build.entry("vgl_scatter_combine_i32", [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    global _fn
+    if _fn is None:
+        _fn = build.entry("vgl_scatter_combine_i32", [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p])
     res = out.contiguous().clone()
     stream = torch.cuda.current_stream(out.device).cuda_stream
-    with torch.cuda.device(out.device):
-        rc = fn(res.data_ptr(), res.shape[0], idx.data_ptr(), msg_ptr,
-                msg_const, idx.shape[0], _OPS[op], stream)
+    with build.on_device(out.device):
+        rc = _fn(res.data_ptr(), res.shape[0], idx.data_ptr(), msg_ptr,
+                 msg_const, idx.shape[0], _OPS[op], stream)
     if rc != 0:
         raise RuntimeError(f"scatter_combine kernel launch failed: CUDA "
                            f"error {rc}")
