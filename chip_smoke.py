@@ -31,7 +31,8 @@ result line):
    graph's outgoing CSR: frontiers of about 2^15, 2^16 and 2^17 edges, 2^16
    edges into a capacity of 2^15, zero-degree and invalid entries, and an
    empty frontier, each with min, max and or; kernel and plain times;
-6. slice: BFS on RMAT-20 (average degree 16, seed 42, unweighted) through
+6. slice: BFS on RMAT-20 (average degree 16, seed 42; the graph is generated
+   weighted once, for phases 9 and 10, and BFS reads no weights) through
    import_graph and the BFS entry points: vgl_bfs_device on 8 roots (each
    with error count 0 against seq_top_down, and per root push_expand
    launched once per top-down level, pull_reduce once per bottom-up level,
@@ -54,13 +55,36 @@ result line):
    levels; the same load from a slim copy of the file (word masks only, as
    a TPU host saves it).
 
+9. kernel: pull_reduce with edge weights against its plain version on the
+   weighted RMAT-20 graph's CSRs (f32 min of x + w and max of min(x, w) over
+   GATHER, exactly; i32 min and f32 add over both directions, add within
+   rtol 1e-5 / atol 1e-6), with kernel and plain times, bounds and torch.mv
+   of the CSR tensor for the f32 add; scatter_combine f32 min and max
+   against its plain version, bit for bit (dropped, duplicate and inf
+   entries), timed at the largest push capacity a partial SSSP run takes,
+   beside scatter_reduce; and what one launch through ctypes costs on the
+   host (the smallest route_gather_finish call by events and by
+   torch.profiler, beside index_select);
+10. slice: the fixpoint family on the weighted RMAT-20 graph, sources as
+   bench.py picks them: vgl_dijkstra_all_active and
+   vgl_dijkstra_partial_device on 2 sources (equal bit for bit, error count
+   0 against seq_dijkstra; one pull_reduce per all-active sweep and per
+   dense sweep, two scatter_combine and three route_gather_finish per
+   sparse sweep), vgl_widest_paths on 1 source, vgl_shiloach_vishkin (two
+   pull_reduce and four route_gather_finish per iteration) and
+   vgl_cc_hybrid (equal_components 0 against seq_cc), vgl_hits with 20
+   iterations (40 pull_reduce, 42 route_gather_finish;
+   verify_ranking_results 0 against seq_hits), and MTEPS by bench.py's
+   formulas, medians of 3.
+
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
 version's time, the one-call PyTorch time (library_ms, null where there is
 none) and its bound (bound_ms: the bytes it must move at the H100's 3.35
 TB/s) at the main path's shapes. The last line is {"ok": true, "device":
 {...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
-PageRank run and one DO-BFS root to DIR (not part of the default run).
+PageRank run, one DO-BFS root, one all-active SSSP run and one HITS call to
+DIR (not part of the default run).
 """
 from __future__ import annotations
 
@@ -181,14 +205,17 @@ def phase_kernel(rg) -> tuple[float, float, float]:
     return max_err, k_ms, p_ms
 
 
-def _pull_check(pl, label: str, dg, x, op: str, excl: bool) -> float:
+def _pull_check(pl, label: str, dg, x, op: str, excl: bool, weights=None,
+                weight_op=None) -> float:
     """pull_reduce against its plain version on the same inputs, with the
     graph's work units: f32 sums at rtol 1e-5 / atol 1e-6 (the plain version
     sums each row in another order), everything else exactly. Returns the
     max abs error."""
     from vectorgraphlibrary_tpu_torch.ops.advance import row_groups
-    got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, row_groups(dg))
-    want = pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op, excl)
+    kw = dict(weights=weights, weight_op=weight_op)
+    got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, row_groups(dg),
+                         **kw)
+    want = pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op, excl, **kw)
     torch.cuda.synchronize()
     # equal entries (identities of empty rows, inf or not) count as 0
     err = torch.where(got == want, 0.0, (got.double() - want.double()).abs()) \
@@ -206,21 +233,25 @@ def _pull_check(pl, label: str, dg, x, op: str, excl: bool) -> float:
     return err
 
 
-def _pull_times(pl, dg, x, op: str, excl: bool, label: str, smi: str) -> dict:
+def _pull_times(pl, dg, x, op: str, excl: bool, label: str, smi: str,
+                weights=None, weight_op=None) -> dict:
     """Kernel and plain version on the same pull, medians of 3, each the mean
     of 10 launches."""
     from vectorgraphlibrary_tpu_torch.ops.advance import row_groups
     groups = row_groups(dg)
+    kw = dict(weights=weights, weight_op=weight_op)
     k_ms = _median3(f"pull_reduce {label}, kernel", "ms",
                     [_cuda_ms(lambda: pl.pull_reduce(
-                        dg.row_ptr, dg.col_idx, x, op, excl, groups))
+                        dg.row_ptr, dg.col_idx, x, op, excl, groups, **kw))
                      for _ in range(3)], smi)
     p_ms = _median3(f"pull_reduce {label}, plain", "ms",
                     [_cuda_ms(lambda: pl.pull_reduce_ref(
-                        dg.row_ptr, dg.col_idx, x, op, excl))
+                        dg.row_ptr, dg.col_idx, x, op, excl, **kw))
                      for _ in range(3)], smi)
-    # bytes it must move: row_ptr, col_idx of the real edges, x, out
-    bound = _bound_ms((dg.v_pad + 1) * 4 + dg.e * 4
+    # bytes it must move: row_ptr, col_idx (and the weights) of the real
+    # edges, x, out
+    per_edge = 4 if weights is None else 4 + weights.element_size()
+    bound = _bound_ms((dg.v_pad + 1) * 4 + dg.e * per_edge
                       + 2 * dg.v_pad * x.element_size())
     print(f"  pull_reduce {label} bound {bound:.4f} ms (groups {groups})")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound)
@@ -358,6 +389,13 @@ def phase_pagerank(rg, pl, smi: str):
                           degs, 0, vplan.inv_idx)) for _ in range(3)], smi)
     bound = _bound_ms(vplan.n * (4 + 4 + 4))      # idx, x, out
     print(f"  route_gather_finish vertex route bound {bound:.4f} ms")
+    # device time alone (torch.profiler): the event times above are the
+    # host's cost of issuing one launch
+    dev_k = _profiled_ms(lambda: rg.route_gather_finish(degs, vplan.inv_idx))
+    dev_l = _profiled_ms(lambda: torch.index_select(degs, 0, vplan.inv_idx))
+    print(f"  route_gather_finish vertex route, device ms per call by "
+          f"torch.profiler: {dev_k['total']:.4f}; index_select: "
+          f"{dev_l['total']:.4f}")
     # the advance route with the PR finish, as PRs 1-3 timed it
     ks, ps = [], []
     for _ in range(3):
@@ -374,7 +412,8 @@ def phase_pagerank(rg, pl, smi: str):
           f"{', '.join(f'{t:.4f}' for t in ks)}), plain {adv_plain_ms:.4f} ms, "
           f"bound {adv_bound:.4f} ms on {smi}")
     route = dict(max_err=max_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                 bound_ms=bound, advance_route_2p24_ms=adv_ms,
+                 bound_ms=bound, device_ms=dev_k["total"],
+                 library_device_ms=dev_l["total"], advance_route_2p24_ms=adv_ms,
                  advance_route_2p24_plain_ms=adv_plain_ms,
                  advance_route_2p24_bound_ms=adv_bound)
     return dict(graph=graph, ec=ec, ranks=vals, oracle=want,
@@ -388,23 +427,44 @@ def _median3(label: str, unit: str, values, smi: str) -> float:
     return v[1]
 
 
+def _device_events(fn, reps: int = 1) -> list:
+    """The device events (kernels, copies) of `reps` calls of fn, by
+    torch.profiler. The profiler loses the first kernels after it starts,
+    while its activity buffers are set up, so fn runs once inside it first
+    and only the events after a marker count. Now and then a window comes
+    back without any device event: it is taken again, three times at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile as tprofile,
+                                record_function)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function("vgl_measured"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        mark = min(e.time_range.start for e in events
+                   if e.name == "vgl_measured"
+                   and e.device_type == DeviceType.CPU)
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name != "vgl_measured" and e.time_range.start >= mark]
+        if dev:
+            return dev
+    raise RuntimeError("torch.profiler recorded no device event in 3 windows")
+
+
 def _profiled_ms(fn, reps: int = 10) -> dict:
     """Device time per call by torch.profiler over `reps` calls, in ms: each
     device event's name (kernels, copies) with its total, and "total"."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    fn()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / reps / 1e3)
+    for e in _device_events(fn, reps):
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / reps / 1e3)
     by_name["total"] = sum(by_name.values())
     return by_name
 
@@ -565,17 +625,26 @@ def phase_scatter(scm, pe, graph, smi: str) -> dict:
 
 
 def make_bfs_graph():
+    """The scale-20 family's one shared import: weighted RMAT-20 (BFS reads
+    no weights) and its EdgeArray."""
     from vectorgraphlibrary_tpu_torch.graph.device import import_graph
+    from vectorgraphlibrary_tpu_torch.graph.edges import (
+        build_edge_array_from_host)
     from vectorgraphlibrary_tpu_torch.io import generation
     t0 = time.perf_counter()
-    ec = generation.rmat(BFS_SCALE, BFS_DEGREE, seed=SEED, weighted=False)
+    ec = generation.rmat(BFS_SCALE, BFS_DEGREE, seed=SEED, weighted=True)
     t1 = time.perf_counter()
-    graph = import_graph(ec, device=DEVICE)
+    host = []
+    graph = import_graph(ec, device=DEVICE, _host_out=host)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    ea = build_edge_array_from_host(ec.weights, graph, host[0], host[1])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
     print(f"  RMAT-{BFS_SCALE}: |V|={graph.v} |E|={graph.e}, generate "
-          f"{t1 - t0:.2f} s, import {t2 - t1:.2f} s")
-    return ec, graph
+          f"{t1 - t0:.2f} s, import {t2 - t1:.2f} s, edge weights "
+          f"{t3 - t2:.2f} s")
+    return ec, graph, ea
 
 
 def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
@@ -695,6 +764,332 @@ def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
     print(f"  BFS peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB on {smi}")
     return roots[0], totals, pull
+
+
+def _sssp_sources(ec) -> list:
+    """The sources bench.py times SSSP from: the DO-BFS roots, seeds 100+s."""
+    from vectorgraphlibrary_tpu_torch.models import common
+    return [common.select_random_source(ec, seed=100 + s) for s in range(2)]
+
+
+def phase_weighted_kernels(rg, pl, scm, ec, graph, ea, smi: str) -> dict:
+    """pull_reduce with edge weights and scatter_combine in f32 against their
+    plain versions at the fixpoint family's shapes (the weighted RMAT-20
+    graph), their times, bounds and one-call PyTorch times, and the host's
+    cost of one launch."""
+    from vectorgraphlibrary_tpu_torch.models import bfs, sssp
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    v_pad = graph.v_pad
+    g_in, g_out = graph.direction(bfs.G), graph.direction(bfs.S)
+    w_in = ea.incoming.flat
+    # distances as a sweep of the middle of a run sees them: a third of the
+    # vertices not reached yet
+    dist = torch.rand(v_pad, device=dev, generator=gen) * 300
+    dist[torch.rand(v_pad, device=dev, generator=gen) < 0.3] = torch.inf
+    caps = torch.rand(v_pad, device=dev, generator=gen) * 100
+    caps[torch.rand(v_pad, device=dev, generator=gen) < 0.3] = 0.0
+    xf = torch.rand(v_pad, device=dev, generator=gen)
+    labels = torch.randint(0, graph.v, (v_pad,), device=dev, generator=gen,
+                           dtype=torch.int32)
+    tag = f"RMAT-{BFS_SCALE}"
+    pull_err = max(
+        _pull_check(pl, f"{tag} G f32 min of x + w", g_in, dist, "min", False,
+                    w_in, "add"),
+        _pull_check(pl, f"{tag} G f32 max of min(x, w)", g_in, caps, "max",
+                    False, w_in, "min"),
+        _pull_check(pl, f"{tag} S f32 min of x + w, no self-loops", g_out,
+                    dist, "min", True, ea.outgoing.flat, "add"),
+        _pull_check(pl, f"{tag} G i32 min", g_in, labels, "min", False),
+        _pull_check(pl, f"{tag} S i32 min", g_out, labels, "min", False),
+        _pull_check(pl, f"{tag} G f32 add", g_in, xf, "add", False),
+        _pull_check(pl, f"{tag} S f32 add", g_out, xf, "add", False))
+    pulls = {
+        "sssp_min_add": _pull_times(pl, g_in, dist, "min", False,
+                                    f"{tag} G f32 min of x + w", smi, w_in,
+                                    "add"),
+        "sswp_max_min": _pull_times(pl, g_in, caps, "max", False,
+                                    f"{tag} G f32 max of min(x, w)", smi,
+                                    w_in, "min"),
+        "hits_add_g": _pull_times(pl, g_in, xf, "add", False,
+                                  f"{tag} G f32 add", smi),
+        "hits_add_s": _pull_times(pl, g_out, xf, "add", False,
+                                  f"{tag} S f32 add", smi),
+        "cc_min_g": _pull_times(pl, g_in, labels, "min", False,
+                                f"{tag} G i32 min", smi),
+        "cc_min_s": _pull_times(pl, g_out, labels, "min", False,
+                                f"{tag} S i32 min", smi),
+    }
+    # one-call PyTorch for the f32 add: cuSPARSE SpMV of the CSR with 1.0
+    # per edge; there is none for the min-plus, max-min and int32 min pulls
+    for key, dg in (("hits_add_g", g_in), ("hits_add_s", g_out)):
+        a = torch.sparse_csr_tensor(
+            dg.row_ptr, dg.col_idx[:dg.e],
+            torch.ones(dg.e, device=dev), size=(v_pad, v_pad))
+        pulls[key]["library_ms"] = _median3(
+            f"pull_reduce {tag} {key[-1].upper()} f32 add, torch.mv of a CSR "
+            f"tensor", "ms", [_cuda_ms(lambda: torch.mv(a, xf))
+                              for _ in range(3)], smi)
+        del a
+    for r in pulls.values():
+        r.setdefault("library_ms", None)
+
+    # scatter_combine f32: dropped, duplicate and inf entries, bit for bit
+    rng = np.random.default_rng(SEED + 2)
+    v = graph.v_pad
+
+    def f32(n, scale=300.0):
+        return torch.from_numpy(
+            (rng.random(n) * scale).astype(np.float32)).to(dev)
+    target = f32(v)
+    target[::3] = torch.inf
+    cases = []
+    for lg in (13, 16):
+        d = rng.integers(0, v, 1 << lg)
+        d[rng.permutation(1 << lg)[:(1 << lg) // 8]] = v       # dropped
+        cases.append((f"2^{lg} messages", d))
+    cases.append(("2^16 messages onto 5 targets", rng.integers(0, 5, 1 << 16)))
+    cases.append(("all dropped", np.full(1 << 12, v)))
+    cases.append(("no message", np.zeros(0, np.int64)))
+    sc_err = 0.0
+    for label, d in cases:
+        idx = torch.from_numpy(d.astype(np.int32)).to(dev)
+        msg = f32(idx.shape[0]) - 100.0                 # both signs
+        msg[::11] = torch.inf
+        msg[5::13] = -torch.inf
+        for op, base in (("min", target), ("max", -target)):
+            for m in (msg, 42.5):
+                got = scm.scatter_combine(base, idx, m, op)
+                want = scm.scatter_combine_ref(base, idx, m, op)
+                torch.cuda.synchronize()
+                ok = torch.equal(_bits(got), _bits(want))
+                err = torch.where(got == want, 0.0,
+                                  (got.double() - want.double()).abs()) \
+                    .max().item()
+                sc_err = max(sc_err, err)
+                if not ok:
+                    raise AssertionError(f"scatter_combine f32 != plain "
+                                         f"version: {label} {op}")
+        print(f"  scatter_combine f32 {label}: min and max bit-exact, tensor "
+              f"and constant messages")
+
+    # the largest push a partial SSSP run makes: its tier's edge capacity
+    trace = []
+    sssp.vgl_dijkstra_partial_device(graph, ea, _sssp_sources(ec)[0],
+                                     trace=trace)
+    ecap = max((t[2] for t in trace if t[0] == "push"), default=1 << 16)
+    print(f"  partial SSSP sweeps: {[t[0] for t in trace]}; largest push "
+          f"capacity {ecap}")
+    d = rng.integers(0, v, ecap)
+    d[rng.permutation(ecap)[:ecap // 8]] = v
+    idx = torch.from_numpy(d.astype(np.int32)).to(dev)
+    msg = f32(ecap)
+    label = f"scatter_combine f32 min {ecap} -> 2^20"
+    k_ms = _median3(f"{label}, kernel", "ms", [_cuda_ms(
+        lambda: scm.scatter_combine(target, idx, msg, "min"))
+        for _ in range(3)], smi)
+    p_ms = _median3(f"{label}, plain", "ms", [_cuda_ms(
+        lambda: scm.scatter_combine_ref(target, idx, msg, "min"))
+        for _ in range(3)], smi)
+    keep = idx < v
+    idx_in, msg_in = idx[keep].long(), msg[keep]
+    lib_ms = _median3(f"{label}, scatter_reduce", "ms", [_cuda_ms(
+        lambda: torch.scatter_reduce(target, 0, idx_in, msg_in, "amin"))
+        for _ in range(3)], smi)
+    dev_k = _profiled_ms(lambda: scm.scatter_combine(target, idx, msg, "min"))
+    dev_l = _profiled_ms(lambda: torch.scatter_reduce(target, 0, idx_in,
+                                                      msg_in, "amin"))
+    # bytes it must move: the target read and its copy written, every index
+    # and message, the messages that land
+    bound = _bound_ms(8 * v + 8 * ecap + 4 * idx_in.shape[0])
+    print(f"  {label}, device ms per call by torch.profiler: "
+          f"{json.dumps(dev_k)}; scatter_reduce: {json.dumps(dev_l)}; bound "
+          f"{bound:.4f} ms")
+    scatter = dict(max_err=sc_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                   bound_ms=bound, device_ms=dev_k["total"],
+                   library_device_ms=dev_l["total"], messages=ecap)
+
+    # what one launch through build.entry and ctypes costs on the host: the
+    # smallest route call (128 slots; its device time is a few microseconds)
+    x = torch.arange(128, dtype=torch.int32, device=dev)
+    ix = torch.arange(127, -1, -1, dtype=torch.int32, device=dev)
+    ev_k = _median3("route_gather_finish 128 slots, kernel by events", "ms",
+                    [_cuda_ms(lambda: rg.route_gather_finish(x, ix), reps=100)
+                     for _ in range(3)], smi)
+    ev_l = _median3("route_gather_finish 128 slots, index_select by events",
+                    "ms", [_cuda_ms(lambda: torch.index_select(x, 0, ix),
+                                    reps=100) for _ in range(3)], smi)
+    ev_e = _median3("route_gather_finish 128 slots, torch.empty alone", "ms",
+                    [_cuda_ms(lambda: torch.empty(128, dtype=torch.int32,
+                                                  device=dev), reps=100)
+                     for _ in range(3)], smi)
+    pd_k = _profiled_ms(lambda: rg.route_gather_finish(x, ix), reps=100)
+    pd_l = _profiled_ms(lambda: torch.index_select(x, 0, ix), reps=100)
+    print(f"  one launch of 128 slots: kernel {ev_k:.4f} ms by events and "
+          f"{pd_k['total']:.4f} ms on the device; index_select {ev_l:.4f} and "
+          f"{pd_l['total']:.4f}; the host's share of a wrapper call is "
+          f"{ev_k - pd_k['total']:.4f} ms")
+    launch = dict(kernel_events_ms=ev_k, kernel_device_ms=pd_k["total"],
+                  index_select_events_ms=ev_l,
+                  index_select_device_ms=pd_l["total"], empty_events_ms=ev_e)
+    return dict(pull_err=pull_err, pulls=pulls, scatter=scatter, launch=launch)
+
+
+def _timed3(fn) -> list:
+    """Wall seconds of three calls, each ending in a synchronize."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def phase_fixpoint(kernels: dict, ec, graph, ea, smi: str) -> dict:
+    """SSSP (all-active and partial), SSWP, CC (Shiloach-Vishkin and the
+    flood hybrid) and HITS on the weighted RMAT-20 graph through the port's
+    entry points, each checked against its oracle and its launch counts;
+    returns the kernels' launch counts over those calls."""
+    from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
+    from vectorgraphlibrary_tpu_torch.models import cc, hits, sssp, sswp
+    from vectorgraphlibrary_tpu_torch.utils.verify import (
+        equal_components, verify_ranking_results, verify_results)
+    totals = dict.fromkeys(kernels, 0)
+    e = graph.e
+
+    def counted(label, fn, want: dict):
+        """fn() with the counts set to 0 just before and read just after;
+        `want` maps kernel names to the launches expected (0 if absent)."""
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = {name: k.launches for name, k in kernels.items()}
+        for name in totals:
+            totals[name] += n[name]
+        expect = dict.fromkeys(kernels, 0)
+        expect.update(want(out) if callable(want) else want)
+        print(f"  {label}: {dt:.4f} s, launches "
+              f"{ {k: c for k, c in n.items() if c} }")
+        if n != expect:
+            raise AssertionError(f"{label}: launches {n}, expected {expect}")
+        return out
+
+    def mteps(label, fn, work: float):
+        times = _timed3(fn)
+        print(f"  {label} s per call: {', '.join(f'{t:.5f}' for t in times)}")
+        return _median3(f"{label} RMAT-{BFS_SCALE} MTEPS", "MTEPS",
+                        [work / t / 1e6 for t in times], smi)
+
+    def check(label, errors):
+        if errors:
+            raise AssertionError(f"{label}: error count {errors}")
+
+    torch.cuda.reset_peak_memory_stats()
+    sources = _sssp_sources(ec)
+    rates = {}
+    for src in sources:
+        dist, iters = counted(
+            f"vgl_dijkstra_all_active source {src}",
+            lambda: sssp.vgl_dijkstra_all_active(graph, ea, src),
+            lambda out: dict(pull_reduce=out[1]))
+        if dist.values.shape != (graph.v_pad,) \
+                or dist.values.dtype != torch.float32:
+            raise AssertionError("distances are not f32 [v_pad]")
+        print(f"    {iters} sweeps")
+        check(f"SSSP source {src}", verify_results(
+            as_original_numpy(dist, graph), sssp.seq_dijkstra(ec, src)))
+        trace = []
+        part, p_iters = counted(
+            f"vgl_dijkstra_partial_device source {src}",
+            lambda: sssp.vgl_dijkstra_partial_device(graph, ea, src,
+                                                     trace=trace),
+            # a sparse sweep: the owner mark and the f32 min, the state
+            # routed to SCATTER order and back; a dense sweep: one pull; the
+            # out-degrees' route before the loop
+            lambda out: dict(
+                scatter_combine=2 * sum(t[0] == "push" for t in trace),
+                route_gather_finish=3 * sum(t[0] == "push" for t in trace) + 1,
+                pull_reduce=sum(t[0] == "dense" for t in trace)))
+        print(f"    {p_iters} sweeps: "
+              f"{' '.join('p' if t[0] == 'push' else 'D' for t in trace)}")
+        if p_iters != len(trace) or not any(t[0] == "push" for t in trace):
+            raise AssertionError("the partial run made no sparse sweep")
+        if not torch.equal(_bits(part.values), _bits(dist.values)):
+            raise AssertionError(f"partial SSSP differs from all-active, "
+                                 f"source {src}")
+        print("    partial-active distances equal all-active's bit for bit")
+    src = sources[0]
+    rates["sssp"] = mteps(
+        "SSSP all-active", lambda: sssp.vgl_dijkstra_all_active(
+            graph, ea, src), e)
+    rates["sssp_iters"] = iters_aa = sssp.vgl_dijkstra_all_active(
+        graph, ea, src)[1]
+    rates["sssp_periter"] = rates["sssp"] * iters_aa
+    print(f"  SSSP all-active per-sweep MTEPS median {rates['sssp_periter']:.4f}"
+          f" ({iters_aa} sweeps) on {smi}")
+    rates["sssp_partial"] = mteps(
+        "SSSP partial-active", lambda: sssp.vgl_dijkstra_partial_device(
+            graph, ea, src), e)
+
+    caps, w_iters = counted(
+        f"vgl_widest_paths source {src}",
+        lambda: sswp.vgl_widest_paths(graph, ea, src),
+        lambda out: dict(pull_reduce=out[1]))
+    print(f"    {w_iters} sweeps")
+    check("SSWP", verify_results(as_original_numpy(caps, graph),
+                                 sswp.seq_widest_paths(ec, src)))
+    rates["sswp"] = mteps("SSWP", lambda: sswp.vgl_widest_paths(
+        graph, ea, src), e)
+
+    want_cc = cc.seq_cc(ec)
+    labels, sv_iters = counted(
+        "vgl_shiloach_vishkin", lambda: cc.vgl_shiloach_vishkin(graph),
+        lambda out: dict(pull_reduce=2 * out[1],
+                         route_gather_finish=4 * out[1]))
+    print(f"    {sv_iters} iterations")
+    if labels.values.dtype != torch.int32:
+        raise AssertionError("labels are not int32")
+    check("CC Shiloach-Vishkin", equal_components(
+        labels.values[:graph.v].cpu().numpy(), want_cc))
+    for k in kernels.values():
+        k.launches = 0
+    hybrid, hy_iters = cc.vgl_cc_hybrid(graph)
+    torch.cuda.synchronize()
+    print(f"  vgl_cc_hybrid: {hy_iters} hook iterations, launches "
+          f"{ {n: k.launches for n, k in kernels.items() if k.launches} }")
+    for name, k in kernels.items():
+        totals[name] += k.launches
+    check("CC flood hybrid", equal_components(
+        hybrid.values[:graph.v].cpu().numpy(), want_cc))
+    rates["cc_sv"] = mteps("CC Shiloach-Vishkin",
+                           lambda: cc.vgl_shiloach_vishkin(graph), e)
+    rates["cc_sv_iters"] = sv_iters
+    rates["cc_sv_periter"] = rates["cc_sv"] * 2 * sv_iters
+    print(f"  CC Shiloach-Vishkin per-pull MTEPS median "
+          f"{rates['cc_sv_periter']:.4f} ({2 * sv_iters} pulls) on {smi}")
+    rates["cc_hybrid"] = mteps("CC flood hybrid",
+                               lambda: cc.vgl_cc_hybrid(graph), e)
+
+    n_it = 20
+    auth, hub = counted(
+        f"vgl_hits {n_it} iterations", lambda: hits.vgl_hits(graph, n_it),
+        dict(pull_reduce=2 * n_it, route_gather_finish=2 * n_it + 2))
+    want_auth, want_hub = hits.seq_hits(ec, iterations=n_it)
+    for label, got, want in (("auth", auth, want_auth), ("hub", hub, want_hub)):
+        vals = got.values
+        if vals.shape != (graph.v_pad,) or not bool(torch.isfinite(vals).all()):
+            raise AssertionError(f"HITS {label} is not finite [v_pad]")
+        check(f"HITS {label}", verify_ranking_results(
+            vals[:graph.v].cpu().numpy(), want))
+    rates["hits"] = mteps("HITS", lambda: hits.vgl_hits(graph, n_it), e * n_it)
+    print(f"  fixpoint family peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB on {smi}")
+    return dict(launches=totals, rates=rates)
 
 
 def phase_lane_shuffle(ls, graph, smi: str) -> dict:
@@ -867,30 +1262,48 @@ def phase_persistence(kernels: dict, fresh: dict, router_s: float,
     return counts
 
 
-def profile(pr_graph, bfs_graph, bfs_root, out_dir: str) -> None:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    from vectorgraphlibrary_tpu_torch.models import bfs, pr
+def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, out_dir: str) -> None:
+    """Device time by kernel of one call of each slice, beside its wall time
+    without the profiler, to DIR/<slice>_profile.txt and the output. A
+    window in which the profiler recorded fewer pull_reduce kernels than
+    the wrapper launched is taken again (three times at most) and marked
+    INCOMPLETE if it stays short."""
+    from vectorgraphlibrary_tpu_torch.models import bfs, hits, pr, sssp
     os.makedirs(out_dir, exist_ok=True)
+    src = _sssp_sources(ec)[0]
     runs = (("pr_profile.txt", lambda: pr.vgl_page_rank(
                 pr_graph, max_iterations=10, use_convergence=False)),
             ("bfs_do_profile.txt",
-             lambda: bfs.vgl_bfs_device(bfs_graph, bfs_root)))
+             lambda: bfs.vgl_bfs_device(bfs_graph, bfs_root)),
+            ("sssp_all_active_profile.txt",
+             lambda: sssp.vgl_dijkstra_all_active(bfs_graph, ea, src)),
+            ("hits_profile.txt", lambda: hits.vgl_hits(bfs_graph, 20)))
     for fname, fn in runs:
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=30)
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        pl.pull_reduce.launches = 0
+        wall = min(_timed3(fn))
+        want = pl.pull_reduce.launches // 3
+        for _ in range(3):
+            dev = _device_events(fn)
+            seen = sum("pull_reduce_kernel" in e.name for e in dev)
+            if seen == want:
+                break
         total = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-        head = (f"{fname}: {len(dev)} device events (kernels and copies), "
-                f"{total:.4f} ms of device time")
+        by_name: dict = {}
+        for e in dev:
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+        lines = [f"{fname}: {len(dev)} device events (kernels and copies), "
+                 f"{total:.4f} ms of device time; {wall * 1e3:.4f} ms of wall "
+                 f"time without the profiler (the least of 3): the card is "
+                 f"busy {100 * total / (wall * 1e3):.1f} % of it"
+                 + ("" if seen == want else f"; INCOMPLETE: {seen} of {want} "
+                    f"pull_reduce launches recorded")]
+        for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+            lines.append(f"  {t:9.4f} ms {100 * t / total:5.1f} % {n:5d} x  "
+                         f"{name[:110]}")
         with open(os.path.join(out_dir, fname), "w") as f:
-            f.write(head + "\n" + table)
-        print(head)
-        print("\n".join(table.splitlines()[:24]))
+            f.write("\n".join(lines) + "\n")
+        print("\n".join(lines[:13]))
 
 
 def main() -> int:
@@ -908,7 +1321,7 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/8] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/10] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -916,32 +1329,32 @@ def main() -> int:
     build.load_library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/8] build: {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[2/10] build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
           f"ptxas: " + " | ".join(ptxas))
 
-    print("[3/8] kernel: route_gather_finish vs plain version, n = 2^24")
+    print("[3/10] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
-    print(f"[4/8] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+    print(f"[4/10] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
           f"version on its graph")
     prr = phase_pagerank(rg, pl, smi)
     prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
-    print(f"[5/8] kernel: scatter_combine vs plain version, V = 2^20, and "
+    print(f"[5/10] kernel: scatter_combine vs plain version, V = 2^20, and "
           f"push_expand vs plain version on RMAT-{BFS_SCALE}")
-    bfs_ec, bfs_graph = make_bfs_graph()
+    bfs_ec, bfs_graph, bfs_ea = make_bfs_graph()
     push = phase_scatter(scm, pe, bfs_graph, smi)
 
-    print(f"[6/8] slice: BFS on RMAT-{BFS_SCALE}")
+    print(f"[6/10] slice: BFS on RMAT-{BFS_SCALE}")
     bfs_root, bfs_launches, pull20 = phase_bfs(rg, pl, pe, scm, bfs_ec,
                                                bfs_graph, smi)
 
-    print(f"[7/8] kernel: lane_shuffle vs plain version, "
+    print(f"[7/10] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
     lsr = phase_lane_shuffle(ls, prr["graph"], smi)
 
-    print(f"[8/8] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+    print(f"[8/10] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
     kernels = dict(lane_shuffle=ls.lane_shuffle,
                    route_gather_finish=rg.route_gather_finish,
@@ -949,8 +1362,20 @@ def main() -> int:
                    scatter_combine=scm.scatter_combine)
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
+    print(f"[9/10] kernel: pull_reduce with edge weights and scatter_combine "
+          f"f32 vs plain versions on weighted RMAT-{BFS_SCALE}, and the "
+          f"host's cost of one launch")
+    wk = phase_weighted_kernels(rg, pl, scm, bfs_ec, bfs_graph, bfs_ea, smi)
+
+    print(f"[10/10] slice: SSSP, SSWP, CC and HITS on weighted "
+          f"RMAT-{BFS_SCALE}")
+    fix = phase_fixpoint(kernels, bfs_ec, bfs_graph, bfs_ea, smi)
+    prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
+    push["scatter"]["max_err"] = max(push["scatter"]["max_err"],
+                                     wk["scatter"]["max_err"])
+
     if "--profile" in sys.argv:
-        profile(prr["graph"], bfs_graph, bfs_root,
+        profile(pl, prr["graph"], bfs_graph, bfs_root, bfs_ec, bfs_ea,
                 sys.argv[sys.argv.index("--profile") + 1])
 
     def times(r: dict) -> dict:
@@ -959,7 +1384,8 @@ def main() -> int:
     def paths(kernel: str) -> dict:
         by_path = {f"pagerank_rmat{SCALE}": prr["launches"].get(kernel, 0),
                    f"bfs_do_rmat{BFS_SCALE}": bfs_launches.get(kernel, 0),
-                   f"loaded_rmat{SCALE}": loaded[kernel]}
+                   f"loaded_rmat{SCALE}": loaded[kernel],
+                   f"fixpoint_rmat{BFS_SCALE}": fix["launches"][kernel]}
         if kernel == "scatter_combine":
             by_path["exp_push"] = push["scatter"]["launches"]
         return by_path
@@ -977,15 +1403,20 @@ def main() -> int:
         row("route_gather_finish", "route_gather.cu", REPLACES, route,
             random_perm_2p24_ms=rand_ms,
             random_perm_2p24_plain_ms=rand_plain_ms,
+            device_ms=route["device_ms"],
+            library_device_ms=route["library_device_ms"],
+            one_launch_128_slots=wk["launch"],
             **{k: v for k, v in route.items() if k.startswith("advance_")}),
         row("pull_reduce", "pull_reduce.cu", REPLACES, prr["pull"],
             rmat20_i8_any01_ms=pull20["ms"],
             rmat20_i8_any01_plain_ms=pull20["plain_ms"],
             rmat20_i8_any01_bound_ms=pull20["bound_ms"],
-            rmat20_max_abs_err=pull20["max_err"]),
+            rmat20_max_abs_err=pull20["max_err"],
+            rmat20_weighted={k: times(r) for k, r in wk["pulls"].items()}),
         row("scatter_combine", "scatter_combine.cu", REPLACES_SCATTER,
             push["scatter"], device_ms=push["scatter"]["device_ms"],
-            library_device_ms=push["scatter"]["library_device_ms"]),
+            library_device_ms=push["scatter"]["library_device_ms"],
+            f32_min={k: v for k, v in wk["scatter"].items()}),
         row("push_expand", "push_expand.cu", REPLACES_SCATTER, push["push"],
             device_ms=push["push"]["device_ms"]),
         row("lane_shuffle", "lane_shuffle.cu", REPLACES_LANE, lsr)]}))

@@ -1,6 +1,7 @@
-"""PyTorch port, primitives: monoids, the fused value-pull advance,
-advance_cells, reduce, compute and reorder against the JAX package on the same
-graph (the JAX route in Pallas interpret mode on the CPU).
+"""PyTorch port, primitives: monoids, the fused value-pull advance (with
+edge weights and source masks on weighted RMAT-10 and RU-9), advance_cells,
+reduce, compute and reorder against the JAX package on the same graph (the
+JAX route in Pallas interpret mode on the CPU).
 
 Tolerance: f32 sums at rtol 1e-5 / atol 1e-6, because per-row sums are taken
 in another order than the reference's HIGHEST-precision group matmul; min,
@@ -14,6 +15,8 @@ import jax.numpy as jnp
 
 from vectorgraphlibrary_tpu.config import TraversalDirection as JDir
 from vectorgraphlibrary_tpu.graph.device import import_graph as jimport_graph
+from vectorgraphlibrary_tpu.graph.edges import (
+    build_edge_array_from_host as jbuild_edge_array)
 from vectorgraphlibrary_tpu.graph.vertices import (VertexArray as JVertexArray,
                                                    reorder as jreorder)
 from vectorgraphlibrary_tpu.io.edges_container import EdgesContainer
@@ -25,6 +28,8 @@ from vectorgraphlibrary_tpu.ops.reduce import reduce as jreduce
 
 from vectorgraphlibrary_tpu_torch.config import TraversalDirection as TDir
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph as timport_graph
+from vectorgraphlibrary_tpu_torch.graph.edges import (
+    build_edge_array_from_host as tbuild_edge_array)
 from vectorgraphlibrary_tpu_torch.graph.vertices import (VertexArray as TVertexArray,
                                                          reorder as treorder)
 from vectorgraphlibrary_tpu_torch.models import common as tcommon
@@ -99,6 +104,170 @@ def test_advance_pull_value_matches_jax(graphs, case):
                                       exclude_self_loops=excl, direction=td,
                                       src_in_src_order=src_order)
     _cmp(got, want, combine)
+
+
+@pytest.fixture(scope="module")
+def wgraphs(request):
+    """name -> (ec, JAX graph, JAX EdgeArray, port graph, port EdgeArray) of
+    a conftest graph with random weights, built once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            ec = request.getfixturevalue(name).with_random_weights(seed=11)
+            jhost, thost = [], []
+            jg = jimport_graph(ec, _host_out=jhost)
+            jea = jbuild_edge_array(ec.weights, jg, jhost[0], jhost[1])
+            tg = timport_graph(ec, device="cpu", _host_out=thost)
+            tea = tbuild_edge_array(ec.weights, tg, thost[0], thost[1])
+            cache[name] = (ec, jg, jea, tg, tea)
+        return cache[name]
+    return get
+
+
+# (direction, combine, weight_op, src_active, src_in_src_order,
+#  exclude_self_loops, dtype): every form the SSSP, SSWP, HITS and CC models
+# call, then the other (combine, weight_op) pairs that take a source mask
+WPULLS = {
+    "sssp-relax": ("G", "min", "add", False, False, False, "dist"),
+    "sssp-relax-changed": ("G", "min", "add", True, False, False, "dist"),
+    "sswp-relax": ("G", "max", "min", False, False, False, "cap"),
+    "hits-auth": ("G", "add", None, False, True, False, "f32"),
+    "hits-hub": ("S", "add", None, False, True, False, "f32"),
+    "cc-hook-in": ("G", "min", None, False, False, False, "label"),
+    "cc-hook-out": ("S", "min", None, False, False, False, "label"),
+    "cc-flood-in": ("G", "or", None, False, False, False, "bool"),
+    "cc-flood-out": ("S", "or", None, False, False, False, "bool"),
+    "S-min-add-changed-srcorder": ("S", "min", "add", True, True, False,
+                                   "dist"),
+    "G-max-min-changed-srcorder": ("G", "max", "min", True, True, False,
+                                   "cap"),
+    "S-max-max-noloops": ("S", "max", "max", False, False, True, "f32"),
+    "G-add-mul-changed": ("G", "add", "mul", True, False, False, "f32"),
+    "G-add-add-noloops": ("G", "add", "add", False, False, True, "f32"),
+    "S-or-bool-changed": ("S", "or", None, True, False, False, "bool"),
+    "G-min-label-changed": ("G", "min", None, True, False, False, "label"),
+}
+
+
+def _wpull_input(rng, kind, n):
+    if kind == "dist":        # distances: a third unreached
+        x = rng.uniform(0, 300, n).astype(np.float32)
+        x[rng.random(n) < 0.3] = np.inf
+        return x
+    if kind == "cap":         # capacities: unreached 0, the source inf
+        x = rng.uniform(0, 100, n).astype(np.float32)
+        x[rng.random(n) < 0.3] = 0.0
+        x[rng.integers(0, n)] = np.inf
+        return x
+    if kind == "label":
+        return rng.integers(0, n, n).astype(np.int32)
+    if kind == "bool":
+        return rng.random(n) < 0.2
+    return rng.uniform(0, 5, n).astype(np.float32)
+
+
+@pytest.mark.parametrize("graph", ["small_rmat", "small_ru"])
+@pytest.mark.parametrize("case", list(WPULLS))
+def test_advance_pull_value_weights_and_masks_match_jax(wgraphs, graph, case):
+    """min and max combines bit for bit (each message is one f32 operation
+    and min/max are exact), integers and bools exactly, add at ADD_TOL."""
+    d, combine, wop, active, src_order, excl, kind = WPULLS[case]
+    _, jg, jea, tg, tea = wgraphs(graph)
+    rng = np.random.default_rng(21)
+    x = _wpull_input(rng, kind, jg.v_pad)
+    mask = rng.random(jg.v_pad) < 0.4 if active else None
+    jd, td = _dirs(d)
+    want = jadvance.advance_pull_value(
+        jg, jnp.asarray(x), combine,
+        edge_values=None if wop is None else jea.direction(jd), weight_op=wop,
+        exclude_self_loops=excl,
+        src_active=None if mask is None else jnp.asarray(mask), direction=jd,
+        src_in_src_order=src_order)
+    got = tadvance.advance_pull_value(
+        tg, torch.from_numpy(x), combine,
+        edge_values=None if wop is None else tea.direction(td), weight_op=wop,
+        exclude_self_loops=excl,
+        src_active=None if mask is None else torch.from_numpy(mask),
+        direction=td, src_in_src_order=src_order)
+    _cmp(got, want, combine)
+    if active and combine != "add":
+        # the mask matters: the unmasked pull differs
+        full = tadvance.advance_pull_value(
+            tg, torch.from_numpy(x), combine,
+            edge_values=None if wop is None else tea.direction(td),
+            weight_op=wop, exclude_self_loops=excl, direction=td,
+            src_in_src_order=src_order)
+        assert not torch.equal(full, got)
+
+
+def test_src_active_is_an_absorbing_value_before_the_pull(wgraphs):
+    """The reference has two meanings of src_active; the port matches the
+    fused route's (ops/advance.py:592-593 there): the inactive sources'
+    values become the combine's identity BEFORE the pull. For a min/max
+    combine that equals a mask after the edge op; for add with a weight op
+    other than mul it does not (0 + w != 0), and the reference's assert
+    (advance.py:526-527) refuses that pair, as the port's does."""
+    _, jg, jea, tg, tea = wgraphs("small_ru")
+    rng = np.random.default_rng(3)
+    x = _wpull_input(rng, "dist", tg.v_pad)
+    mask = rng.random(tg.v_pad) < 0.5
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    w = tea.direction(TDir.GATHER)
+    got = tadvance.advance_pull_value(tg, xt, "min", edge_values=w,
+                                      weight_op="add", src_active=mt,
+                                      direction=TDir.GATHER)
+    by_hand = tadvance.advance_pull_value(
+        tg, torch.where(mt, xt, torch.tensor(torch.inf)), "min",
+        edge_values=w, weight_op="add", direction=TDir.GATHER)
+    assert torch.equal(got, by_hand)
+    for pkg_call in (
+            lambda: tadvance.advance_pull_value(
+                tg, xt, "add", edge_values=w, weight_op="add", src_active=mt,
+                direction=TDir.GATHER),
+            lambda: jadvance.advance_pull_value(
+                jg, jnp.asarray(x), "add",
+                edge_values=jea.direction(JDir.GATHER), weight_op="add",
+                src_active=jnp.asarray(mask), direction=JDir.GATHER)):
+        with pytest.raises(AssertionError):
+            pkg_call()
+    with pytest.raises(ValueError):
+        tadvance.advance_pull_value(tg, xt, "min", weight_op="add",
+                                    direction=TDir.GATHER)
+
+
+def test_pull_result_type_and_empty_rows(wgraphs):
+    """int32 values with f32 weights give f32 (result_type); rows without
+    in-edges and padding rows give the combine's identity."""
+    _, jg, jea, tg, tea = wgraphs("small_rmat")
+    x = np.arange(tg.v_pad, dtype=np.int32)
+    want = jadvance.advance_pull_value(
+        jg, jnp.asarray(x), "max", edge_values=jea.direction(JDir.GATHER),
+        weight_op="min", direction=JDir.GATHER)
+    got = tadvance.advance_pull_value(
+        tg, torch.from_numpy(x), "max", edge_values=tea.direction(TDir.GATHER),
+        weight_op="min", direction=TDir.GATHER)
+    assert got.dtype == torch.float32
+    _cmp(got, want, "max")
+    empty = tg.incoming.degrees == 0
+    assert int(empty.sum()) > tg.v_pad - tg.v
+    assert bool((got[empty] == -torch.inf).all())
+    assert bool(torch.isfinite(got[~empty]).all())
+
+
+@pytest.mark.parametrize("pair", ["GS", "SG", "OS", "SO", "OG", "GO"])
+def test_reorder_bool_matches_jax(graphs, pair):
+    """Bool vectors (CC's reach masks, SSSP's changed masks) take the
+    vertex routes as 1-byte values and come back bool."""
+    _, jg, tg = graphs
+    x = np.random.default_rng(8).random(jg.v_pad) < 0.3
+    (js, ts), (jd, td) = _dirs(pair[0]), _dirs(pair[1])
+    want = jreorder(JVertexArray(values=jnp.asarray(x), direction=js), jg, jd)
+    got = treorder(TVertexArray(values=torch.from_numpy(x), direction=ts), tg,
+                   td)
+    assert got.values.dtype == torch.bool
+    np.testing.assert_array_equal(got.values.numpy()[:jg.v],
+                                  np.asarray(want.values)[:jg.v])
 
 
 @pytest.mark.parametrize("d", ["G", "S"])

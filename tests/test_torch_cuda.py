@@ -1,8 +1,9 @@
-"""PyTorch port on the card: the route-gather, CSR pull, scatter-combine,
-expand-and-scatter and lane-shuffle kernels against their plain versions (bit
-for bit, but f32 sums of the pull at rtol 1e-5 / atol 1e-6: another order),
-their launch counts, their argument checks, and the slices (PageRank, BFS,
-loading a saved graph) on CUDA against the same slices on the CPU. Every test
+"""PyTorch port on the card: the route-gather, CSR pull (with edge weights),
+scatter-combine (int32 and f32), expand-and-scatter and lane-shuffle kernels
+against their plain versions (bit for bit, but f32 sums of the pull at rtol
+1e-5 / atol 1e-6: another order), their launch counts, their argument
+checks, and the slices (PageRank, BFS, loading a saved graph, SSSP, SSWP,
+HITS, CC) on CUDA against the same slices on the CPU. Every test
 here needs an NVIDIA GPU and skips
 without one. The file needs no JAX (the card's host has none), so on the card
 run it without tests/conftest.py, which imports jax:
@@ -19,7 +20,8 @@ from vectorgraphlibrary_tpu_torch.graph.persistence import (
     load_graph_from_binary_file, save_graph_to_binary_file)
 from vectorgraphlibrary_tpu_torch.io import generation
 from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
-from vectorgraphlibrary_tpu_torch.models import bfs, common, pr
+from vectorgraphlibrary_tpu_torch.graph.edges import build_edge_array_from_host
+from vectorgraphlibrary_tpu_torch.models import bfs, cc, common, hits, pr, sssp, sswp
 from vectorgraphlibrary_tpu_torch.graph import frontier
 from vectorgraphlibrary_tpu_torch.ops import advance, monoid
 from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
@@ -27,6 +29,7 @@ from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
 from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
 from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
 from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as sc
+from vectorgraphlibrary_tpu_torch.utils.verify import verify_results
 
 pytestmark = pytest.mark.gpu
 
@@ -141,18 +144,26 @@ def test_scatter_combine_rejects_what_it_does_not_take(cuda):
     out = torch.zeros(8, dtype=torch.int32, device=cuda)
     idx = torch.arange(8, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
-        sc.scatter_combine(out.float(), idx, 1, "min")
+        sc.scatter_combine(out.double(), idx, 1, "min")
+    with pytest.raises(TypeError):
+        sc.scatter_combine(out.float(), idx, 1.0, "or")
+    with pytest.raises(ValueError):         # messages of the target's type
+        sc.scatter_combine(out.float(), idx, idx, "min")
     with pytest.raises(TypeError):
         sc.scatter_combine(out, idx.long(), 1, "min")
     with pytest.raises(ValueError):
         sc.scatter_combine(out, idx, 1, "add")
     with pytest.raises(ValueError):
         sc.scatter_combine(out, idx, idx.cpu(), "max")
-    # scatter_at on the card: only int32 min/max have a kernel
+    # scatter_at on the card: min/max over int32 and f32 have a kernel
     with pytest.raises(TypeError):
         monoid.ADD.scatter_at(out, idx, idx)
     with pytest.raises(TypeError):
-        monoid.MIN.scatter_at(out.float(), idx, idx.float())
+        monoid.MIN.scatter_at(out.double(), idx, idx.double())
+    before = sc.scatter_combine.launches
+    got = monoid.MIN.scatter_at(out.float() + 5, idx, idx.float())
+    assert sc.scatter_combine.launches == before + 1
+    assert got.cpu().tolist() == [0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 5.0, 5.0]
     with pytest.raises(NotImplementedError):
         monoid.OR.scatter_at(out, idx, idx)
 
@@ -385,3 +396,211 @@ def test_push_expand_rejects_what_it_does_not_take(cuda):
         pe.push_expand(out, rp, ci, ci, ids, valid, 8, 1, "add")
     with pytest.raises(ValueError):
         pe.push_expand(out, rp, ci, ci, ids, valid, 8, 2**31, "min")
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_combine_f32_equals_plain_version(cuda, case, op):
+    """f32 min and max, bit for bit: random messages of both signs with
+    +-inf entries (no NaN, no -0.0: the kernel orders those by bit pattern)
+    as a tensor and as one constant."""
+    n_out, n, kind = SCATTER_CASES[case]
+    rng = np.random.default_rng(5)
+    if kind == "dup":
+        idx = rng.integers(0, 5, n)
+    elif kind == "drop":
+        idx = np.where(rng.random(n) < 0.5, n_out + rng.integers(0, 9, n),
+                       -1 - rng.integers(0, 9, n))
+    else:
+        idx = rng.integers(0, n_out, n)
+        idx[rng.random(n) < 1 / 8] = n_out
+        idx[rng.random(n) < 1 / 64] = -3
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    out = rng.standard_normal(n_out).astype(np.float32) * 100
+    out[::5] = np.inf if op == "min" else -np.inf
+    out = torch.from_numpy(out).to(cuda)
+    msgs = rng.standard_normal(n).astype(np.float32) * 100
+    msgs[::97] = np.inf
+    msgs[3::89] = -np.inf
+    for msg in (torch.from_numpy(msgs).to(cuda), 1.5, -2.25, float("inf")):
+        before = sc.scatter_combine.launches
+        got = sc.scatter_combine(out, idx, msg, op)
+        torch.cuda.synchronize()
+        assert sc.scatter_combine.launches == before + 1
+        want = sc.scatter_combine_ref(out, idx, msg, op)
+        assert got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if kind == "drop" or n == 0:
+        assert torch.equal(got, out)
+
+
+@pytest.fixture(scope="module")
+def weighted_cuda():
+    """Weighted RMAT-12 on the card and on the CPU, with both EdgeArrays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU mode)")
+    ec = generation.rmat(12, 16, seed=5, weighted=True)
+    host = []
+    cg = import_graph(ec, device="cpu", _host_out=host)
+    g = import_graph(ec, device="cuda")
+    return (ec, cg, build_edge_array_from_host(ec.weights, cg, *host), g,
+            build_edge_array_from_host(ec.weights, g, *host))
+
+
+WEIGHTED_PULLS = [("f32", "min", "add"), ("f32", "max", "min"),
+                  ("f32", "min", "max"), ("f32", "add", "mul"),
+                  ("f32", "add", "add"), ("i32", "min", "add"),
+                  ("i32", "max", "min"), ("i32", "add", "mul"),
+                  ("i32", "or", "max")]
+
+
+@pytest.mark.parametrize("d", ["G", "S"])
+@pytest.mark.parametrize("dtype,op,wop", WEIGHTED_PULLS)
+def test_pull_reduce_with_weights_equals_plain_version(weighted_cuda, d, dtype,
+                                                       op, wop):
+    _, _, _, g, ea = weighted_cuda
+    direction = bfs.G if d == "G" else bfs.S
+    dg = g.direction(direction)
+    n = g.v_pad
+    rng = np.random.default_rng(7)
+    if dtype == "f32":
+        x = rng.random(n).astype(np.float32) * 300
+        x[rng.random(n) < 0.3] = np.inf
+        w = ea.direction(direction).flat
+    else:
+        x = _i32(rng, n)
+        w = torch.from_numpy(_i32(rng, dg.e_pad)).cuda()
+    x = torch.from_numpy(x).cuda()
+    splits = (advance.row_groups(dg), None, ((n, 1),),
+              ((16, pl.BLOCK), (n, 4)))
+    for excl in (False, True):
+        want = pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op, excl,
+                                  weights=w, weight_op=wop)
+        for groups in splits:
+            before = pl.pull_reduce.launches
+            got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, groups,
+                                 weights=w, weight_op=wop)
+            torch.cuda.synchronize()
+            assert pl.pull_reduce.launches == before + 1
+            assert got.dtype == want.dtype and got.shape == (n,)
+            if (dtype, op) == ("f32", "add"):
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            else:
+                assert torch.equal(got, want)
+
+
+def test_pull_reduce_rejects_bad_weights(cuda):
+    row_ptr = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda)
+    col_idx = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    x = torch.zeros(2, device=cuda)
+    w = torch.ones(2, device=cuda)
+    with pytest.raises(ValueError):
+        pl.pull_reduce(row_ptr, col_idx, x, "min", weights=w)
+    with pytest.raises(ValueError):
+        pl.pull_reduce(row_ptr, col_idx, x, "min", weight_op="add")
+    with pytest.raises(ValueError):
+        pl.pull_reduce(row_ptr, col_idx, x, "min", weights=w.int(),
+                       weight_op="add")
+    with pytest.raises(ValueError):
+        pl.pull_reduce(row_ptr, col_idx, x, "min", weights=w[:1],
+                       weight_op="add")
+    with pytest.raises(ValueError):
+        pl.pull_reduce(row_ptr, col_idx, x, "min", weights=w.cpu(),
+                       weight_op="add")
+    with pytest.raises(TypeError):
+        pl.pull_reduce(row_ptr, col_idx, x.to(torch.int8), "min",
+                       weights=w.to(torch.int8), weight_op="add")
+
+
+def test_vertex_route_takes_bool_on_the_card(cuda):
+    """CC's reach masks and SSSP's changed masks: a bool vector rides the
+    vertex routes as 1-byte values, one launch each, and comes back bool."""
+    ec = generation.rmat(10, 8, seed=3, weighted=False)
+    cg, g = import_graph(ec, device="cpu"), import_graph(ec, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(1).random(g.v_pad) < 0.3)
+    O = cc.O
+    for a, b in ((O, bfs.G), (bfs.G, O), (O, bfs.S), (bfs.S, O),
+                 (bfs.S, bfs.G), (bfs.G, bfs.S)):
+        before = rg.route_gather_finish.launches
+        got = common.to_direction(g, x.to(cuda), a, b)
+        assert rg.route_gather_finish.launches == before + 1
+        assert got.dtype == torch.bool
+        assert torch.equal(got.cpu(), common.to_direction(cg, x, a, b))
+
+
+def _reset(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def test_sssp_and_sswp_on_cuda_match_cpu(weighted_cuda):
+    ec, cg, cea, g, ea = weighted_cuda
+    src = common.select_random_source(ec, seed=2)
+    kernels = (pl.pull_reduce, sc.scatter_combine, rg.route_gather_finish)
+    _reset(*kernels)
+    got, iters = sssp.vgl_dijkstra_all_active(g, ea, src)
+    torch.cuda.synchronize()
+    assert pl.pull_reduce.launches == iters
+    assert sc.scatter_combine.launches == rg.route_gather_finish.launches == 0
+    want, citers = sssp.vgl_dijkstra_all_active(cg, cea, src)
+    assert iters == citers and torch.equal(got.values.cpu(), want.values)
+    # the oracle adds in fp64: equal within verify_results' epsilon
+    assert verify_results(as_original_numpy(got, g),
+                          sssp.seq_dijkstra(ec, src)) == 0
+
+    for kw in (dict(), dict(id_cap=64, edge_cap=512)):
+        trace = []
+        _reset(*kernels)
+        part, piters = sssp.vgl_dijkstra_partial_device(g, ea, src,
+                                                        trace=trace, **kw)
+        torch.cuda.synchronize()
+        pushes = sum(t[0] == "push" for t in trace)
+        # a sparse step: the owner mark and the f32 min, three vertex routes
+        assert sc.scatter_combine.launches == 2 * pushes
+        assert rg.route_gather_finish.launches == 3 * pushes + 1
+        assert pl.pull_reduce.launches == len(trace) - pushes
+        cpart, cpiters = sssp.vgl_dijkstra_partial_device(cg, cea, src, **kw)
+        assert piters == cpiters == len(trace)
+        assert torch.equal(part.values.cpu(), cpart.values)
+        assert torch.equal(part.values, got.values)
+    assert pushes and pushes < len(trace)
+
+    pa, _ = sssp.vgl_dijkstra_partial_active(g, ea, src)
+    assert np.array_equal(as_original_numpy(pa, g), as_original_numpy(got, g))
+    multi = sssp.vgl_dijkstra_multi(g, ea, [src, 0], all_active=False)
+    assert torch.equal(multi.values[0], got.values)
+
+    _reset(*kernels)
+    caps, witers = sswp.vgl_widest_paths(g, ea, src)
+    torch.cuda.synchronize()
+    assert pl.pull_reduce.launches == witers
+    ccaps, cwiters = sswp.vgl_widest_paths(cg, cea, src)
+    assert witers == cwiters and torch.equal(caps.values.cpu(), ccaps.values)
+
+
+def test_hits_and_cc_on_cuda_match_cpu(weighted_cuda):
+    ec, cg, _, g, _ = weighted_cuda
+    kernels = (pl.pull_reduce, rg.route_gather_finish)
+    _reset(*kernels)
+    auth, hub = hits.vgl_hits(g, iterations=20)
+    torch.cuda.synchronize()
+    assert pl.pull_reduce.launches == 40
+    assert rg.route_gather_finish.launches == 42
+    cauth, chub = hits.vgl_hits(cg, iterations=20)
+    for a, b in ((auth, cauth), (hub, chub)):
+        np.testing.assert_allclose(a.values.cpu().numpy(), b.values.numpy(),
+                                   rtol=1e-4, atol=1e-7)
+
+    _reset(*kernels)
+    labels, iters = cc.vgl_shiloach_vishkin(g)
+    torch.cuda.synchronize()
+    assert pl.pull_reduce.launches == 2 * iters
+    assert rg.route_gather_finish.launches == 4 * iters
+    clabels, citers = cc.vgl_shiloach_vishkin(cg)
+    assert iters == citers and torch.equal(labels.values.cpu(), clabels.values)
+    for fn in (cc.vgl_cc_hybrid, lambda gr: cc.vgl_cc_hybrid(gr, hub=3)):
+        a, ia = fn(g)
+        b, ib = fn(cg)
+        assert ia == ib and torch.equal(a.values.cpu(), b.values)
+    assert torch.equal(cc.vgl_bfs_based(g).values.cpu(),
+                       cc.vgl_bfs_based(cg).values)

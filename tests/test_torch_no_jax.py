@@ -1,7 +1,8 @@
 """PyTorch port: no module of the port (nor chip_smoke.py) imports jax or the
 JAX package, and running the slices on the CPU (PageRank, a DO-BFS root,
-saving a graph, which runs the port's own Beneš router, and loading it)
-neither loads the JAX package's native library nor launches a kernel."""
+SSSP in its all-active and partial forms, SSWP, HITS and CC on a weighted
+graph, saving a graph, which runs the port's own Beneš router, and loading
+it) neither loads the JAX package's native library nor launches a kernel."""
 import os
 import subprocess
 import sys
@@ -23,7 +24,9 @@ from vectorgraphlibrary_tpu_torch.io import generation
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph
 from vectorgraphlibrary_tpu_torch.models import pr
 from vectorgraphlibrary_tpu_torch.graph import persistence
-from vectorgraphlibrary_tpu_torch.models import bfs
+from vectorgraphlibrary_tpu_torch.models import bfs, cc, hits, sssp, sswp
+from vectorgraphlibrary_tpu_torch.config import VGLConfig
+from vectorgraphlibrary_tpu_torch.runtime import runtime
 from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
 from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
 from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
@@ -32,6 +35,19 @@ from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as sc
 g = import_graph(generation.rmat(9, 4, seed=1, weighted=False), device="cpu")
 pr.vgl_page_rank(g, max_iterations=2, use_convergence=False)
 bfs.vgl_bfs_device(g, 0, id_cap=64, edge_cap=256)
+ec, wg, ea = runtime.prepare_graph(VGLConfig(scale=8, avg_degree=4, seed=1),
+                                   need_weights=True, device="cpu")
+sssp.vgl_dijkstra_all_active(wg, ea, 0)
+sssp.vgl_dijkstra_partial_active(wg, ea, 0)
+sssp.vgl_dijkstra_partial_device(wg, ea, 0, id_cap=16, edge_cap=128)
+sssp.vgl_dijkstra_multi(wg, ea, [0, 1])
+sswp.vgl_widest_paths(wg, ea, 0)
+hits.vgl_hits(wg, iterations=2)
+cc.vgl_shiloach_vishkin(wg)
+cc.vgl_cc_hybrid(wg)
+cc.vgl_bfs_based(wg)
+sssp.seq_dijkstra(ec, 0), sswp.seq_widest_paths(ec, 0), hits.seq_hits(ec, 2)
+cc.seq_cc(ec)
 with tempfile.TemporaryDirectory() as d:
     persistence.save_graph_to_binary_file(g, os.path.join(d, "g.npz"))
     g2 = persistence.load_graph_from_binary_file(os.path.join(d, "g.npz"),
@@ -58,7 +74,7 @@ def test_port_never_imports_jax():
     lines = dict(ln.split(" ", 1) for ln in out.stdout.splitlines()
                  if ln.split(" ", 1)[0] in ("MODULES", "BAD", "NATIVE",
                                             "ROUTER", "LAUNCHES"))
-    assert int(lines["MODULES"]) >= 20
+    assert int(lines["MODULES"]) >= 29
     assert lines["BAD"] == "[]"
     assert lines["NATIVE"] == "False"
     assert lines["ROUTER"] == "True"          # the port's own router ran

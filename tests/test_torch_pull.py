@@ -2,8 +2,9 @@
 (ops/cuda/pull_reduce.pull_reduce_ref) against the JAX package's
 advance_pull_value (its route kernels in Pallas interpret mode) on an RMAT
 graph, a uniform graph with self-loops and a graph with huge rows in both
-directions; the kernel's work units (ops/advance.row_groups); and CPU runs
-of PageRank and DO-BFS, which launch no kernel.
+directions, without and with edge weights (f32 and i32, every weight op);
+the kernel's work units (ops/advance.row_groups); and CPU runs of PageRank
+and DO-BFS, which launch no kernel.
 
 Tolerance: f32 sums at rtol 1e-5 / atol 1e-6, because a row's sum is taken
 in CSR order, not in the reference's tile order; min, max, or and integers
@@ -17,12 +18,16 @@ import jax.numpy as jnp
 
 from vectorgraphlibrary_tpu.config import TraversalDirection as JDir
 from vectorgraphlibrary_tpu.graph.device import import_graph as jimport_graph
+from vectorgraphlibrary_tpu.graph.edges import (
+    build_edge_array_from_host as jbuild_edge_array)
 from vectorgraphlibrary_tpu.io import generation as jgeneration
 from vectorgraphlibrary_tpu.io.edges_container import EdgesContainer
 from vectorgraphlibrary_tpu.ops import advance as jadvance
 
 from vectorgraphlibrary_tpu_torch.config import TraversalDirection as TDir
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph as timport_graph
+from vectorgraphlibrary_tpu_torch.graph.edges import (
+    build_edge_array_from_host as tbuild_edge_array)
 from vectorgraphlibrary_tpu_torch.models import bfs as tbfs
 from vectorgraphlibrary_tpu_torch.models import common as tcommon
 from vectorgraphlibrary_tpu_torch.models import pr as tpr
@@ -135,6 +140,93 @@ def test_pull_reduce_ref_matches_jax(graphs, kind, case):
                                        exclude_self_loops=excl, direction=td,
                                        src_in_src_order=src_order)
     np.testing.assert_array_equal(full.numpy(), got)
+
+
+@pytest.fixture(scope="module")
+def wgraphs():
+    """kind -> (JAX graph, port graph, {dtype: (JAX EdgeArray, port
+    EdgeArray)}): f32 weights in [1, 100) and small int32 ones."""
+    cache = {}
+
+    def get(kind):
+        if kind not in cache:
+            ec = _edges(kind)
+            rng = np.random.default_rng(17)
+            values = {"f32": rng.uniform(1, 100, ec.edges_count)
+                      .astype(np.float32),
+                      "i32": rng.integers(-50, 50, ec.edges_count)
+                      .astype(np.int32)}
+            jhost, thost = [], []
+            jg = jimport_graph(ec, _host_out=jhost, keep_edge_slots=True)
+            tg = timport_graph(ec, device="cpu", _host_out=thost)
+            cache[kind] = (jg, tg, {
+                k: (jbuild_edge_array(w, jg, jhost[0], jhost[1]),
+                    tbuild_edge_array(w, tg, thost[0], thost[1]))
+                for k, w in values.items()})
+        return cache[kind]
+    return get
+
+
+# (direction, combine, weight_op, exclude_self_loops, dtype)
+WEIGHTED = {
+    "G-min-add": ("G", "min", "add", False, "f32"),          # SSSP
+    "G-max-min": ("G", "max", "min", False, "f32"),          # SSWP
+    "S-min-add-noloops": ("S", "min", "add", True, "f32"),
+    "S-max-max": ("S", "max", "max", False, "f32"),
+    "G-min-mul": ("G", "min", "mul", False, "f32"),
+    "G-add-mul-noloops": ("G", "add", "mul", True, "f32"),
+    "S-add-add": ("S", "add", "add", False, "f32"),
+    "G-min-add-i32": ("G", "min", "add", False, "i32"),
+    "S-max-min-i32-noloops": ("S", "max", "min", True, "i32"),
+    "G-add-mul-i32": ("G", "add", "mul", False, "i32"),
+}
+
+
+@pytest.mark.parametrize("kind", ["rmat", "hub"])
+@pytest.mark.parametrize("case", list(WEIGHTED))
+def test_pull_reduce_ref_with_weights_matches_jax(wgraphs, kind, case):
+    """The plain version with edge weights in CSR slot order against the
+    JAX package's fused finish, which reads them in route-slot order: min
+    and max bit for bit, integers exactly, f32 sums at ADD_TOL."""
+    d, combine, wop, excl, dtype = WEIGHTED[case]
+    jg, tg, eas = wgraphs(kind)
+    jea, tea = eas[dtype]
+    rng = np.random.default_rng(6)
+    x = (rng.uniform(0, 50, jg.v_pad).astype(np.float32) if dtype == "f32"
+         else rng.integers(-1000, 1000, jg.v_pad).astype(np.int32))
+    jd, td = _dirs(d)
+    want = np.asarray(jadvance.advance_pull_value(
+        jg, jnp.asarray(x), combine, edge_values=jea.direction(jd),
+        weight_op=wop, exclude_self_loops=excl, direction=jd))
+    dg = tg.direction(td)
+    got = pr_mod.pull_reduce_ref(dg.row_ptr, dg.col_idx, torch.from_numpy(x),
+                                 combine, excl,
+                                 weights=tea.direction(td).flat,
+                                 weight_op=wop).numpy()
+    assert got.dtype == want.dtype
+    if combine == "add" and dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(got, want)
+    # the wrapper takes the plain version for a CPU tensor, groups or not
+    full = pr_mod.pull_reduce(dg.row_ptr, dg.col_idx, torch.from_numpy(x),
+                              combine, excl, tadvance.row_groups(dg),
+                              weights=tea.direction(td).flat, weight_op=wop)
+    np.testing.assert_array_equal(full.numpy(), got)
+
+
+def test_pull_reduce_weights_come_with_a_weight_op():
+    row_ptr = torch.tensor([0, 2, 3], dtype=torch.int32)
+    col_idx = torch.tensor([1, 0, 1], dtype=torch.int32)
+    x = torch.tensor([1.0, 5.0])
+    w = torch.tensor([10.0, 20.0, 30.0])
+    got = pr_mod.pull_reduce(row_ptr, col_idx, x, "min", weights=w,
+                             weight_op="add")
+    np.testing.assert_array_equal(got.numpy(), [15.0, 35.0])
+    for kw in (dict(weights=w), dict(weight_op="add"),
+               dict(weights=w, weight_op="sub")):
+        with pytest.raises(ValueError):
+            pr_mod.pull_reduce(row_ptr, col_idx, x, "min", **kw)
 
 
 @pytest.mark.parametrize("kind", ["rmat", "hub"])

@@ -1,4 +1,5 @@
-"""PyTorch port, the sparse push and its scatter: advance_push_sparse,
+"""PyTorch port, the sparse push and its scatter: advance_push_sparse
+(without and with edge weights: SSSP's f32 min of dist + w),
 advance_push_sparse_const (the expand-and-scatter kernel's plain version) and
 Monoid.scatter_at against the JAX package on RMAT-10 and RU-9, and the
 scatter_combine kernel's plain version against the semantics of the TPU
@@ -19,12 +20,16 @@ import jax.numpy as jnp
 from vectorgraphlibrary_tpu.config import TraversalDirection as JDir
 from vectorgraphlibrary_tpu.graph import frontier as jfrontier
 from vectorgraphlibrary_tpu.graph.device import import_graph as jimport_graph
+from vectorgraphlibrary_tpu.graph.edges import (
+    build_edge_array_from_host as jbuild_edge_array)
 from vectorgraphlibrary_tpu.ops import advance as jadvance
 from vectorgraphlibrary_tpu.ops import monoid as jmonoid
 
 from vectorgraphlibrary_tpu_torch.config import TraversalDirection as TDir
 from vectorgraphlibrary_tpu_torch.graph import frontier as tfrontier
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph as timport_graph
+from vectorgraphlibrary_tpu_torch.graph.edges import (
+    build_edge_array_from_host as tbuild_edge_array)
 from vectorgraphlibrary_tpu_torch.models import bfs as tbfs
 from vectorgraphlibrary_tpu_torch.models import common as tcommon
 from vectorgraphlibrary_tpu_torch.ops import advance as tadvance
@@ -96,6 +101,74 @@ def test_advance_push_sparse_matches_jax(graphs, graph, form, ecap_kind):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # the push changed something
     assert (got.numpy() != out).any()
+
+
+@pytest.fixture(scope="module")
+def wgraphs(request):
+    """name -> (JAX graph, JAX EdgeArray, port graph, port EdgeArray) of a
+    conftest graph with random weights, built once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            ec = request.getfixturevalue(name).with_random_weights(seed=11)
+            jhost, thost = [], []
+            jg = jimport_graph(ec, _host_out=jhost)
+            tg = timport_graph(ec, device="cpu", _host_out=thost)
+            cache[name] = (
+                jg, jbuild_edge_array(ec.weights, jg, jhost[0], jhost[1]),
+                tg, tbuild_edge_array(ec.weights, tg, thost[0], thost[1]))
+        return cache[name]
+    return get
+
+
+# frontiers of the weighted push: capacity an exact fit, half of the degree
+# sum (edges past it drop), zero-degree vertices with invalid entries, empty
+WEIGHTED_CASES = ["exact", "overflow", "zero-degree", "empty"]
+
+
+@pytest.mark.parametrize("graph", ["small_rmat", "small_ru"])
+@pytest.mark.parametrize("combine", ["min", "max"])
+@pytest.mark.parametrize("case", WEIGHTED_CASES)
+def test_advance_push_sparse_with_weights_matches_jax(wgraphs, graph, combine,
+                                                      case):
+    """SSSP's relaxation (f32 min of dist[src] + w into dist) and its max
+    twin, bit for bit: each message is one f32 addition and min/max have one
+    answer in any order."""
+    jg, jea, tg, tea = wgraphs(graph)
+    rng = np.random.default_rng(15)
+    degs = np.asarray(jg.outgoing.degrees)
+    mask = rng.random(jg.v_pad) < 0.1
+    if case == "empty":
+        mask[:] = False
+    elif case == "zero-degree":
+        zero = np.flatnonzero(degs[:jg.v] == 0)
+        assert graph == "small_ru" or len(zero) > 0
+        mask[zero[:20]] = True
+    jf = jfrontier.from_mask(jg, jnp.asarray(mask), JDir.SCATTER)
+    tf = tfrontier.from_mask(tg, torch.from_numpy(mask), TDir.SCATTER)
+    cap = tcommon.next_pow2(max(int(tf.size), 8)) \
+        * (2 if case == "zero-degree" else 1)
+    jids, jvalid = jfrontier.compact_ids(jf, cap)
+    tids, tvalid = tfrontier.compact_ids(tf, cap)
+    deg_sum = int(tf.neighbours_count)
+    ecap = max(deg_sum // 2 if case == "overflow" else deg_sum, 8)
+    dist = rng.uniform(0, 300, jg.v_pad).astype(np.float32)
+    dist[rng.random(jg.v_pad) < 0.3] = np.inf
+    want = jadvance.advance_push_sparse(
+        jg, jids, jvalid, ecap, {"d": jnp.asarray(dist)},
+        lambda s, d, w: s["d"] + w, combine, jnp.asarray(dist),
+        edge_values=jea.outgoing, direction=JDir.SCATTER)
+    got = tadvance.advance_push_sparse(
+        tg, tids, tvalid, ecap, {"d": torch.from_numpy(dist)},
+        lambda s, d, w: s["d"] + w, combine, torch.from_numpy(dist),
+        edge_values=tea.outgoing, direction=TDir.SCATTER)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() != dist).any() == (case not in ("empty",
+                                                          "zero-degree")
+                                           or (case == "zero-degree"
+                                               and deg_sum > 0))
 
 
 # frontiers of the constant push: capacity an exact fit, half of it (edges
@@ -249,6 +322,39 @@ def test_scatter_combine_ref_matches_numpy(op):
     with pytest.raises(ValueError):
         sc.scatter_combine(torch.from_numpy(out), torch.from_numpy(idx),
                            torch.from_numpy(msg), "add")
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_scatter_combine_ref_f32_matches_numpy(op):
+    """f32 messages with duplicates, +-inf entries and dropped indices, and
+    one constant message for all, against numpy's unbuffered min/max."""
+    rng = np.random.default_rng(9)
+    n, m = 300, 4000
+    idx = rng.integers(-20, n + 20, m).astype(np.int32)
+    msg = rng.standard_normal(m).astype(np.float32) * 50
+    msg[::97] = np.inf
+    msg[5::101] = -np.inf
+    out = rng.standard_normal(n).astype(np.float32) * 50
+    out[::7] = np.inf if op == "min" else -np.inf
+    keep = (idx >= 0) & (idx < n)
+    ufunc = {"min": np.minimum, "max": np.maximum}[op]
+    want = out.copy()
+    ufunc.at(want, idx[keep], msg[keep])
+    got = sc.scatter_combine(torch.from_numpy(out), torch.from_numpy(idx),
+                             torch.from_numpy(msg), op)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    want = out.copy()
+    ufunc.at(want, idx[keep], np.float32(1.5))
+    got = sc.scatter_combine_ref(torch.from_numpy(out), torch.from_numpy(idx),
+                                 1.5, op)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # Monoid.scatter_at takes the same path
+    got = tmonoid.get(op).scatter_at(torch.from_numpy(out),
+                                     torch.from_numpy(idx),
+                                     torch.from_numpy(msg))
+    ufunc.at(out, idx[keep], msg[keep])
+    np.testing.assert_array_equal(got.numpy(), out)
 
 
 def test_cpu_run_launches_no_kernel(graphs):

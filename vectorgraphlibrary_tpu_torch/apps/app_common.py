@@ -1,15 +1,15 @@
 """Shared benchmark-app skeleton (port of apps/app_common.py).
 
 Every app follows the reference main shape (`apps/bfs/bfs.cpp:15-62`):
-parse → load or generate the edges (runtime.load_edges) and import them →
-one untimed warmup round → measured rounds, each checked against the
+parse → load or generate the edges, import them and bind edge weights where
+the app needs them (runtime.prepare_graph) → one untimed warmup round → measured rounds, each checked against the
 sequential oracle with -check → AVG_PERF.
 
     python -m vectorgraphlibrary_tpu_torch.apps.<app> -s 14 -e 16 -it 3 -check
 
 `-dev` defaults to cuda and raises without a card; `-dev cpu` runs the
-kernels' plain PyTorch versions. The port carries no edge weights yet, so
-`weights` is None for every app.
+kernels' plain PyTorch versions. `weights` is the graph's EdgeArray for an
+app with need_weights and None for every other.
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ import time
 
 import torch
 
-from ..graph.device import import_graph
 from ..models import common
 from ..runtime import cli, runtime
 from ..runtime.perf_stats import PerformanceStats
@@ -29,7 +28,8 @@ def _sync(device: torch.device) -> None:
 
 
 def run_app(app_name: str, run_round, check_round=None,
-            needs_source: bool = True, argv=None) -> int:
+            need_weights: bool = False, needs_source: bool = True,
+            argv=None) -> int:
     """run_round(ec, graph, weights, source, cfg) -> result;
     check_round(ec, graph, weights, source, result, cfg) -> error count.
     The warmup round's source is select_random_source(seed=cfg.seed), round
@@ -44,9 +44,8 @@ def run_app(app_name: str, run_round, check_round=None,
               f"{torch.cuda.get_device_name(device)}")
     else:
         print(f"VGL (PyTorch) init: device {device}")
-    ec = runtime.load_edges(cfg)
-    graph = import_graph(ec, cfg, device=device)
-    weights = None
+    ec, graph, weights = runtime.prepare_graph(cfg, need_weights=need_weights,
+                                               device=device)
     print(f"graph: |V|={graph.v} |E|={graph.e}")
 
     def source(seed):

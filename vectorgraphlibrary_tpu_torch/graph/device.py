@@ -98,7 +98,8 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
 def _to_device_directed(h, device) -> DeviceDirectedGraph:
     """Host CSR (graph/build.py HostDirectedCSR of either package) -> device.
     The per-slot CSR edge indices (eidx) stay on the host: they only lay out
-    edge weights, which this port does not carry yet."""
+    per-tile copies of edge values, which the port does not keep
+    (graph/edges.py)."""
     buckets = tuple(
         TileBucket(adj=_i32(b.adj, device), width=b.width,
                    row_start=b.row_start, rows=b.rows, rows_pad=b.rows_pad)
@@ -182,10 +183,14 @@ def from_host(h_out, h_in, selfloop_edges: np.ndarray, v: int, e: int,
 
 
 def import_graph(ec: EdgesContainer, cfg: VGLConfig = DEFAULT_CONFIG,
-                 device="cuda") -> VGLGraph:
+                 device="cuda", _host_out: Optional[list] = None) -> VGLGraph:
     """COO → VGLGraph (both directions, tiles, the flagged advance route and
-    the three vertex routes), reference vgl_graph.hpp:60-64."""
+    the three vertex routes), reference vgl_graph.hpp:60-64. _host_out: a
+    list that receives the two host CSRs (outgoing, incoming), which
+    graph.edges.build_edge_array_from_host needs to lay out edge values."""
     h_out = build_directed_csr(ec.src_ids, ec.dst_ids, ec.vertices_count, cfg)
     h_in = build_directed_csr(ec.dst_ids, ec.src_ids, ec.vertices_count, cfg)
+    if _host_out is not None:
+        _host_out.extend([h_out, h_in])
     return from_host(h_out, h_in, ec.src_ids == ec.dst_ids, ec.vertices_count,
                      ec.edges_count, device)

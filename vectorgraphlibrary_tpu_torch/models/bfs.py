@@ -64,11 +64,6 @@ def _counts(newly: torch.Tensor, degrees: torch.Tensor):
     return size, nbrs
 
 
-def _read(*scalars) -> list:
-    """The host's one read of a level's device scalars."""
-    return torch.stack(scalars).tolist()
-
-
 def _td_step(graph: VGLGraph, levels_inf, ids, valid, ecap: int,
              current_level: int):
     """One top-down step in SCATTER ordering."""
@@ -117,7 +112,7 @@ def vgl_top_down(graph: VGLGraph, source_vertex: int,
         ids, valid = compact_ids(fr, cap)
         levels, mask, dsize, dnbrs = _td_step(graph, levels, ids, valid, ecap,
                                               current)
-        size, nbrs = _read(dsize, dnbrs)
+        size, nbrs = common.read_scalars(dsize, dnbrs)
         current += 1
     return VertexArray(values=_finish(levels), direction=S)
 
@@ -165,25 +160,13 @@ def vgl_bfs(graph: VGLGraph, source_vertex: int, alpha: float = 15.0,
         else:
             levels, mask, dsize, dnbrs = _bu_step(graph, levels, outdeg_g,
                                                   current)
-        size, nbrs = _read(dsize, dnbrs)
+        size, nbrs = common.read_scalars(dsize, dnbrs)
         unexplored_edges = max(unexplored_edges - nbrs, 0)
         current += 1
 
     if state == "bu":
         levels = common.to_direction(graph, levels, G, S)
     return VertexArray(values=_finish(levels), direction=S)
-
-
-def _tiers(id_cap: int, edge_cap: int) -> list:
-    """The three (id_cap, edge_cap) capacities of the sparse branch,
-    ascending, each 1/8 of the next (reference bfs.py:174-180)."""
-    tiers = []
-    ic, ec_ = id_cap, edge_cap
-    while len(tiers) < 3:
-        tiers.append((max(ic, 8), max(ec_, 64)))
-        ic //= 8
-        ec_ //= 8
-    return tiers[::-1]
 
 
 def _do_bfs_levels(graph: VGLGraph, source_sorted_s: torch.Tensor,
@@ -200,7 +183,7 @@ def _do_bfs_levels(graph: VGLGraph, source_sorted_s: torch.Tensor,
     ("bu",) for the branch it took."""
     v, e = graph.v, graph.e
     outdeg_s = graph.outgoing.degrees
-    tiers = _tiers(id_cap, edge_cap)
+    tiers = common.capacity_tiers(id_cap, edge_cap)
 
     zero = torch.zeros((), dtype=torch.int32, device=graph.device)
     levels = _levels_from(graph, source_sorted_s)
@@ -229,7 +212,7 @@ def _do_bfs_levels(graph: VGLGraph, source_sorted_s: torch.Tensor,
         if trace is not None:
             trace.append(("td",) + tier if tier is not None else ("bu",))
         levels = torch.where(newly, cur + 1, levels)
-        size, nbrs = _read(*_counts(newly, outdeg_s))
+        size, nbrs = common.read_scalars(*_counts(newly, outdeg_s))
         cur += 1
         unexplored = max(unexplored - nbrs, 0)
     return _finish(levels)

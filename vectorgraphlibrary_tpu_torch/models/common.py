@@ -4,6 +4,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from typing import Callable
+
 from ..config import TraversalDirection
 from ..graph.device import VGLGraph
 from ..graph.vertices import VertexArray, reorder
@@ -44,3 +46,33 @@ def indegrees_in(graph: VGLGraph, direction: TraversalDirection) -> torch.Tensor
 def next_pow2(x: int) -> int:
     """Smallest power of two >= x (1 for x <= 1)."""
     return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+def capacity_tiers(id_cap: int, edge_cap: int) -> list:
+    """The three (id_cap, edge_cap) capacities of a sparse push branch,
+    ascending, each 1/8 of the next (reference bfs.py:174-180,
+    sssp.py:166-172)."""
+    tiers = []
+    ic, ec_ = id_cap, edge_cap
+    while len(tiers) < 3:
+        tiers.append((max(ic, 8), max(ec_, 64)))
+        ic //= 8
+        ec_ //= 8
+    return tiers[::-1]
+
+
+def read_scalars(*scalars) -> list:
+    """The host's one read of a level's or sweep's device scalars."""
+    return torch.stack(scalars).tolist()
+
+
+def fixpoint(step: Callable, x0: torch.Tensor,
+             max_iterations: int) -> tuple[torch.Tensor, int]:
+    """x after applying `step` until it changes nothing, and the count of
+    applications: the reference's `lax.while_loop` over the state
+    (step(x0), x0, 1) with the condition `it < max_iterations and any(x !=
+    prev)`, as a host loop that reads one flag per application."""
+    x, prev, it = step(x0), x0, 1
+    while it < max_iterations and bool(torch.any(x != prev)):
+        x, prev, it = step(x), x, it + 1
+    return x, it

@@ -7,29 +7,33 @@ network, because per-element gathers were its chip's slow operation), masks
 non-edge and self-loop slots and reduces each destination's tile rows. That
 whole chain computes, over the direction's own CSR,
 
-    out[v] = combine over in-row k of v of x[col_idx[k]]   (self-loops optional)
+    out[v] = combine over in-row k of v of wop(x[col_idx[k]], w[k])
+                                                       (self-loops optional)
 
 which is what `advance_pull_value` runs here: one launch of the CSR pull
 kernel (ops/cuda/pull_reduce.py), after one vertex route when the input is in
-the source side's ordering. `advance_cells` keeps the tile pass, for
+the source side's ordering. The edge values w come from an EdgeArray's copy
+in CSR slot order (graph/edges.py). `advance_cells` keeps the tile pass, for
 structural counts such as self-loops.
 
 `advance_push_sparse` is the work-efficient push from a compacted frontier
 for any edge op: it expands the frontier's CSR rows into a flat edge list of
-static capacity and scatter-combines one message per edge into the
-destination array (two scatter-combine kernel launches on the card: the
-owner mark and the combine). `advance_push_sparse_const`, its case of one
+static capacity and scatter-combines one message per edge (made from the
+source's values and the edge's value) into the destination array (two
+scatter-combine kernel launches on the card: the owner mark and the
+combine). `advance_push_sparse_const`, its case of one
 constant int32 message (the BFS top-down step), is one expand-and-scatter
 kernel launch (ops/cuda/push_expand.py).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..config import TraversalDirection
 from ..graph.device import DeviceDirectedGraph, VGLGraph
+from ..graph.edges import DirectedEdgeValues
 from . import monoid as M
 from . import tiles as T
 from .cuda.pull_reduce import BLOCK as PULL_BLOCK, UNROLL as PULL_UNROLL
@@ -75,35 +79,65 @@ def row_groups(dg: DeviceDirectedGraph) -> tuple:
 def advance_pull_value(graph: VGLGraph,
                        src_vec: torch.Tensor,
                        combine,
+                       edge_values: Optional[DirectedEdgeValues] = None,
+                       weight_op: Optional[str] = None,
                        exclude_self_loops: bool = False,
+                       src_active: Optional[torch.Tensor] = None,
                        direction: TraversalDirection = TraversalDirection.GATHER,
                        out_dtype=None,
                        src_in_src_order: bool = False) -> torch.Tensor:
-    """Restricted-form advance: per-edge message = the source's value,
-    optionally not on self-loops, combined per destination. Covers PR (add,
-    no self-loops), BFS bottom-up (or over bool), CC hook (min) and HITS
-    (add).
+    """Restricted-form advance: per-edge message = ``weight_op(src_value,
+    edge_value)`` (or the source's value itself), optionally not on
+    self-loops, combined per destination. Covers PR (add, no self-loops), BFS
+    bottom-up (or over bool), CC hook (min), HITS (add), the SSSP pull (min
+    of value + w) and SSWP (max of min(value, w)).
 
     ``src_vec`` [v_pad] is in the traversal direction's ordering, the result
-    [v_pad] too. src_in_src_order=True: ``src_vec`` is in the SOURCE side's
-    sorted ordering (SCATTER when direction=GATHER and vice versa), and one
-    vertex route brings it into the direction's ordering first."""
+    [v_pad] too; ``edge_values`` are the direction's (read only with a
+    weight_op in add, min, max, mul), and the result has the type
+    result_type(src_vec, edge values). src_in_src_order=True: ``src_vec``
+    (and ``src_active``) is in the SOURCE side's sorted ordering (SCATTER
+    when direction=GATHER and vice versa), and one vertex route brings it
+    into the direction's ordering first.
+
+    ``src_active`` (bool [v_pad], same ordering as src_vec) restricts the
+    messages to those from active sources, as the reference's fused route
+    does: an inactive source's value is replaced BEFORE the pull by the
+    combine's identity, which must stay the identity through the weight op
+    (inf + w = inf, min(-inf, w) = -inf), so only min or max combines or a
+    mul weight op take it with weights."""
     mon = M.get(combine)
     dg = graph.direction(direction)
+    weights = None
+    if weight_op is not None:
+        if edge_values is None:
+            raise ValueError("advance_pull_value: weight_op needs edge_values")
+        weights = edge_values.flat
+        # absorbing-value src_active masking must survive the weight combine
+        assert src_active is None or mon.name in ("min", "max") \
+            or weight_op == "mul", (mon.name, weight_op)
     is_bool = src_vec.dtype == torch.bool
     if is_bool:
         # bool pulls run as int8 (1 B per vertex read)
         src_vec = src_vec.to(torch.int8)
         if mon.name == "or":
             mon = M.ANY01            # or over {0,1} == max, identity 0
-    dtype = out_dtype or src_vec.dtype
+    dtype = out_dtype or (torch.result_type(src_vec, weights)
+                          if weights is not None else src_vec.dtype)
     src_vec = src_vec.to(dtype)
+    if src_active is not None:
+        # bool "or" runs as max over {0,1}: its identity stays 0
+        ident = torch.zeros((), dtype=dtype) if is_bool else mon.identity(dtype)
+        src_vec = torch.where(src_active, src_vec, ident.to(src_vec.device))
     if src_in_src_order:
         # S -> G is the inverse of s_from_g, G -> S its forward
         src_vec = apply_route(graph.vertex_route_s_from_g, src_vec,
                               inverse=direction == TraversalDirection.GATHER)
+    if weights is not None and weights.dtype != dtype:
+        weights = weights.to(dtype)
     out = pull_reduce(dg.row_ptr, dg.col_idx, src_vec, mon.name,
-                      exclude_self_loops, row_groups(dg))
+                      exclude_self_loops, row_groups(dg), weights=weights,
+                      weight_op=weight_op)
     if is_bool:
         # strictly-positive test, not a cast (reference advance.py:605-609)
         out = out > 0
@@ -151,6 +185,7 @@ def advance_push_sparse(graph: VGLGraph,
                         edge_op: Callable,
                         combine,
                         out: torch.Tensor,
+                        edge_values: Optional[DirectedEdgeValues] = None,
                         direction: TraversalDirection = TraversalDirection.SCATTER,
                         ) -> torch.Tensor:
     """Work-efficient push from a compacted frontier (reference
@@ -159,9 +194,11 @@ def advance_push_sparse(graph: VGLGraph,
 
     Expands the frontier's rows into a flat edge list of static size
     ``edge_capacity``, makes one message per edge with
-    ``edge_op(src_vals, {}, None)`` (src_vals[k]: [edge_capacity, 1]) and
+    ``edge_op(src_vals, {}, w)`` (src_vals[k] and w: [edge_capacity, 1]; w
+    the edge's value from ``edge_values``, the direction's, or None) and
     scatter-combines it into ``out`` ([v_pad], same ordering); returns the
-    new array. Edges past the capacity (a frontier whose degree sum exceeds
+    new array. A slot that holds no edge reads some value of the array (the
+    padding's, clipped) and its message is dropped. Edges past the capacity (a frontier whose degree sum exceeds
     it) are dropped. Nothing is read back to the host."""
     mon = M.get(combine)
     dg = graph.direction(direction)
@@ -202,7 +239,9 @@ def advance_push_sparse(graph: VGLGraph,
     e_slot = torch.where(evalid, pos + take(delta_c, owner_c), dg.e_pad)
     dsts = take(dg.col_idx, e_slot.long())
     sv = {k: take(a, owner_c)[:, None] for k, a in sv_cap.items()}
-    msg = edge_op(sv, {}, None)[:, 0].to(out.dtype)
+    w = (None if edge_values is None
+         else take(edge_values.flat, e_slot.long())[:, None])
+    msg = edge_op(sv, {}, w)[:, 0].to(out.dtype)
 
     scatter_idx = torch.where(evalid, dsts, out.shape[0])   # OOB -> dropped
     return mon.scatter_at(out, scatter_idx, msg, mode="drop")

@@ -1,10 +1,12 @@
 """The scatter-combine kernel: wrapper, plain PyTorch version and launch count.
 
-`scatter_combine(out, idx, msg, op)` returns a new int32 tensor equal to
-`out`, with every message msg[i] combined into out[idx[i]] by op in
-{"min", "max", "or"}; a message whose index lies outside [0, len(out)) is
-dropped. `msg` is an int32 tensor shaped like `idx`, or one int for every
-message. It replaces the TPU kernel of apps/exp_push.py (make_c/_kern, the
+`scatter_combine(out, idx, msg, op)` returns a new tensor equal to `out`
+(int32 or f32), with every message msg[i] combined into out[idx[i]] by op in
+{"min", "max", "or"} (f32: min and max); a message whose index lies outside
+[0, len(out)) is dropped. `msg` is a tensor of out's dtype shaped like `idx`,
+or one number for every message. The f32 min is the combine of SSSP's sparse
+push; csrc/scatter_combine.cu says how it orders -0.0 and NaN (distances
+hold neither). It replaces the TPU kernel of apps/exp_push.py (make_c/_kern, the
 case op="or", msg=1) and runs the scatter stages of the generic sparse push
 (ops/advance.advance_push_sparse, through Monoid.scatter_at); the BFS push
 runs csrc/push_expand.cu instead. csrc/scatter_combine.cu says what bounds
@@ -24,7 +26,9 @@ import torch
 from . import build
 
 _OPS = {"min": 0, "max": 1, "or": 2}
-_fn = None          # the library's entry, looked up at the first launch
+_fns: dict = {}     # the library's entries, looked up at the first launch
+_ENTRY = {torch.int32: ("vgl_scatter_combine_i32", ctypes.c_int),
+          torch.float32: ("vgl_scatter_combine_f32", ctypes.c_float)}
 _REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
 
 
@@ -47,10 +51,10 @@ def scatter_reduce_drop(target: torch.Tensor, idx: torch.Tensor,
     return out.to(torch.bool) if is_bool else out
 
 
-def _messages(idx: torch.Tensor, msg) -> torch.Tensor:
+def _messages(idx: torch.Tensor, msg, dtype) -> torch.Tensor:
     if isinstance(msg, torch.Tensor):
         return msg
-    return torch.full(idx.shape, int(msg), dtype=torch.int32, device=idx.device)
+    return torch.full(idx.shape, msg, dtype=dtype, device=idx.device)
 
 
 def scatter_combine_ref(out: torch.Tensor, idx: torch.Tensor,
@@ -60,7 +64,7 @@ def scatter_combine_ref(out: torch.Tensor, idx: torch.Tensor,
     amax of each bit, so words with bit 31 set stay exact."""
     if op not in _OPS:
         raise ValueError(f"unknown scatter_combine op {op!r}")
-    msg = _messages(idx, msg)
+    msg = _messages(idx, msg, out.dtype)
     if op != "or":
         return scatter_reduce_drop(out, idx, msg, op)
     res = out.clone()
@@ -72,19 +76,23 @@ def scatter_combine_ref(out: torch.Tensor, idx: torch.Tensor,
 
 def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
                     msg: Union[torch.Tensor, int], op: str) -> torch.Tensor:
-    """New int32 tensor: `out` with msg combined in at idx by op (module doc).
+    """New tensor: `out` with msg combined in at idx by op (module doc).
 
-    out: int32 [n_out], n_out < 2^31; idx: int32 [n]; msg: int32 [n] or an
-    int. The result is a copy: `out` is not changed."""
+    out: int32 or f32 [n_out], n_out < 2^31; idx: int32 [n]; msg: out's dtype
+    [n] or one number; f32 takes min and max only. The result is a copy:
+    `out` is not changed."""
     if op not in _OPS:
         raise ValueError(f"unknown scatter_combine op {op!r}")
     if out.device.type == "cpu":
         return scatter_combine_ref(out, idx, msg, op)
     if out.device.type != "cuda":
         raise ValueError(f"scatter_combine: no kernel for {out.device}")
-    if out.dtype != torch.int32 or out.dim() != 1:
-        raise TypeError(f"scatter_combine: out must be a 1-D int32 tensor, "
-                        f"got {out.dtype} of shape {tuple(out.shape)}")
+    if out.dtype not in _ENTRY or out.dim() != 1:
+        raise TypeError(f"scatter_combine: out must be a 1-D int32 or f32 "
+                        f"tensor, got {out.dtype} of shape {tuple(out.shape)}")
+    is_f32 = out.dtype == torch.float32
+    if is_f32 and op == "or":
+        raise TypeError("scatter_combine: or needs int32")
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise TypeError("scatter_combine: idx must be a 1-D int32 tensor")
     if idx.device != out.device or not idx.is_contiguous():
@@ -94,28 +102,29 @@ def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
         raise ValueError("scatter_combine: out exceeds int32 indices")
     msg_const = 0
     if isinstance(msg, torch.Tensor):
-        if msg.dtype != torch.int32 or msg.shape != idx.shape \
+        if msg.dtype != out.dtype or msg.shape != idx.shape \
                 or msg.device != out.device or not msg.is_contiguous():
             raise ValueError(f"scatter_combine: msg must be a contiguous "
-                             f"int32 tensor of shape {tuple(idx.shape)} on "
-                             f"{out.device}")
+                             f"{out.dtype} tensor of shape "
+                             f"{tuple(idx.shape)} on {out.device}")
         msg_ptr = msg.data_ptr()
     else:
-        msg_const = int(msg)
-        if not -2**31 <= msg_const < 2**31:
+        msg_const = float(msg) if is_f32 else int(msg)
+        if not is_f32 and not -2**31 <= msg_const < 2**31:
             raise ValueError(f"scatter_combine: message {msg} is not int32")
         msg_ptr = None
-    global _fn
-    if _fn is None:
-        _fn = build.entry("vgl_scatter_combine_i32", [
+    fn = _fns.get(out.dtype)
+    if fn is None:
+        name, msg_t = _ENTRY[out.dtype]
+        fn = _fns[out.dtype] = build.entry(name, [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p, msg_t, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p])
     res = out.contiguous().clone()
     stream = torch.cuda.current_stream(out.device).cuda_stream
     with build.on_device(out.device):
-        rc = _fn(res.data_ptr(), res.shape[0], idx.data_ptr(), msg_ptr,
-                 msg_const, idx.shape[0], _OPS[op], stream)
+        rc = fn(res.data_ptr(), res.shape[0], idx.data_ptr(), msg_ptr,
+                msg_const, idx.shape[0], _OPS[op], stream)
     if rc != 0:
         raise RuntimeError(f"scatter_combine kernel launch failed: CUDA "
                            f"error {rc}")

@@ -105,9 +105,10 @@ class Monoid:
         mode "drop" drops every index outside [0, len(target)); JAX's would
         wrap a negative index first, and no caller passes one.
 
-        On the card an int32 min or max is one scatter_combine kernel launch
-        and any other (op, dtype) raises; on the CPU every case runs in plain
-        PyTorch (int32 min/max through the kernel's plain version)."""
+        On the card a min or max over int32 or f32 is one scatter_combine
+        kernel launch and any other (op, dtype) raises; on the CPU every
+        case runs in plain PyTorch (those four through the kernel's plain
+        version)."""
         if mode != "drop":
             raise ValueError(f"scatter_at: mode {mode!r} (only 'drop')")
         op = self.name
@@ -119,9 +120,10 @@ class Monoid:
                     "int bitwise-or scatter: use a pull/segment formulation "
                     "(max only equals OR for {0,1} values)")
             op = "max"
-        if op in ("min", "max") and target.dtype == torch.int32:
+        if op in ("min", "max") and target.dtype in (torch.int32,
+                                                     torch.float32):
             return scatter_combine(target, idx.contiguous(),
-                                   vals.to(torch.int32).contiguous(), op)
+                                   vals.to(target.dtype).contiguous(), op)
         if target.device.type != "cpu":
             raise TypeError(f"scatter_at: no kernel for {self.name} over "
                             f"{target.dtype} on {target.device}")

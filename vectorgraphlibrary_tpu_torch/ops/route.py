@@ -89,7 +89,7 @@ def apply_route(plan: RoutePlan, x: torch.Tensor, inverse: bool = False,
         assert (weights is not None) == (finish.weight_op is not None)
     is_bool = x.dtype == torch.bool
     if is_bool:
-        x = x.to(torch.int32)
+        x = x.to(torch.int8)        # the kernel moves bools as 1-byte values
     out = route_gather_finish(
         x, plan.inv_idx if inverse else plan.fwd_idx, flags=flags,
         weights=weights,
