@@ -75,16 +75,41 @@ result line):
    vgl_cc_hybrid (equal_components 0 against seq_cc), vgl_hits with 20
    iterations (40 pull_reduce, 42 route_gather_finish;
    verify_ranking_results 0 against seq_hits), and MTEPS by bench.py's
-   formulas, medians of 3.
+   formulas, medians of 3;
+11. kernel: scatter_combine's int32 add against its plain version, bit for
+   bit, into V = 2^20 from 2^15, 2^16 and 2^17 messages (an eighth dropped),
+   all dropped and none, and at the triangle count's shape (one column block
+   of RMAT-18's degree-oriented edges into its [v + 1, 512] int32 bitmap);
+   and_popcount against its plain version, bit for bit, on that block's
+   presence-filtered pairs (words = 512), a ragged last chunk and an empty
+   edge list; kernel, plain, one-call PyTorch (index_add; none for
+   and_popcount) and bound times;
+12. slice: on the phase-4 RMAT-18 graph, vgl_forward_backward
+   (equal_components 0 against seq_scc; per trim round 2 pull_reduce and 4
+   route_gather_finish, per flood hop 1 and 2), vgl_coloring(ec=...)
+   (verify_colors 0; per round 10 pull_reduce and 20 route_gather_finish),
+   vgl_label_propagation with 10 rounds (verify_results 0 against the
+   vectorised seq_label_propagation), vgl_random_walk (1,024 walkers x 10
+   steps, no step off an edge, every end within reach), reachability
+   (Purdom) and vgl_bfs_based_reachability from 2 sources (equal to
+   seq_reachability), and vgl_triangle_count (325,150,067, equal to the
+   oriented sparse product on the host; one scatter_combine and one
+   and_popcount per block not skipped, no pull_reduce), plus RMAT-14 with
+   block_bits 256 against seq_triangle_count; MTEPS by bench.py's formulas
+   (coloring |E| / (core s + device s), triangles |E| / (host s + device
+   s), SCC and LP |E| / t), medians of 3.
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
 version's time, the one-call PyTorch time (library_ms, null where there is
 none) and its bound (bound_ms: the bytes it must move at the H100's 3.35
-TB/s) at the main path's shapes. The last line is {"ok": true, "device":
+TB/s, or for and_popcount the larger of that and its operations at 67
+TOP/s) at the main path's shapes, and "rates", phase 12's MTEPS. The last line is {"ok": true, "device":
 {...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
 PageRank run, one DO-BFS root, one all-active SSSP run and one HITS call to
-DIR (not part of the default run).
+DIR (not part of the default run), and of one call each of SCC, coloring
+(core colors given), LP and the triangle count (orientation given) on
+RMAT-18.
 """
 from __future__ import annotations
 
@@ -111,6 +136,10 @@ REPLACES_LANE = "vectorgraphlibrary_tpu/ops/route.py:146 (_lane_shuffle_tpu)"
 # H100 SXM device memory rate (NVIDIA data sheet); every kernel here is
 # bound by the bytes it moves, far below the card's operation rates
 HBM_BYTES_PER_S = 3.35e12
+
+
+# the name of _profiled_ms's one entry when the profiler recorded nothing
+EVENTS_FALLBACK = "cuda events (no profiler record)"
 
 
 def _bound_ms(nbytes: int) -> float:
@@ -432,7 +461,8 @@ def _device_events(fn, reps: int = 1) -> list:
     torch.profiler. The profiler loses the first kernels after it starts,
     while its activity buffers are set up, so fn runs once inside it first
     and only the events after a marker count. Now and then a window comes
-    back without any device event: it is taken again, three times at most."""
+    back without any device event: it is taken again, three times at most,
+    and an empty list is returned if every window stays empty."""
     from torch.autograd import DeviceType
     from torch.profiler import (ProfilerActivity, profile as tprofile,
                                 record_function)
@@ -455,16 +485,24 @@ def _device_events(fn, reps: int = 1) -> list:
                and e.name != "vgl_measured" and e.time_range.start >= mark]
         if dev:
             return dev
-    raise RuntimeError("torch.profiler recorded no device event in 3 windows")
+    return []
 
 
 def _profiled_ms(fn, reps: int = 10) -> dict:
     """Device time per call by torch.profiler over `reps` calls, in ms: each
-    device event's name (kernels, copies) with its total, and "total"."""
+    device event's name (kernels, copies) with its total, and "total". Where
+    the profiler records no device event (CUPTI tracing is not always
+    granted), the time by CUDA events stands in for it under the name
+    EVENTS_FALLBACK: it includes the host's launch gaps, so it is an upper
+    bound of the device time."""
     by_name: dict = {}
     for e in _device_events(fn, reps):
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / reps / 1e3)
+    if not by_name:
+        print("  torch.profiler recorded no device event: timed by CUDA "
+              "events instead")
+        by_name[EVENTS_FALLBACK] = _cuda_ms(fn, reps)
     by_name["total"] = sum(by_name.values())
     return by_name
 
@@ -1221,10 +1259,11 @@ def phase_persistence(kernels: dict, fresh: dict, router_s: float,
         if n_ls != 8:
             raise AssertionError(f"load launched lane_shuffle {n_ls} times, "
                                  "expected 8 (two per plan)")
-        if counts["scatter_combine"] or not all(
-                v for k, v in counts.items() if k != "scatter_combine"):
+        idle = ("scatter_combine", "and_popcount")
+        if any(counts[k] for k in idle) or not all(
+                v for k, v in counts.items() if k not in idle):
             raise AssertionError(f"a kernel of this path did not launch, or "
-                                 f"scatter_combine did: {counts}")
+                                 f"one of {idle} did: {counts}")
         _assert_same_graph("loaded graph", g, graph)
 
         vals = ranks.values
@@ -1262,13 +1301,359 @@ def phase_persistence(kernels: dict, fresh: dict, router_s: float,
     return counts
 
 
-def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, out_dir: str) -> None:
+# H100 SXM non-tensor rate (NVIDIA data sheet, float32 row), used for
+# the int32 AND, popcount and add of
+# and_popcount: the data sheet gives no integer rate outside the tensor cores
+OPS_PER_S = 67e12
+TRIANGLES_RMAT18 = 325_150_067        # the JAX package's count, same graph
+REPLACES_POPCOUNT = ("none: vectorgraphlibrary_tpu/models/tc.py:112 "
+                     "(_tc_block_count) runs outside Pallas")
+
+
+def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
+    """scatter_combine's int32 add against its plain version, bit for bit,
+    into 2^20 from 2^15, 2^16 and 2^17 messages (an eighth dropped), all
+    dropped and none, then at the triangle count's shape (one column block
+    of RMAT-18's oriented edges into its [v + 1, 512] bitmap); and_popcount
+    against its plain version, bit for bit, on that block's presence-filtered
+    edges, a ragged last chunk and an empty edge list. Returns both kernels'
+    errors and times and the oriented edges (phase 12 counts triangles with
+    them)."""
+    from vectorgraphlibrary_tpu_torch.models import tc
+    rng = np.random.default_rng(SEED + 6)
+    dev = torch.device(DEVICE)
+    v = 1 << 20
+
+    def i32(n):
+        return torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n,
+                                             dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    def exact(name, label, got, want) -> float:
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item() \
+            if got.numel() else 0.0
+        ok = got.dtype == want.dtype and torch.equal(got, want)
+        print(f"  {name} {label}: {'bit-exact' if ok else 'MISMATCH'} "
+              f"(max abs err {err})")
+        if not ok:
+            raise AssertionError(f"{name} != plain version: {label}")
+        return err
+
+    out = i32(v)
+    cases = []
+    for lg in (15, 16, 17):
+        d = rng.integers(0, v, 1 << lg)
+        d[rng.permutation(1 << lg)[:(1 << lg) // 8]] = v
+        cases.append((f"add 2^{lg} -> 2^20", torch.from_numpy(
+            d.astype(np.int32)).to(dev)))
+    cases.append(("add, all dropped", torch.full((1 << 12,), v,
+                                                 dtype=torch.int32, device=dev)))
+    cases.append(("add, no message", torch.zeros(0, dtype=torch.int32,
+                                                 device=dev)))
+    sc_err = 0.0
+    for label, idx in cases:
+        msg = i32(idx.shape[0])
+        sc_err = max(sc_err, exact(
+            "scatter_combine", label, scm.scatter_combine(out, idx, msg, "add"),
+            scm.scatter_combine_ref(out, idx, msg, "add")))
+    idx = cases[1][1]
+    msg = i32(idx.shape[0])
+    keep = idx < v
+    idx_in, msg_in = idx[keep].long(), msg[keep]
+    add = dict(
+        ms=_median3("scatter_combine add 2^16 -> 2^20, kernel", "ms",
+                    [_cuda_ms(lambda: scm.scatter_combine(out, idx, msg, "add"))
+                     for _ in range(3)], smi),
+        plain_ms=_median3("scatter_combine add 2^16 -> 2^20, plain", "ms",
+                          [_cuda_ms(lambda: scm.scatter_combine_ref(
+                              out, idx, msg, "add")) for _ in range(3)], smi),
+        library_ms=_median3("scatter_combine add 2^16 -> 2^20, index_add",
+                            "ms", [_cuda_ms(lambda: torch.index_add(
+                                out, 0, idx_in, msg_in)) for _ in range(3)],
+                            smi),
+        bound_ms=_bound_ms(8 * v + 4 * idx.shape[0] + 8 * idx_in.shape[0]))
+    print(f"  scatter_combine add bound {add['bound_ms']:.4f} ms")
+
+    # the triangle count's shapes: the column block with the most
+    # presence-filtered edges
+    t0 = time.perf_counter()
+    u_e, v_e = tc._oriented_simple_edges(ec)
+    host_s = time.perf_counter() - t0
+    nv = ec.vertices_count
+    block_bits = int(min(max(1 << 10, (1 << 32) // nv), 1 << 20))
+    words = block_bits // 32
+    best = None
+    for c0 in range(0, nv, block_bits):
+        m = (v_e >= c0) & (v_e < c0 + block_bits)
+        pres = np.zeros(nv + 1, bool)
+        pres[u_e[m]] = True
+        em = pres[u_e] & pres[v_e]
+        if best is None or em.sum() > best[2].sum():
+            best = (c0, m, em)
+    c0, m, em = best
+    ub = torch.from_numpy(u_e[m]).to(dev)
+    vb = torch.from_numpy(v_e[m] - c0).to(dev)
+    uf = torch.from_numpy(u_e[em]).to(dev)
+    vf = torch.from_numpy(v_e[em]).to(dev)
+    n_build, n_pairs = int(m.sum()), int(em.sum())
+    print(f"  RMAT-{SCALE} triangle count: {len(u_e)} oriented edges "
+          f"({host_s:.2f} s on the host), block_bits {block_bits} (words "
+          f"{words}); the block at column {c0} builds {n_build} edges and "
+          f"intersects {n_pairs} pairs")
+    n_bits = (nv + 1) * words
+    zeros = torch.zeros(n_bits, dtype=torch.int32, device=dev)
+    flat_idx = ub * words + (vb >> 5)
+    bit = torch.bitwise_left_shift(torch.ones_like(vb), vb & 31)
+    bits = scm.scatter_combine(zeros, flat_idx, bit, "add")
+    sc_err = max(sc_err, exact(
+        "scatter_combine", f"add {n_build} bits -> [{nv + 1}, {words}]", bits,
+        scm.scatter_combine_ref(zeros, flat_idx, bit, "add")))
+    build = dict(
+        ms=_median3("scatter_combine add, triangle bitmap, kernel", "ms",
+                    [_cuda_ms(lambda: scm.scatter_combine(
+                        zeros, flat_idx, bit, "add"), reps=3)
+                     for _ in range(3)], smi),
+        plain_ms=_median3("scatter_combine add, triangle bitmap, plain", "ms",
+                          [_cuda_ms(lambda: scm.scatter_combine_ref(
+                              zeros, flat_idx, bit, "add"), reps=3)
+                           for _ in range(3)], smi),
+        library_ms=_median3(
+            "scatter_combine add, triangle bitmap, index_add", "ms",
+            [_cuda_ms(lambda: torch.index_add(zeros, 0, flat_idx.long(), bit),
+                      reps=3) for _ in range(3)], smi),
+        # the bitmap read and its copy written, an index and a bit per edge
+        bound_ms=_bound_ms(8 * n_bits + 8 * n_build))
+    print(f"  scatter_combine add, triangle bitmap bound "
+          f"{build['bound_ms']:.4f} ms")
+    add["triangle_bitmap"] = build
+
+    bits = bits.view(nv + 1, words)
+    chunk = 1 << 15
+    pc_err = 0.0
+    ragged = 3 * chunk + 1234
+    for label, a, b in ((f"{n_pairs} pairs", uf, vf),
+                        (f"ragged, {ragged} pairs", uf[:ragged], vf[:ragged]),
+                        ("no pair", uf[:0], vf[:0])):
+        pc_err = max(pc_err, exact(
+            "and_popcount", label, ap.and_popcount(bits, a, b, chunk),
+            ap.and_popcount_ref(bits, a, b, chunk)))
+    k_ms = _median3(f"and_popcount {n_pairs} pairs x {words} words, kernel",
+                    "ms", [_cuda_ms(lambda: ap.and_popcount(bits, uf, vf,
+                                                            chunk), reps=3)
+                           for _ in range(3)], smi)
+    p_ms = _median3(f"and_popcount {n_pairs} pairs x {words} words, plain",
+                    "ms", [_cuda_ms(lambda: ap.and_popcount_ref(
+                        bits, uf, vf, chunk), reps=1) for _ in range(3)], smi)
+    n_chunks = -(-n_pairs // chunk)
+    # each input read once (the bitmap, both index lists), the chunk sums
+    # written; and an AND, a popcount and an add per word pair
+    bytes_ms = _bound_ms(4 * n_bits + 8 * n_pairs + 4 * n_chunks)
+    ops_ms = 3 * n_pairs * words / OPS_PER_S * 1e3
+    # the looser bound: both rows read for every pair
+    rows_ms = _bound_ms(8 * n_pairs * words + 8 * n_pairs)
+    print(f"  and_popcount bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+          f"{bytes_ms:.4f}, operations {ops_ms:.4f}); both rows read per "
+          f"pair: {rows_ms:.4f} ms; kernel at "
+          f"{8 * n_pairs * words / (k_ms * 1e-3) / 1e12:.3f} TB/s of row reads")
+    pc = dict(max_err=pc_err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+              bound_ms=max(bytes_ms, ops_ms),
+              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+              row_reads_bound_ms=rows_ms, pairs=n_pairs, words=words)
+    del bits, zeros
+    return dict(scatter_err=sc_err, add=add, popcount=pc, oriented=(u_e, v_e),
+                host_s=host_s)
+
+
+def phase_slice6(kernels: dict, ec, graph, oriented, host_s: float,
+                 smi: str) -> dict:
+    """SCC, coloring, label propagation, random walks, reachability and the
+    triangle count on the phase-4 RMAT-18 graph through the port's entry
+    points, each checked against its oracle and its launch counts, with
+    rates by bench.py's formulas (medians of 3); returns the kernels' launch
+    counts over those calls."""
+    from vectorgraphlibrary_tpu_torch.io import generation
+    from vectorgraphlibrary_tpu_torch.models import (common, coloring, lp, rw,
+                                                     scc, tc)
+    from vectorgraphlibrary_tpu_torch.utils.verify import (
+        equal_components, verify_colors, verify_results)
+    totals = dict.fromkeys(kernels, 0)
+    e = graph.e
+    tag = f"RMAT-{SCALE}"
+
+    def counted(label, fn, want):
+        """fn() with the counts set to 0 just before and read just after;
+        `want(out)` (or a dict) maps kernel names to the launches expected,
+        0 if absent, or to a predicate on the count."""
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = {name: k.launches for name, k in kernels.items()}
+        for name in totals:
+            totals[name] += n[name]
+        expect = dict.fromkeys(kernels, 0)
+        expect.update(want(out) if callable(want) else want)
+        print(f"  {label}: {dt:.4f} s, launches "
+              f"{ {k: c for k, c in n.items() if c} }")
+        bad = {k: c for k, c in n.items()
+               if not (expect[k](c) if callable(expect[k]) else c == expect[k])}
+        if bad:
+            raise AssertionError(f"{label}: launches {n}, expected {expect}")
+        return out
+
+    def check(label, errors):
+        if errors:
+            raise AssertionError(f"{label}: error count {errors}")
+
+    def rate(label, fn, work, extra_s: float = 0.0):
+        times = _timed3(fn)
+        print(f"  {label} s per call: {', '.join(f'{t:.5f}' for t in times)}")
+        return _median3(f"{label} {tag} MTEPS", "MTEPS",
+                        [work / (extra_s + t) / 1e6 for t in times], smi)
+
+    rates = {}
+    torch.cuda.reset_peak_memory_stats()
+    # SCC: 2 pulls and 4 routes per trim round, 1 pull and 2 routes per hop
+    trace = []
+    labels = counted(
+        "vgl_forward_backward", lambda: scc.vgl_forward_backward(
+            graph, trace=trace),
+        lambda out: dict(
+            pull_reduce=2 * sum(k == "trim" for k, _ in trace)
+            + sum(n for k, n in trace if k == "flood"),
+            route_gather_finish=4 * sum(k == "trim" for k, _ in trace)
+            + 2 * sum(n for k, n in trace if k == "flood")))
+    pivots = [n for k, n in trace if k == "pivot"]
+    print(f"    trim rounds {[n for k, n in trace if k == 'trim']}, flood "
+          f"hops {[n for k, n in trace if k == 'flood']}, {len(pivots)} "
+          f"pivots")
+    want_scc = scc.seq_scc(ec)
+    print(f"    {len(np.unique(want_scc))} components (seq_scc)")
+    check("SCC", equal_components(labels.values[:graph.v].cpu().numpy(),
+                                  want_scc))
+    rates["scc"] = rate("SCC", lambda: scc.vgl_forward_backward(graph), e)
+
+    # coloring with core extraction: 10 pulls and 20 routes per round
+    colors, rounds = counted(
+        "vgl_coloring(ec=...)", lambda: coloring.vgl_coloring(graph, ec=ec),
+        lambda out: dict(pull_reduce=10 * out[1],
+                         route_gather_finish=20 * out[1]))
+    vals = colors.values[:graph.v].cpu().numpy()
+    print(f"    {rounds} rounds, {int(vals.max()) + 1} colors")
+    check("coloring", verify_colors(ec, vals))
+    t0 = time.perf_counter()
+    core = coloring.host_core_colors(ec, 256)
+    core_s = time.perf_counter() - t0
+    print(f"    host core pass {core_s:.4f} s ({int((core >= 0).sum())} core "
+          f"vertices)")
+    rates["coloring"] = rate("coloring (core s + device s)",
+                             lambda: coloring.vgl_coloring(
+                                 graph, core_colors=core), e, core_s)
+    rates["coloring_rounds"] = rounds
+
+    # label propagation: gathers and sorts, no kernel
+    (lp_labels, lp_iters) = counted(
+        "vgl_label_propagation(max_iterations=10)",
+        lambda: lp.vgl_label_propagation(graph, max_iterations=10), {})
+    print(f"    {lp_iters} rounds")
+    t0 = time.perf_counter()
+    want_lp = lp.seq_label_propagation_fast(ec, max_iterations=10)
+    print(f"    seq_label_propagation (vectorised) {time.perf_counter() - t0:.2f}"
+          f" s on the host")
+    check("LP", verify_results(lp_labels.values[:graph.v].cpu().numpy(),
+                               want_lp))
+    rates["lp"] = rate("LP", lambda: lp.vgl_label_propagation(
+        graph, max_iterations=10), e)
+
+    # random walks: gathers, no kernel
+    src = common.select_random_source(ec, seed=SEED)
+    walkers = np.full(1024, src, np.int64)
+    finals, paths = counted(
+        "vgl_random_walk 1024 walkers x 10 steps",
+        lambda: rw.vgl_random_walk(graph, walkers, walk_length=10, seed=SEED,
+                                   store_walk_paths=True), {})
+    nv = ec.vertices_count
+    keys = np.unique(ec.src_ids.astype(np.int64) * nv + ec.dst_ids)
+    outdeg = np.bincount(ec.src_ids, minlength=nv)
+    steps = paths[:, :-1].astype(np.int64) * nv + paths[:, 1:]
+    on_edge = np.isin(steps, keys) | ((paths[:, :-1] == paths[:, 1:])
+                                      & (outdeg[paths[:, :-1]] == 0))
+    reach = rw.seq_random_walk_reachable(ec, src, 10)
+    bad = int((~on_edge).sum()) + int((~reach[finals]).sum())
+    print(f"    source {src}: {len(np.unique(finals))} distinct ends, "
+          f"violations {bad}")
+    check("RW", bad)
+
+    # reachability from 2 sources: the SCC pulls, then one push_expand per
+    # BFS level
+    sources = np.asarray(_sssp_sources(ec))
+    want_r = tc.seq_reachability(ec, sources)
+    # Purdom: the SCC's pulls and routes, then on the condensed graph one
+    # push per BFS level and one route per source; BFS-based: the same on
+    # the graph itself
+    for label, fn, want in (
+            ("reachability (Purdom)",
+             lambda: tc.reachability(ec, graph, sources),
+             dict(push_expand=lambda c: c >= len(sources),
+                  pull_reduce=lambda c: c > 0,
+                  route_gather_finish=lambda c: c > len(sources))),
+            ("vgl_bfs_based_reachability",
+             lambda: tc.vgl_bfs_based_reachability(graph, sources),
+             dict(push_expand=lambda c: c >= len(sources),
+                  route_gather_finish=len(sources)))):
+        got = counted(f"{label} sources {sources.tolist()}", fn, want)
+        print(f"    {int(got.sum())} of {got.size} reached")
+        check(label, int((got != want_r).sum()))
+    print(f"  slice peak device memory before the triangle count "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB on {smi}")
+
+    # triangle count: one bitmap scatter and one AND-popcount per block
+    torch.cuda.reset_peak_memory_stats()
+    ttrace = []
+    tris = counted(
+        "vgl_triangle_count", lambda: tc.vgl_triangle_count(
+            ec, _oriented=oriented, device=DEVICE, trace=ttrace),
+        lambda out: dict(
+            scatter_combine=sum(t is not None for t in ttrace),
+            and_popcount=sum(t is not None for t in ttrace)))
+    blocks = [t for t in ttrace if t is not None]
+    print(f"    {tris} triangles; {len(blocks)} of {len(ttrace)} blocks, "
+          f"{sum(t[2] for t in blocks)} pairs, host filter "
+          f"{sum(t[3] for t in blocks):.4f} s, device "
+          f"{sum(t[4] for t in blocks):.4f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if tris != TRIANGLES_RMAT18 and SCALE == 18:
+        raise AssertionError(f"triangles {tris}, expected {TRIANGLES_RMAT18}")
+    t0 = time.perf_counter()
+    want_t = tc.seq_oriented_triangle_count(*oriented, ec.vertices_count)
+    print(f"    host oracle (A+ . A+) o A+: {want_t} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check("triangle count", abs(tris - want_t))
+    rates["triangles"] = rate(
+        "triangles (host orientation s + device s)",
+        lambda: tc.vgl_triangle_count(ec, _oriented=oriented, device=DEVICE),
+        e, host_s)
+    ec14 = generation.rmat(14, DEGREE, seed=SEED, weighted=False)
+    t14 = tc.vgl_triangle_count(ec14, block_bits=256, device=DEVICE)
+    w14 = tc.seq_triangle_count(ec14)
+    print(f"  RMAT-14 block_bits 256: {t14} triangles, seq_triangle_count "
+          f"{w14}")
+    check("triangle count RMAT-14", abs(t14 - w14))
+    return dict(launches=totals, rates=rates, core=core)
+
+
+def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, pr_ec, oriented, core,
+            out_dir: str) -> None:
     """Device time by kernel of one call of each slice, beside its wall time
     without the profiler, to DIR/<slice>_profile.txt and the output. A
     window in which the profiler recorded fewer pull_reduce kernels than
     the wrapper launched is taken again (three times at most) and marked
     INCOMPLETE if it stays short."""
-    from vectorgraphlibrary_tpu_torch.models import bfs, hits, pr, sssp
+    from vectorgraphlibrary_tpu_torch.models import (bfs, coloring, hits, lp,
+                                                     pr, scc, sssp, tc)
     os.makedirs(out_dir, exist_ok=True)
     src = _sssp_sources(ec)[0]
     runs = (("pr_profile.txt", lambda: pr.vgl_page_rank(
@@ -1277,7 +1662,14 @@ def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, out_dir: str) -> None:
              lambda: bfs.vgl_bfs_device(bfs_graph, bfs_root)),
             ("sssp_all_active_profile.txt",
              lambda: sssp.vgl_dijkstra_all_active(bfs_graph, ea, src)),
-            ("hits_profile.txt", lambda: hits.vgl_hits(bfs_graph, 20)))
+            ("hits_profile.txt", lambda: hits.vgl_hits(bfs_graph, 20)),
+            ("scc_profile.txt", lambda: scc.vgl_forward_backward(pr_graph)),
+            ("coloring_profile.txt", lambda: coloring.vgl_coloring(
+                pr_graph, core_colors=core)),
+            ("lp_profile.txt", lambda: lp.vgl_label_propagation(
+                pr_graph, max_iterations=10)),
+            ("triangles_profile.txt", lambda: tc.vgl_triangle_count(
+                pr_ec, _oriented=oriented, device=DEVICE)))
     for fname, fn in runs:
         pl.pull_reduce.launches = 0
         wall = min(_timed3(fn))
@@ -1312,6 +1704,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.manual_seed(SEED)
+    from vectorgraphlibrary_tpu_torch.ops.cuda import and_popcount as ap
     from vectorgraphlibrary_tpu_torch.ops.cuda import build
     from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
     from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
@@ -1321,7 +1714,7 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/10] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/12] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -1329,53 +1722,65 @@ def main() -> int:
     build.load_library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/10] build: {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[2/12] build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
           f"ptxas: " + " | ".join(ptxas))
 
-    print("[3/10] kernel: route_gather_finish vs plain version, n = 2^24")
+    print("[3/12] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
-    print(f"[4/10] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+    print(f"[4/12] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
           f"version on its graph")
     prr = phase_pagerank(rg, pl, smi)
     prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
-    print(f"[5/10] kernel: scatter_combine vs plain version, V = 2^20, and "
+    print(f"[5/12] kernel: scatter_combine vs plain version, V = 2^20, and "
           f"push_expand vs plain version on RMAT-{BFS_SCALE}")
     bfs_ec, bfs_graph, bfs_ea = make_bfs_graph()
     push = phase_scatter(scm, pe, bfs_graph, smi)
 
-    print(f"[6/10] slice: BFS on RMAT-{BFS_SCALE}")
+    print(f"[6/12] slice: BFS on RMAT-{BFS_SCALE}")
     bfs_root, bfs_launches, pull20 = phase_bfs(rg, pl, pe, scm, bfs_ec,
                                                bfs_graph, smi)
 
-    print(f"[7/10] kernel: lane_shuffle vs plain version, "
+    print(f"[7/12] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
     lsr = phase_lane_shuffle(ls, prr["graph"], smi)
 
-    print(f"[8/10] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+    print(f"[8/12] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
     kernels = dict(lane_shuffle=ls.lane_shuffle,
                    route_gather_finish=rg.route_gather_finish,
                    pull_reduce=pl.pull_reduce, push_expand=pe.push_expand,
-                   scatter_combine=scm.scatter_combine)
+                   scatter_combine=scm.scatter_combine,
+                   and_popcount=ap.and_popcount)
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
-    print(f"[9/10] kernel: pull_reduce with edge weights and scatter_combine "
+    print(f"[9/12] kernel: pull_reduce with edge weights and scatter_combine "
           f"f32 vs plain versions on weighted RMAT-{BFS_SCALE}, and the "
           f"host's cost of one launch")
     wk = phase_weighted_kernels(rg, pl, scm, bfs_ec, bfs_graph, bfs_ea, smi)
 
-    print(f"[10/10] slice: SSSP, SSWP, CC and HITS on weighted "
+    print(f"[10/12] slice: SSSP, SSWP, CC and HITS on weighted "
           f"RMAT-{BFS_SCALE}")
     fix = phase_fixpoint(kernels, bfs_ec, bfs_graph, bfs_ea, smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
+
+    print(f"[11/12] kernel: scatter_combine int32 add and and_popcount vs "
+          f"plain versions, at the RMAT-{SCALE} triangle count's shapes")
+    k6 = phase_slice6_kernels(scm, ap, prr["ec"], smi)
     push["scatter"]["max_err"] = max(push["scatter"]["max_err"],
-                                     wk["scatter"]["max_err"])
+                                     wk["scatter"]["max_err"],
+                                     k6["scatter_err"])
+
+    print(f"[12/12] slice: SCC, coloring, label propagation, random walks, "
+          f"reachability and triangle count on RMAT-{SCALE}")
+    s6 = phase_slice6(kernels, prr["ec"], prr["graph"], k6["oriented"],
+                      k6["host_s"], smi)
 
     if "--profile" in sys.argv:
         profile(pl, prr["graph"], bfs_graph, bfs_root, bfs_ec, bfs_ea,
+                prr["ec"], k6["oriented"], s6["core"],
                 sys.argv[sys.argv.index("--profile") + 1])
 
     def times(r: dict) -> dict:
@@ -1385,7 +1790,8 @@ def main() -> int:
         by_path = {f"pagerank_rmat{SCALE}": prr["launches"].get(kernel, 0),
                    f"bfs_do_rmat{BFS_SCALE}": bfs_launches.get(kernel, 0),
                    f"loaded_rmat{SCALE}": loaded[kernel],
-                   f"fixpoint_rmat{BFS_SCALE}": fix["launches"][kernel]}
+                   f"fixpoint_rmat{BFS_SCALE}": fix["launches"][kernel],
+                   f"slice6_rmat{SCALE}": s6["launches"][kernel]}
         if kernel == "scatter_combine":
             by_path["exp_push"] = push["scatter"]["launches"]
         return by_path
@@ -1396,7 +1802,7 @@ def main() -> int:
                 "source": f"vectorgraphlibrary_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": r["max_err"],
-                **times(r), "bound_by": "bytes", **extra}
+                **times(r), "bound_by": r.get("bound_by", "bytes"), **extra}
     route = prr["route"]
     print(smi)
     print(json.dumps({"kernels": [
@@ -1416,10 +1822,16 @@ def main() -> int:
         row("scatter_combine", "scatter_combine.cu", REPLACES_SCATTER,
             push["scatter"], device_ms=push["scatter"]["device_ms"],
             library_device_ms=push["scatter"]["library_device_ms"],
-            f32_min={k: v for k, v in wk["scatter"].items()}),
+            f32_min={k: v for k, v in wk["scatter"].items()},
+            int32_add=k6["add"]),
         row("push_expand", "push_expand.cu", REPLACES_SCATTER, push["push"],
             device_ms=push["push"]["device_ms"]),
-        row("lane_shuffle", "lane_shuffle.cu", REPLACES_LANE, lsr)]}))
+        row("lane_shuffle", "lane_shuffle.cu", REPLACES_LANE, lsr),
+        row("and_popcount", "and_popcount.cu", REPLACES_POPCOUNT,
+            k6["popcount"],
+            row_reads_bound_ms=k6["popcount"]["row_reads_bound_ms"],
+            pairs=k6["popcount"]["pairs"], words=k6["popcount"]["words"])],
+        "rates": s6["rates"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

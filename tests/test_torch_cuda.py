@@ -1,9 +1,11 @@
 """PyTorch port on the card: the route-gather, CSR pull (with edge weights),
-scatter-combine (int32 and f32), expand-and-scatter and lane-shuffle kernels
-against their plain versions (bit for bit, but f32 sums of the pull at rtol
-1e-5 / atol 1e-6: another order), their launch counts, their argument
-checks, and the slices (PageRank, BFS, loading a saved graph, SSSP, SSWP,
-HITS, CC) on CUDA against the same slices on the CPU. Every test
+scatter-combine (int32 and f32), expand-and-scatter, lane-shuffle and
+AND-popcount kernels against their plain versions (bit for bit, but f32
+sums of the pull at rtol 1e-5 / atol 1e-6: another order), their launch
+counts, their argument checks, and the slices (PageRank, BFS, loading a
+saved graph, SSSP, SSWP, HITS, CC, SCC, coloring, label propagation, random
+walks, reachability, triangle count) on CUDA against the same slices on the
+CPU. Every test
 here needs an NVIDIA GPU and skips
 without one. The file needs no JAX (the card's host has none), so on the card
 run it without tests/conftest.py, which imports jax:
@@ -22,8 +24,10 @@ from vectorgraphlibrary_tpu_torch.io import generation
 from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
 from vectorgraphlibrary_tpu_torch.graph.edges import build_edge_array_from_host
 from vectorgraphlibrary_tpu_torch.models import bfs, cc, common, hits, pr, sssp, sswp
+from vectorgraphlibrary_tpu_torch.models import coloring, lp, rw, scc, tc
 from vectorgraphlibrary_tpu_torch.graph import frontier
 from vectorgraphlibrary_tpu_torch.ops import advance, monoid
+from vectorgraphlibrary_tpu_torch.ops.cuda import and_popcount as ap
 from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
 from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
 from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
@@ -114,7 +118,7 @@ SCATTER_CASES = {
 }
 
 
-@pytest.mark.parametrize("op", ["min", "max", "or"])
+@pytest.mark.parametrize("op", ["min", "max", "or", "add"])
 @pytest.mark.parametrize("case", list(SCATTER_CASES))
 def test_scatter_combine_equals_plain_version(cuda, case, op):
     n_out, n, kind = SCATTER_CASES[case]
@@ -147,17 +151,24 @@ def test_scatter_combine_rejects_what_it_does_not_take(cuda):
         sc.scatter_combine(out.double(), idx, 1, "min")
     with pytest.raises(TypeError):
         sc.scatter_combine(out.float(), idx, 1.0, "or")
+    with pytest.raises(TypeError):          # no f32 add: atomics reorder it
+        sc.scatter_combine(out.float(), idx, 1.0, "add")
     with pytest.raises(ValueError):         # messages of the target's type
         sc.scatter_combine(out.float(), idx, idx, "min")
     with pytest.raises(TypeError):
         sc.scatter_combine(out, idx.long(), 1, "min")
     with pytest.raises(ValueError):
-        sc.scatter_combine(out, idx, 1, "add")
+        sc.scatter_combine(out, idx, 1, "xor")
     with pytest.raises(ValueError):
         sc.scatter_combine(out, idx, idx.cpu(), "max")
-    # scatter_at on the card: min/max over int32 and f32 have a kernel
+    # scatter_at on the card: min/max over int32 and f32 and add over int32
+    # have a kernel
     with pytest.raises(TypeError):
-        monoid.ADD.scatter_at(out, idx, idx)
+        monoid.ADD.scatter_at(out.float(), idx, idx.float())
+    before = sc.scatter_combine.launches
+    got = monoid.ADD.scatter_at(out + 1, idx % 4, idx)
+    assert sc.scatter_combine.launches == before + 1
+    assert got.cpu().tolist() == [5, 7, 9, 11, 1, 1, 1, 1]
     with pytest.raises(TypeError):
         monoid.MIN.scatter_at(out.double(), idx, idx.double())
     before = sc.scatter_combine.launches
@@ -587,9 +598,12 @@ def test_hits_and_cc_on_cuda_match_cpu(weighted_cuda):
     assert pl.pull_reduce.launches == 40
     assert rg.route_gather_finish.launches == 42
     cauth, chub = hits.vgl_hits(cg, iterations=20)
+    # rtol 1e-5 with atol 1e-6 of the largest entry, as in
+    # tests/test_torch_hits.py (it says why small entries need the atol)
     for a, b in ((auth, cauth), (hub, chub)):
-        np.testing.assert_allclose(a.values.cpu().numpy(), b.values.numpy(),
-                                   rtol=1e-4, atol=1e-7)
+        want = b.values.numpy()
+        np.testing.assert_allclose(a.values.cpu().numpy(), want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
 
     _reset(*kernels)
     labels, iters = cc.vgl_shiloach_vishkin(g)
@@ -604,3 +618,124 @@ def test_hits_and_cc_on_cuda_match_cpu(weighted_cuda):
         assert ia == ib and torch.equal(a.values.cpu(), b.values)
     assert torch.equal(cc.vgl_bfs_based(g).values.cpu(),
                        cc.vgl_bfs_based(cg).values)
+
+
+# (rows, words, edges, chunk): a ragged last chunk, the triangle count's
+# RMAT-18 word count with many chunks, one chunk of the main path's size,
+# chunks of one edge, an empty edge list
+POPCOUNT_CASES = [(50, 7, 1000, 128), (300, 512, 5000, 1024),
+                  (4097, 512, 40000, 32768), (9, 33, 17, 1), (10, 4, 0, 16)]
+
+
+@pytest.mark.parametrize("rows,words,n,chunk", POPCOUNT_CASES)
+def test_and_popcount_equals_plain_version(cuda, rows, words, n, chunk):
+    rng = np.random.default_rng(rows + n)
+    bits = torch.from_numpy(rng.integers(-2**31, 2**31, (rows, words),
+                                         dtype=np.int64).astype(np.int32))
+    bits[0] = -1
+    u = torch.from_numpy(rng.integers(0, rows, n).astype(np.int32))
+    v = torch.from_numpy(rng.integers(0, rows, n).astype(np.int32))
+    before = ap.and_popcount.launches
+    got = ap.and_popcount(bits.to(cuda), u.to(cuda), v.to(cuda), chunk)
+    torch.cuda.synchronize()
+    assert ap.and_popcount.launches == before + (1 if n else 0)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), ap.and_popcount_ref(bits, u, v, chunk))
+
+
+def test_and_popcount_rejects_what_it_does_not_take(cuda):
+    bits = torch.zeros(4, 64, dtype=torch.int32, device=cuda)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ap.and_popcount(bits[:, ::2], idx, idx, 4)       # not contiguous
+    with pytest.raises(ValueError):
+        ap.and_popcount(bits, idx.cpu(), idx, 4)
+    with pytest.raises(TypeError):
+        ap.and_popcount(bits.float(), idx, idx, 4)
+
+
+@pytest.fixture(scope="module")
+def slice6_cuda():
+    """Unweighted RMAT-12 on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU mode)")
+    ec = generation.rmat(12, 16, seed=5, weighted=False)
+    return ec, import_graph(ec, device="cpu"), import_graph(ec, device="cuda")
+
+
+def test_scc_on_cuda_matches_cpu(slice6_cuda):
+    ec, cg, g = slice6_cuda
+    _reset(pl.pull_reduce, rg.route_gather_finish)
+    trace = []
+    labels = scc.vgl_forward_backward(g, trace=trace)
+    torch.cuda.synchronize()
+    trims = sum(k == "trim" for k, _ in trace)
+    hops = sum(n for k, n in trace if k == "flood")
+    assert pl.pull_reduce.launches == 2 * trims + hops
+    assert rg.route_gather_finish.launches == 4 * trims + 2 * hops
+    ctrace = []
+    assert torch.equal(labels.values.cpu(),
+                       scc.vgl_forward_backward(cg, trace=ctrace).values)
+    assert trace == ctrace
+
+
+@pytest.mark.parametrize("core", [False, True])
+def test_coloring_on_cuda_matches_cpu(slice6_cuda, core):
+    ec, cg, g = slice6_cuda
+    kw = dict(ec=ec, core_threshold=64) if core else {}
+    _reset(pl.pull_reduce, rg.route_gather_finish)
+    colors, rounds = coloring.vgl_coloring(g, **kw)
+    torch.cuda.synchronize()
+    assert pl.pull_reduce.launches == 10 * rounds
+    assert rg.route_gather_finish.launches == 20 * rounds
+    ccolors, crounds = coloring.vgl_coloring(cg, **kw)
+    assert rounds == crounds
+    assert torch.equal(colors.values.cpu(), ccolors.values)
+
+
+def test_lp_and_rw_on_cuda_match_cpu(slice6_cuda):
+    ec, cg, g = slice6_cuda
+    labels, iters = lp.vgl_label_propagation(g, max_iterations=10)
+    clabels, citers = lp.vgl_label_propagation(cg, max_iterations=10)
+    assert iters == citers and torch.equal(labels.values.cpu(), clabels.values)
+    src = common.select_random_source(ec, seed=41)
+    finals, paths = rw.vgl_random_walk(g, np.full(256, src), walk_length=10,
+                                       seed=7, store_walk_paths=True)
+    again = rw.vgl_random_walk(g, np.full(256, src), walk_length=10, seed=7)
+    np.testing.assert_array_equal(finals, again)
+    keys = set((ec.src_ids.astype(np.int64) * ec.vertices_count
+                + ec.dst_ids).tolist())
+    outdeg = np.bincount(ec.src_ids, minlength=ec.vertices_count)
+    step = paths[:, :-1].astype(np.int64) * ec.vertices_count + paths[:, 1:]
+    ok = np.isin(step, list(keys)) | ((paths[:, :-1] == paths[:, 1:])
+                                      & (outdeg[paths[:, :-1]] == 0))
+    assert ok.all()
+    assert rw.seq_random_walk_reachable(ec, src, 10)[finals].all()
+
+
+def test_reachability_on_cuda_matches_cpu(slice6_cuda):
+    ec, cg, g = slice6_cuda
+    sources = np.asarray([0, 17])
+    _reset(pe.push_expand)
+    got = tc.reachability(ec, g, sources)
+    assert pe.push_expand.launches > 0
+    np.testing.assert_array_equal(got, tc.reachability(ec, cg, sources))
+    np.testing.assert_array_equal(got, tc.seq_reachability(ec, sources))
+    np.testing.assert_array_equal(tc.vgl_bfs_based_reachability(g, sources),
+                                  tc.seq_reachability(ec, sources))
+
+
+@pytest.mark.parametrize("block_bits", [256, None])
+def test_triangle_count_on_cuda_matches_cpu(slice6_cuda, block_bits):
+    ec, _, _ = slice6_cuda
+    kernels = (pl.pull_reduce, sc.scatter_combine, ap.and_popcount)
+    _reset(*kernels)
+    trace = []
+    got = tc.vgl_triangle_count(ec, block_bits=block_bits, trace=trace)
+    blocks = sum(t is not None for t in trace)
+    assert sc.scatter_combine.launches == blocks
+    assert ap.and_popcount.launches == blocks
+    assert pl.pull_reduce.launches == 0
+    assert got == tc.vgl_triangle_count(ec, block_bits=block_bits,
+                                        device="cpu")
+    assert got == tc.seq_triangle_count(ec)

@@ -3,9 +3,11 @@ RMAT-10, RU-9 and a path graph, against the sequential oracle, and the app's
 CLI contract. The JAX package runs as its own tests run it (tests/conftest.py:
 routed paths, Pallas in interpret mode).
 
-Tolerance: rtol 1e-4 / atol 1e-7 after 20 iterations. Each iteration sums
-every row's f32 messages and the squares of a whole vector in another order
-than XLA does, and the normalised vectors feed the next iteration; the
+Tolerance: rtol 1e-5 (the bar for float sums) with atol 1e-6 of the
+vector's largest entry, after 20 iterations. Each iteration sums every row's
+f32 messages and the squares of a whole vector in another order than XLA
+does, and the normalised vectors feed the next iteration, so an entry far
+below the largest carries the rounding of the sums that normalise it: the
 largest difference measured here, printed by the test, is 5.3e-7 of the
 vector's largest entry (RMAT-10, auth)."""
 import os
@@ -30,7 +32,7 @@ from vectorgraphlibrary_tpu_torch.utils.verify import verify_ranking_results
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRAPHS = ["small_rmat", "small_ru", "path"]
 FLAGS = ["default"]
-TOL = dict(rtol=1e-4, atol=1e-7)
+RTOL, ATOL_OF_MAX = 1e-5, 1e-6
 
 
 def _path_graph():
@@ -68,7 +70,8 @@ def test_hits_matches_jax_and_oracle(graphs, graph, iterations):
         rel = np.abs(gv - wv).max() / max(np.abs(wv).max(), 1e-30)
         print(f"{graph} {iterations} iterations {name}: max abs diff / max "
               f"= {rel:.3e}")
-        np.testing.assert_allclose(gv, wv, **TOL)
+        np.testing.assert_allclose(gv, wv, rtol=RTOL,
+                                   atol=ATOL_OF_MAX * np.abs(wv).max())
         assert bool((g.values[tg.v:] == 0).all())       # padding
         assert verify_ranking_results(gv[:tg.v], o) == 0
         if iterations == 20 and graph != "path":

@@ -304,24 +304,25 @@ def test_scatter_combine_ref_is_the_tpu_kernels_function(ecap):
     np.testing.assert_array_equal(got0.numpy(), np.asarray(xla))
 
 
-@pytest.mark.parametrize("op", ["min", "max", "or"])
+@pytest.mark.parametrize("op", ["min", "max", "or", "add"])
 def test_scatter_combine_ref_matches_numpy(op):
-    """Random int32 messages over the full range (bit 31 set for or),
-    duplicates, negative and too-large indices dropped."""
+    """Random int32 messages over the full range (bit 31 set for or; sums
+    wrap modulo 2^32 for add), duplicates, negative and too-large indices
+    dropped."""
     rng = np.random.default_rng(8)
     n, m = 300, 4000
     idx = rng.integers(-20, n + 20, m).astype(np.int32)
     msg, out = _i32(rng, m), _i32(rng, n)
     keep = (idx >= 0) & (idx < n)
     want = out.copy()
-    {"min": np.minimum, "max": np.maximum, "or": np.bitwise_or}[op].at(
-        want, idx[keep], msg[keep])
+    {"min": np.minimum, "max": np.maximum, "or": np.bitwise_or,
+     "add": np.add}[op].at(want, idx[keep], msg[keep])
     got = sc.scatter_combine(torch.from_numpy(out), torch.from_numpy(idx),
                              torch.from_numpy(msg), op)
     np.testing.assert_array_equal(got.numpy(), want)
     with pytest.raises(ValueError):
         sc.scatter_combine(torch.from_numpy(out), torch.from_numpy(idx),
-                           torch.from_numpy(msg), "add")
+                           torch.from_numpy(msg), "xor")
 
 
 @pytest.mark.parametrize("op", ["min", "max"])

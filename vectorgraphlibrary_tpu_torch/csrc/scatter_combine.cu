@@ -2,7 +2,8 @@
 // messages into an f32 one.
 //
 //   for every i < n with 0 <= idx[i] < n_out:
-//     out[idx[i]] = op(out[idx[i]], msg[i])    op in {min, max, or}; f32: min, max
+//     out[idx[i]] = op(out[idx[i]], msg[i])    op in {min, max, or, add};
+//                                              f32: min, max
 //
 // Messages whose index falls outside [0, n_out) are dropped. `msg` may be
 // NULL, and then every message is the constant `msg_const`.
@@ -13,8 +14,10 @@
 // (out-of-range destinations dropped). That is the case op = or, msg = 1.
 // In the port the same kernel is the scatter stage of the generic sparse
 // push (ops/advance.advance_push_sparse): the owner mark (max) and the
-// combine, where the JAX package uses XLA's scatter. The BFS push runs
-// csrc/push_expand.cu instead.
+// combine, where the JAX package uses XLA's scatter, and the int32 add of
+// Monoid.scatter_at("add"), which builds the triangle count's bitmaps
+// (models/tc._tc_build_bits: one bit added per deduplicated edge, so the add
+// is an or). The BFS push runs csrc/push_expand.cu instead.
 //
 // What bounds it on Hopper: one 4-byte atomic per message, plus streaming idx
 // and msg (8 B per message). At the BFS push's shapes the target (4 MB at
@@ -23,7 +26,10 @@
 // launch latency. The TPU needed a sequential grid because its VMEM row update
 // is a read-modify-write; here atomicMin/atomicMax/atomicOr commute on int32,
 // so the result does not depend on the order of the threads: it is the same on
-// every run and equals the plain version bit for bit. The return value of each
+// every run and equals the plain version bit for bit. So does atomicAdd on
+// int32: a sum modulo 2^32 is exact in any order. There is no f32 add: float
+// sums taken by atomics round in the order the threads arrive, which changes
+// from run to run, so the wrapper raises for it. The return value of each
 // atomic is unused, so it compiles to a fire-and-forget reduction (RED).
 // First version: a grid-stride loop, one message per thread.
 //
@@ -47,7 +53,7 @@
 
 namespace {
 
-enum Op { OP_MIN = 0, OP_MAX = 1, OP_OR = 2 };
+enum Op { OP_MIN = 0, OP_MAX = 1, OP_OR = 2, OP_ADD = 3 };
 
 template <int OP>
 __global__ void scatter_combine_kernel(int32_t* __restrict__ out,
@@ -65,6 +71,7 @@ __global__ void scatter_combine_kernel(int32_t* __restrict__ out,
     if (OP == OP_MIN) atomicMin(out + d, m);
     if (OP == OP_MAX) atomicMax(out + d, m);
     if (OP == OP_OR) atomicOr(out + d, m);
+    if (OP == OP_ADD) atomicAdd(out + d, m);
   }
 }
 
@@ -128,6 +135,10 @@ int vgl_scatter_combine_i32(void* out, long long n_out, const void* idx,
       break;
     case OP_OR:
       scatter_combine_kernel<OP_OR><<<blocks, threads, 0, s>>>(
+          o, no, ip, mp, (int32_t)msg_const, n);
+      break;
+    case OP_ADD:
+      scatter_combine_kernel<OP_ADD><<<blocks, threads, 0, s>>>(
           o, no, ip, mp, (int32_t)msg_const, n);
       break;
     default:

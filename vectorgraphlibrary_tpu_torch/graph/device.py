@@ -124,14 +124,16 @@ class VGLGraph:
     (reference vgl_graph.h:7-80). SCATTER traverses outgoing, GATHER incoming.
 
     ``advance_route`` moves outgoing-tile slots to incoming-tile slots:
-    forward = pull over incoming; inverse = pull over outgoing. The vertex
+    forward = pull over incoming; inverse = pull over outgoing (None when
+    the graph was imported with build_route=False; no advance reads it, and
+    persistence needs it). The vertex
     routes change orderings: forward gives the left ordering's values from the
     right ordering's (scatter_vals = apply_route(s_from_g, gather_vals)),
     inverse the reverse."""
 
     outgoing: DeviceDirectedGraph
     incoming: DeviceDirectedGraph
-    advance_route: RoutePlan
+    advance_route: Optional[RoutePlan]
     vertex_route_s_from_g: RoutePlan
     vertex_route_s_from_o: RoutePlan
     vertex_route_g_from_o: RoutePlan
@@ -154,16 +156,20 @@ class VGLGraph:
 
 
 def from_host(h_out, h_in, selfloop_edges: np.ndarray, v: int, e: int,
-              device="cuda") -> VGLGraph:
+              device="cuda", build_route: bool = True) -> VGLGraph:
     """VGLGraph from the two host CSRs (graph/build.py HostDirectedCSR; the
     JAX package's, from its import_graph(ec, _host_out=...), works as well).
-    selfloop_edges: bool [e] over COO edge ids."""
+    selfloop_edges: bool [e] over COO edge ids. build_route=False leaves
+    out the advance route (advance_route None, out_slots = in_slots = 0, as
+    in the reference); the vertex routes are built either way."""
     device = torch.device(device)
     out = _to_device_directed(h_out, device)
     inc = _to_device_directed(h_in, device)
     assert out.v_pad == inc.v_pad
-    route, out_slots, in_slots = build_advance_route(
-        h_out, h_in, selfloop_edges=selfloop_edges, device=device)
+    route, out_slots, in_slots = None, 0, 0
+    if build_route:
+        route, out_slots, in_slots = build_advance_route(
+            h_out, h_in, selfloop_edges=selfloop_edges, device=device)
     vpad = h_out.vertices_pad
     # scatter_vals[i] = gather_vals[g_of_s[i]]: gather-space id of the vertex
     # whose scatter-space id is i (identity on padding slots)
@@ -183,14 +189,17 @@ def from_host(h_out, h_in, selfloop_edges: np.ndarray, v: int, e: int,
 
 
 def import_graph(ec: EdgesContainer, cfg: VGLConfig = DEFAULT_CONFIG,
-                 device="cuda", _host_out: Optional[list] = None) -> VGLGraph:
+                 device="cuda", _host_out: Optional[list] = None,
+                 build_route: bool = True) -> VGLGraph:
     """COO → VGLGraph (both directions, tiles, the flagged advance route and
     the three vertex routes), reference vgl_graph.hpp:60-64. _host_out: a
     list that receives the two host CSRs (outgoing, incoming), which
-    graph.edges.build_edge_array_from_host needs to lay out edge values."""
+    graph.edges.build_edge_array_from_host needs to lay out edge values.
+    build_route=False skips only the advance route (from_host), as
+    models/tc.reachability does for its condensed graph."""
     h_out = build_directed_csr(ec.src_ids, ec.dst_ids, ec.vertices_count, cfg)
     h_in = build_directed_csr(ec.dst_ids, ec.src_ids, ec.vertices_count, cfg)
     if _host_out is not None:
         _host_out.extend([h_out, h_in])
     return from_host(h_out, h_in, ec.src_ids == ec.dst_ids, ec.vertices_count,
-                     ec.edges_count, device)
+                     ec.edges_count, device, build_route)

@@ -173,7 +173,13 @@ def _unpack_route(prefix: str, z, device, needs_flags: bool) -> RoutePlan:
 
 def save_graph_to_binary_file(graph: VGLGraph, path: str,
                               compressed: bool = True) -> None:
-    """Write `graph` to `path` (.npz) in the JAX package's format."""
+    """Write `graph` to `path` (.npz) in the JAX package's format. Raises
+    ValueError, before anything is written, for a graph imported with
+    build_route=False: the format holds the advance route."""
+    if graph.advance_route is None:
+        raise ValueError("save_graph_to_binary_file: the graph has no "
+                         "advance route (imported with build_route=False); "
+                         "import it with build_route=True to save it")
     out = {}
     _pack_directed("out", graph.outgoing, out)
     _pack_directed("in", graph.incoming, out)

@@ -20,24 +20,10 @@ import torch
 from ..config import TraversalDirection
 from ..graph.device import VGLGraph
 from ..graph.vertices import VertexArray
-from ..ops.advance import advance_pull_value
 from . import common
 
-S, G, O = (TraversalDirection.SCATTER, TraversalDirection.GATHER,
-           TraversalDirection.ORIGINAL)
+O = TraversalDirection.ORIGINAL
 _BIGI = torch.iinfo(torch.int32).max
-
-
-def _pull_both(graph: VGLGraph, values_o: torch.Tensor, combine: str):
-    """The pull of ORIGINAL-ordered values over incoming and over outgoing
-    edges (the second by the container swap), both back in ORIGINAL
-    ordering."""
-    x_g = common.to_direction(graph, values_o, O, G)
-    via_in = advance_pull_value(graph, x_g, combine, direction=G)
-    x_s = common.to_direction(graph, values_o, O, S)
-    via_out = advance_pull_value(graph, x_s, combine, direction=S)
-    return (common.to_direction(graph, via_in, G, O),
-            common.to_direction(graph, via_out, S, O))
 
 
 def _ids_real(graph: VGLGraph):
@@ -62,8 +48,8 @@ def _sv_run(graph: VGLGraph, max_iterations: int):
 
     def hook(labels):
         """min over the undirected neighbourhood, computed per direction."""
-        m_in, m_out = _pull_both(graph, labels, "min")
-        return torch.minimum(labels, torch.minimum(m_in, m_out))
+        return torch.minimum(labels,
+                             common.undirected_value_pull(graph, labels, "min"))
 
     def jump(labels):
         return labels[labels.clamp(max=v_pad - 1).long()]
@@ -99,8 +85,7 @@ def _cc_hybrid_run(graph: VGLGraph, hub: int, max_flood: int,
     ids, real = _ids_real(graph)
 
     def und_or(reach_o):
-        via_in, via_out = _pull_both(graph, reach_o, "or")
-        return via_in | via_out
+        return common.undirected_value_pull(graph, reach_o, "or")
 
     reach = frontier = ids == hub
     flood_lv = 0
@@ -120,9 +105,8 @@ def _cc_hybrid_run(graph: VGLGraph, hub: int, max_flood: int,
     labels0 = torch.where(real, labels0, v)
 
     def step(labels, it):
-        m_in, m_out = _pull_both(graph, labels, "min")
-        new = torch.minimum(labels, torch.minimum(
-            torch.where(real, m_in, _BIGI), torch.where(real, m_out, _BIGI)))
+        m = common.undirected_value_pull(graph, labels, "min")
+        new = torch.minimum(labels, torch.where(real, m, _BIGI))
         # no pointer jumps: the flood covered the deep component and the
         # tails are shallow
         new = torch.where(freeze, hub, new)         # frozen hub component
@@ -168,8 +152,8 @@ def vgl_bfs_based(graph: VGLGraph, max_components: int = 1_000_000
 
     def flood_step(reach_o):
         """One undirected BFS-flood expansion in ORIGINAL space."""
-        via_in, via_out = _pull_both(graph, reach_o, "or")
-        return (reach_o | via_in | via_out) & real
+        return (reach_o | common.undirected_value_pull(graph, reach_o, "or")) \
+            & real
 
     comp = 0
     while comp < max_components:

@@ -9,6 +9,8 @@ from typing import Callable
 from ..config import TraversalDirection
 from ..graph.device import VGLGraph
 from ..graph.vertices import VertexArray, reorder
+from ..ops import monoid as M
+from ..ops.advance import advance_pull_value
 
 
 def select_random_source(ec_or_degrees, seed: int = 0) -> int:
@@ -46,6 +48,26 @@ def indegrees_in(graph: VGLGraph, direction: TraversalDirection) -> torch.Tensor
 def next_pow2(x: int) -> int:
     """Smallest power of two >= x (1 for x <= 1)."""
     return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+def undirected_value_pull(graph: VGLGraph, vec_orig: torch.Tensor,
+                          combine) -> torch.Tensor:
+    """Aggregate a per-source value over the UNDIRECTED neighbourhood, in
+    ORIGINAL ordering (reference common.py:47-73): the value pulled over
+    incoming and over outgoing edges, each brought back to ORIGINAL and
+    joined by the monoid's combine. Two CSR pull kernel launches and four
+    vertex routes on the card. The message is the source's value alone, so
+    a caller masks or shifts it elementwise first (coloring's banned-color
+    words and priority tests)."""
+    O, S, G = (TraversalDirection.ORIGINAL, TraversalDirection.SCATTER,
+               TraversalDirection.GATHER)
+    v_g = to_direction(graph, vec_orig, O, G)
+    via_in = to_direction(graph, advance_pull_value(graph, v_g, combine,
+                                                    direction=G), G, O)
+    v_s = to_direction(graph, vec_orig, O, S)
+    via_out = to_direction(graph, advance_pull_value(graph, v_s, combine,
+                                                     direction=S), S, O)
+    return M.get(combine).combine(via_in, via_out)
 
 
 def capacity_tiers(id_cap: int, edge_cap: int) -> list:

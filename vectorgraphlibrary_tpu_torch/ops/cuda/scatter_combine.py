@@ -2,13 +2,15 @@
 
 `scatter_combine(out, idx, msg, op)` returns a new tensor equal to `out`
 (int32 or f32), with every message msg[i] combined into out[idx[i]] by op in
-{"min", "max", "or"} (f32: min and max); a message whose index lies outside
+{"min", "max", "or", "add"} (f32: min and max; the int32 add wraps modulo
+2^32 as torch's does); a message whose index lies outside
 [0, len(out)) is dropped. `msg` is a tensor of out's dtype shaped like `idx`,
 or one number for every message. The f32 min is the combine of SSSP's sparse
 push; csrc/scatter_combine.cu says how it orders -0.0 and NaN (distances
 hold neither). It replaces the TPU kernel of apps/exp_push.py (make_c/_kern, the
 case op="or", msg=1) and runs the scatter stages of the generic sparse push
-(ops/advance.advance_push_sparse, through Monoid.scatter_at); the BFS push
+(ops/advance.advance_push_sparse, through Monoid.scatter_at) and the int32
+add of Monoid.scatter_at("add") (the triangle count's bitmaps); the BFS push
 runs csrc/push_expand.cu instead. csrc/scatter_combine.cu says what bounds
 it on the card.
 
@@ -25,7 +27,7 @@ import torch
 
 from . import build
 
-_OPS = {"min": 0, "max": 1, "or": 2}
+_OPS = {"min": 0, "max": 1, "or": 2, "add": 3}
 _fns: dict = {}     # the library's entries, looked up at the first launch
 _ENTRY = {torch.int32: ("vgl_scatter_combine_i32", ctypes.c_int),
           torch.float32: ("vgl_scatter_combine_f32", ctypes.c_float)}
@@ -60,7 +62,7 @@ def _messages(idx: torch.Tensor, msg, dtype) -> torch.Tensor:
 def scatter_combine_ref(out: torch.Tensor, idx: torch.Tensor,
                         msg: Union[torch.Tensor, int], op: str) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments, same result).
-    min/max: one scatter_reduce with a dump slot; or: bit by bit, as the
+    min/max/add: one scatter_reduce with a dump slot; or: bit by bit, as the
     amax of each bit, so words with bit 31 set stay exact."""
     if op not in _OPS:
         raise ValueError(f"unknown scatter_combine op {op!r}")
@@ -79,7 +81,8 @@ def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
     """New tensor: `out` with msg combined in at idx by op (module doc).
 
     out: int32 or f32 [n_out], n_out < 2^31; idx: int32 [n]; msg: out's dtype
-    [n] or one number; f32 takes min and max only. The result is a copy:
+    [n] or one number; f32 takes min and max only (an f32 add by atomics
+    would round in a different order on every run). The result is a copy:
     `out` is not changed."""
     if op not in _OPS:
         raise ValueError(f"unknown scatter_combine op {op!r}")
@@ -91,8 +94,8 @@ def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
         raise TypeError(f"scatter_combine: out must be a 1-D int32 or f32 "
                         f"tensor, got {out.dtype} of shape {tuple(out.shape)}")
     is_f32 = out.dtype == torch.float32
-    if is_f32 and op == "or":
-        raise TypeError("scatter_combine: or needs int32")
+    if is_f32 and op in ("or", "add"):
+        raise TypeError(f"scatter_combine: {op} needs int32")
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise TypeError("scatter_combine: idx must be a 1-D int32 tensor")
     if idx.device != out.device or not idx.is_contiguous():

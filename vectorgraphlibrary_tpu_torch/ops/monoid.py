@@ -105,10 +105,11 @@ class Monoid:
         mode "drop" drops every index outside [0, len(target)); JAX's would
         wrap a negative index first, and no caller passes one.
 
-        On the card a min or max over int32 or f32 is one scatter_combine
-        kernel launch and any other (op, dtype) raises; on the CPU every
-        case runs in plain PyTorch (those four through the kernel's plain
-        version)."""
+        On the card a min or max over int32 or f32, or an add over int32,
+        is one scatter_combine kernel launch and any other (op, dtype)
+        raises (an f32 add by atomics would not give the same bits twice);
+        on the CPU every case runs in plain PyTorch (those five through the
+        kernel's plain version)."""
         if mode != "drop":
             raise ValueError(f"scatter_at: mode {mode!r} (only 'drop')")
         op = self.name
@@ -120,8 +121,9 @@ class Monoid:
                     "int bitwise-or scatter: use a pull/segment formulation "
                     "(max only equals OR for {0,1} values)")
             op = "max"
-        if op in ("min", "max") and target.dtype in (torch.int32,
-                                                     torch.float32):
+        if (op in ("min", "max") and target.dtype in (torch.int32,
+                                                      torch.float32)) \
+                or (op == "add" and target.dtype == torch.int32):
             return scatter_combine(target, idx.contiguous(),
                                    vals.to(target.dtype).contiguous(), op)
         if target.device.type != "cpu":

@@ -4,8 +4,8 @@ vectorgraphlibrary_tpu/runtime/cli.py that the ported apps use).
 Reference flag surface `vgl_runtime/helpers/cmd_parser/cmd_parser.hpp:58-228`:
 graph source (-load a binary .el_container, -import a KONECT text file, or a
 synthetic graph: -s/-e with -rmat/-ru, -seed), -check, -it, -dev, the
-variant flags -td/-bu/-do (BFS) and -sv/-bfs-based (CC)
-(cfg.algorithm_variant), and SSSP's -all-active/-partial-active and
+variant flags -td/-bu/-do (BFS), -sv/-bfs-based (CC) and -purdoms/-bfs-based
+(TC) (cfg.algorithm_variant), and SSSP's -all-active/-partial-active and
 -push/-pull (cfg.all_active, cfg.push_mode).
 """
 from __future__ import annotations
@@ -44,6 +44,7 @@ def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
     p.add_argument("-do", dest="variant_do", action="store_true")
     p.add_argument("-sv", dest="variant_sv", action="store_true")
     p.add_argument("-bfs-based", dest="variant_bfs_based", action="store_true")
+    p.add_argument("-purdoms", dest="variant_purdoms", action="store_true")
     p.add_argument("-dev", "-device", dest="device", default="cuda",
                    help="torch device; 'cuda' (default) needs a card, 'cpu' "
                         "runs the kernels' plain PyTorch versions")
@@ -54,7 +55,7 @@ def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
 def parse_args(argv=None, app: str = "vgl") -> VGLConfig:
     ns = build_parser(app).parse_args(argv)
     variant = "auto"
-    for name in ("td", "bu", "do", "sv", "bfs_based"):
+    for name in ("td", "bu", "do", "sv", "bfs_based", "purdoms"):
         if getattr(ns, f"variant_{name}"):
             variant = name
     return VGLConfig(
