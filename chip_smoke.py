@@ -21,7 +21,8 @@ result line):
    add without self-loops and min over GATHER, add and max over SCATTER,
    i32 min, max and or, int8 any01), its time beside the plain version's
    and torch.mv of the CSR tensor; the route kernel on the graph's routes,
-   timed on the vertex route the path runs and on the 2^24 advance route;
+   timed on the vertex route the path runs and on the 2^24 advance route,
+   and bool vectors through the routes (as bytes) equal to a cast to int8;
 5. kernel: scatter_combine against its plain version on the card, bit for
    bit, into V = 2^20 int32 vertices from 2^15, 2^16 and 2^17 destinations
    (an eighth of them dropped), all dropped, and none; min and max of random
@@ -62,9 +63,11 @@ result line):
    of the CSR tensor for the f32 add; scatter_combine f32 min and max
    against its plain version, bit for bit (dropped, duplicate and inf
    entries), timed at the largest push capacity a partial SSSP run takes,
-   beside scatter_reduce; and what one launch through ctypes costs on the
-   host (the smallest route_gather_finish call by events and by
-   torch.profiler, beside index_select);
+   beside scatter_reduce; what one launch costs on the host (the smallest
+   route_gather_finish call by events and by torch.profiler, beside
+   index_select, the earlier wrapper path and each step alone); and
+   the RMAT-20 vertex route by events and on the device, beside
+   index_select and its bound;
 10. slice: the fixpoint family on the weighted RMAT-20 graph, sources as
    bench.py picks them: vgl_dijkstra_all_active and
    vgl_dijkstra_partial_device on 2 sources (equal bit for bit, error count
@@ -81,9 +84,11 @@ result line):
    all dropped and none, and at the triangle count's shape (one column block
    of RMAT-18's degree-oriented edges into its [v + 1, 512] int32 bitmap);
    and_popcount against its plain version, bit for bit, on that block's
-   presence-filtered pairs (words = 512), a ragged last chunk and an empty
-   edge list; kernel, plain, one-call PyTorch (index_add; none for
-   and_popcount) and bound times;
+   presence-filtered pairs (words = 512) as the count gives them and
+   shuffled, a ragged last chunk, runs straddling chunks, an empty edge
+   list, and bitmaps of 1, 8, 33 and 512 words with hub rows; kernel,
+   plain, one-call PyTorch (index_add; none for and_popcount), bound and
+   the design's floor, and the kernel over one triangle count's blocks;
 12. slice: on the phase-4 RMAT-18 graph, vgl_forward_backward
    (equal_components 0 against seq_scc; per trim round 2 pull_reduce and 4
    route_gather_finish, per flood hop 1 and 2), vgl_coloring(ec=...)
@@ -113,6 +118,8 @@ RMAT-18.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -406,25 +413,28 @@ def phase_pagerank(rg, pl, smi: str):
                torch.rand(vplan.n, device=DEVICE), vplan.fwd_idx, {}),
         _check(rg, f"RMAT-{SCALE} vertex route i32 inv",
                graph.outgoing.degrees, vplan.inv_idx, {}))
-    degs = graph.outgoing.degrees
-    k_ms = _median3(f"route_gather_finish RMAT-{SCALE} vertex route i32 inv, "
-                    f"kernel", "ms", [_cuda_ms(lambda: rg.route_gather_finish(
-                        degs, vplan.inv_idx)) for _ in range(3)], smi)
-    p_ms = _median3(f"route_gather_finish RMAT-{SCALE} vertex route i32 inv, "
-                    f"plain", "ms", [_cuda_ms(lambda: rg.route_gather_finish_ref(
-                        degs, vplan.inv_idx)) for _ in range(3)], smi)
-    lib_ms = _median3(f"route_gather_finish RMAT-{SCALE} vertex route i32 inv, "
-                      f"index_select", "ms", [_cuda_ms(lambda: torch.index_select(
-                          degs, 0, vplan.inv_idx)) for _ in range(3)], smi)
-    bound = _bound_ms(vplan.n * (4 + 4 + 4))      # idx, x, out
-    print(f"  route_gather_finish vertex route bound {bound:.4f} ms")
-    # device time alone (torch.profiler): the event times above are the
-    # host's cost of issuing one launch
-    dev_k = _profiled_ms(lambda: rg.route_gather_finish(degs, vplan.inv_idx))
-    dev_l = _profiled_ms(lambda: torch.index_select(degs, 0, vplan.inv_idx))
-    print(f"  route_gather_finish vertex route, device ms per call by "
-          f"torch.profiler: {dev_k['total']:.4f}; index_select: "
-          f"{dev_l['total']:.4f}")
+    # bool vectors ride the routes as their bytes (views): equal to the
+    # earlier path, a cast to int8 before the route and back to bool after
+    xb = torch.rand(plan.n, device=DEVICE) < 0.3
+    for label, rp, inverse, kw in (
+            ("vertex route fwd", vplan, False, {}),
+            ("vertex route inv", vplan, True, {}),
+            ("advance route fwd finish", plan, False,
+             dict(flags=plan.flags_fwd, exclude_self_loops=True, ident=0))):
+        xv = xb[:rp.n]
+        got = apply_route(rp, xv, inverse=inverse,
+                          finish=fin if kw else None)
+        cast = rg.route_gather_finish(
+            xv.to(torch.int8), rp.inv_idx if inverse else rp.fwd_idx, **kw)
+        if not kw:
+            cast = cast.to(torch.bool)
+        ok = got.dtype == cast.dtype and torch.equal(got, cast)
+        print(f"  kernel RMAT-{SCALE} bool {label}: "
+              f"{'equal to the cast path' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"bool route {label} != cast path")
+    vr = _vertex_route_times(rg, vplan, graph.outgoing.degrees,
+                             f"RMAT-{SCALE}", smi)
     # the advance route with the PR finish, as PRs 1-3 timed it
     ks, ps = [], []
     for _ in range(3):
@@ -440,9 +450,7 @@ def phase_pagerank(rg, pl, smi: str):
           f"path): kernel {adv_ms:.4f} ms (runs "
           f"{', '.join(f'{t:.4f}' for t in ks)}), plain {adv_plain_ms:.4f} ms, "
           f"bound {adv_bound:.4f} ms on {smi}")
-    route = dict(max_err=max_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                 bound_ms=bound, device_ms=dev_k["total"],
-                 library_device_ms=dev_l["total"], advance_route_2p24_ms=adv_ms,
+    route = dict(max_err=max_err, **vr, advance_route_2p24_ms=adv_ms,
                  advance_route_2p24_plain_ms=adv_plain_ms,
                  advance_route_2p24_bound_ms=adv_bound)
     return dict(graph=graph, ec=ec, ranks=vals, oracle=want,
@@ -947,30 +955,150 @@ def phase_weighted_kernels(rg, pl, scm, ec, graph, ea, smi: str) -> dict:
                    bound_ms=bound, device_ms=dev_k["total"],
                    library_device_ms=dev_l["total"], messages=ecap)
 
-    # what one launch through build.entry and ctypes costs on the host: the
-    # smallest route call (128 slots; its device time is a few microseconds)
+    launch = _launch_cost(rg, smi)
+    route = _vertex_route_times(rg, graph.vertex_route_s_from_g,
+                                graph.outgoing.degrees, f"RMAT-{BFS_SCALE}",
+                                smi)
+    return dict(pull_err=pull_err, pulls=pulls, scatter=scatter, launch=launch,
+                route=route)
+
+
+def _vertex_route_times(rg, vplan, x, label: str, smi: str) -> dict:
+    """route_gather_finish on the inverse vertex route of int32 x (the route
+    the path runs), by events and on the device (torch.profiler), beside
+    index_select and the bound (idx and x read, out written). The event
+    times are means of 100 launches, kernel and index_select in turns: at
+    these sizes they are the host's cost of a launch."""
+    k, lib = [], []
+    for _ in range(3):
+        k.append(_cuda_ms(lambda: rg.route_gather_finish(x, vplan.inv_idx),
+                          reps=100))
+        lib.append(_cuda_ms(lambda: torch.index_select(x, 0, vplan.inv_idx),
+                            reps=100))
+    k_ms = _median3(f"route_gather_finish {label} vertex route i32 inv, "
+                    f"kernel", "ms", k, smi)
+    lib_ms = _median3(f"route_gather_finish {label} vertex route i32 inv, "
+                      f"index_select", "ms", lib, smi)
+    p_ms = _median3(f"route_gather_finish {label} vertex route i32 inv, "
+                    f"plain", "ms", [_cuda_ms(lambda: rg.route_gather_finish_ref(
+                        x, vplan.inv_idx)) for _ in range(3)], smi)
+    bound = _bound_ms(vplan.n * (4 + 4 + 4))
+    dev_k = _one_kernel_ms(lambda: rg.route_gather_finish(x, vplan.inv_idx))
+    dev_l = _one_kernel_ms(lambda: torch.index_select(x, 0, vplan.inv_idx))
+    print(f"  route_gather_finish {label} vertex route ({vplan.n} slots): "
+          f"device ms per call by torch.profiler {dev_k} (index_select "
+          f"{dev_l}), bound {bound:.4f} ms"
+          + (f" ({dev_k / bound:.2f}x)" if dev_k else ""))
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound,
+                device_ms=dev_k, library_device_ms=dev_l)
+
+
+def _one_kernel_ms(fn, reps: int = 10):
+    """Device time of fn, a call that launches one kernel, by torch.profiler:
+    the mean over reps calls, from a window that recorded all reps kernels
+    (taken again three times at most; the profiler can lose events). None,
+    and a line that says so, where no window did."""
+    for _ in range(3):
+        dev = _device_events(fn, reps)
+        if len(dev) == reps:
+            return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    print(f"  not measured: torch.profiler recorded {len(dev)} of {reps} "
+          f"kernels")
+    return None
+
+
+def _launch_cost(rg, smi: str) -> dict:
+    """What one launch costs on the host, step by step: the smallest route
+    call (128 slots; its device time is a few microseconds) through the
+    wrapper, beside index_select and the earlier wrapper path rebuilt here
+    (argument loop on torch.device objects, argument types rebuilt per call,
+    torch.cuda.current_stream(device), the device-context check), and each
+    step of a launch alone. Every time is by CUDA events around 100 calls,
+    median of 3 (the wrapper and index_select in turns): where the steps
+    launch nothing, that is host time."""
+    dev = torch.device(DEVICE)
     x = torch.arange(128, dtype=torch.int32, device=dev)
     ix = torch.arange(127, -1, -1, dtype=torch.int32, device=dev)
-    ev_k = _median3("route_gather_finish 128 slots, kernel by events", "ms",
-                    [_cuda_ms(lambda: rg.route_gather_finish(x, ix), reps=100)
-                     for _ in range(3)], smi)
-    ev_l = _median3("route_gather_finish 128 slots, index_select by events",
-                    "ms", [_cuda_ms(lambda: torch.index_select(x, 0, ix),
-                                    reps=100) for _ in range(3)], smi)
-    ev_e = _median3("route_gather_finish 128 slots, torch.empty alone", "ms",
-                    [_cuda_ms(lambda: torch.empty(128, dtype=torch.int32,
-                                                  device=dev), reps=100)
-                     for _ in range(3)], smi)
+    out = torch.empty_like(x)
+    ones = torch.ones(128, dtype=torch.uint8, device=dev)
+    plain, finish = rg._PLAIN[torch.int32], rg._FINISH[torch.int32][0]
+    index = x.get_device()
+    rg.route_gather_finish(x, ix)       # resolves both entries
+    rg.route_gather_finish(x, ix, flags=ones)
+    fn, fn10 = plain.fn, finish.fn
+    entries = {"vgl_route_gather_i32": fn10}
+
+    def old_wrapper():
+        for name, t, dtype in (("x", x, x.dtype), ("idx", ix, torch.int32),
+                               ("flags", None, torch.uint8),
+                               ("weights", None, x.dtype)):
+            if t is None:
+                continue
+            if t.device != x.device or t.dtype != dtype \
+                    or not t.is_contiguous():
+                raise ValueError(name)
+        # build.entry: the argument types listed, then a dict lookup
+        argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        f = entries.get("vgl_route_gather_i32", argtypes)
+        o = torch.empty(128, dtype=x.dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ctx = (contextlib.nullcontext()
+               if x.device.index == torch.cuda.current_device()
+               else torch.cuda.device(x.device))
+        with ctx:
+            rc = f(x.data_ptr(), ix.data_ptr(), None, None, o.data_ptr(),
+                   128, 0, 0, 0, stream)
+        if rc != 0:
+            raise RuntimeError(rc)
+        return o
+
+    # the wrapper and index_select in turns, then each step alone
+    k, lib = [], []
+    for _ in range(3):
+        k.append(_cuda_ms(lambda: rg.route_gather_finish(x, ix), reps=100))
+        lib.append(_cuda_ms(lambda: torch.index_select(x, 0, ix), reps=100))
+    ms = {"wrapper": _median3("one launch, 128 slots: wrapper", "ms", k, smi),
+          "index_select": _median3("one launch, 128 slots: index_select",
+                                   "ms", lib, smi)}
+    steps = {
+        "old_wrapper": old_wrapper,
+        "torch_empty": lambda: torch.empty(128, dtype=torch.int32,
+                                           device=dev),
+        "new_empty": lambda: x.new_empty(128),
+        "current_stream_object": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "current_device": torch.cuda.current_device,
+        "get_device": x.get_device,
+        "data_ptr_x3": lambda: (x.data_ptr(), ix.data_ptr(), out.data_ptr()),
+        # the entries return before launching when n = 0: ctypes alone,
+        # with the 10 arguments of the finish entry and the 5 of the plain
+        "ctypes_call_10_args_n0": lambda: fn10(
+            x.data_ptr(), ix.data_ptr(), None, None, out.data_ptr(), 0, 0, 0,
+            0, 0),
+        "ctypes_call_5_args_n0": lambda: fn(x.data_ptr(), ix.data_ptr(),
+                                            out.data_ptr(), 0, 0),
+        "launcher_n0": lambda: plain(index, x.data_ptr(), ix.data_ptr(),
+                                     out.data_ptr(), 0),
+        "launcher_n128": lambda: plain(index, x.data_ptr(), ix.data_ptr(),
+                                       out.data_ptr(), 128),
+    }
+    ms.update({k: _median3(f"one launch, 128 slots: {k}", "ms",
+                           [_cuda_ms(f, reps=100) for _ in range(3)], smi)
+               for k, f in steps.items()})
     pd_k = _profiled_ms(lambda: rg.route_gather_finish(x, ix), reps=100)
     pd_l = _profiled_ms(lambda: torch.index_select(x, 0, ix), reps=100)
-    print(f"  one launch of 128 slots: kernel {ev_k:.4f} ms by events and "
-          f"{pd_k['total']:.4f} ms on the device; index_select {ev_l:.4f} and "
-          f"{pd_l['total']:.4f}; the host's share of a wrapper call is "
-          f"{ev_k - pd_k['total']:.4f} ms")
-    launch = dict(kernel_events_ms=ev_k, kernel_device_ms=pd_k["total"],
-                  index_select_events_ms=ev_l,
-                  index_select_device_ms=pd_l["total"], empty_events_ms=ev_e)
-    return dict(pull_err=pull_err, pulls=pulls, scatter=scatter, launch=launch)
+    print(f"  one launch of 128 slots: wrapper {ms['wrapper']:.4f} ms by "
+          f"events (the earlier path {ms['old_wrapper']:.4f}) and "
+          f"{pd_k['total']:.4f} ms on the device; index_select "
+          f"{ms['index_select']:.4f} and {pd_l['total']:.4f}")
+    print(f"  launch-path breakdown by events (ms): {json.dumps(ms)}")
+    return dict(kernel_events_ms=ms["wrapper"], kernel_device_ms=pd_k["total"],
+                index_select_events_ms=ms["index_select"],
+                index_select_device_ms=pd_l["total"],
+                empty_events_ms=ms["torch_empty"], steps_events_ms=ms)
 
 
 def _timed3(fn) -> list:
@@ -1310,6 +1438,45 @@ REPLACES_POPCOUNT = ("none: vectorgraphlibrary_tpu/models/tc.py:112 "
                      "(_tc_block_count) runs outside Pallas")
 
 
+def _popcount_cases(bits, uf, vf, chunk: int, rng) -> list:
+    """and_popcount's cases, each (label, (bits, u, v, chunk)): the triangle
+    count's densest block as the count gives it (pairs sorted by u, then
+    v), the same pairs shuffled, a ragged last chunk, runs of one u
+    straddling chunk boundaries (chunks of 1,000 and of 7), an empty edge
+    list, and bitmaps of 1, 8, 33 and 512 words with a tenth of their words
+    non-zero and four hub rows with every word non-zero (the dense case;
+    at 512 words, past one window of the warp's list), taken by sorted runs
+    straddling chunks of 1,000 and shuffled."""
+    dev = bits.device
+    n = uf.shape[0]
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    ragged = 3 * chunk + 1234
+    cases = [(f"{n} pairs", (bits, uf, vf, chunk)),
+             (f"{n} pairs shuffled", (bits, uf[perm], vf[perm], chunk)),
+             (f"ragged, {ragged} pairs", (bits, uf[:ragged], vf[:ragged],
+                                          chunk)),
+             ("runs across chunks of 1000", (bits, uf[:200_000],
+                                             vf[:200_000], 1000)),
+             ("runs across chunks of 7", (bits, uf[:20_000], vf[:20_000], 7)),
+             ("no pair", (bits, uf[:0], vf[:0], chunk))]
+    rows, pairs = 4097, 20_000
+    for words in (1, 8, 33, 512):
+        b = rng.integers(-2**31, 2**31, (rows, words), dtype=np.int64)
+        b[rng.random((rows, words)) < 0.9] = 0
+        b[:4] = rng.integers(1, 2**31, (4, words))
+        b[0] = -1
+        u = rng.integers(0, rows, pairs)
+        u[:3000] = rng.integers(0, 4, 3000)        # runs on the hub rows
+        u.sort()
+        v = rng.integers(0, rows, pairs)
+        bt, ut, vt = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                      for a in (b, u, v))
+        sh = torch.from_numpy(rng.permutation(pairs)).to(dev)
+        cases += [(f"words {words}, hub runs", (bt, ut, vt, 1000)),
+                  (f"words {words}, shuffled", (bt, ut[sh], vt[sh], 1000))]
+    return cases
+
+
 def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
     """scatter_combine's int32 add against its plain version, bit for bit,
     into 2^20 from 2^15, 2^16 and 2^17 messages (an eighth dropped), all
@@ -1376,27 +1543,31 @@ def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
     print(f"  scatter_combine add bound {add['bound_ms']:.4f} ms")
 
     # the triangle count's shapes: the column block with the most
-    # presence-filtered edges
+    # presence-filtered edges, filtered on the card as
+    # models/tc.vgl_triangle_count does
     t0 = time.perf_counter()
     u_e, v_e = tc._oriented_simple_edges(ec)
     host_s = time.perf_counter() - t0
     nv = ec.vertices_count
     block_bits = int(min(max(1 << 10, (1 << 32) // nv), 1 << 20))
     words = block_bits // 32
-    best = None
+    ud, vd = torch.from_numpy(u_e).to(dev), torch.from_numpy(v_e).to(dev)
+    pres = torch.zeros(nv + 1, dtype=torch.bool, device=dev)
+
+    def block(c0):
+        m = torch.nonzero((vd >= c0) & (vd < c0 + block_bits)).flatten()
+        pres.zero_()
+        pres[ud[m]] = True
+        return m, torch.nonzero(pres[ud] & pres[vd]).flatten()
+
+    sizes = []
     for c0 in range(0, nv, block_bits):
-        m = (v_e >= c0) & (v_e < c0 + block_bits)
-        pres = np.zeros(nv + 1, bool)
-        pres[u_e[m]] = True
-        em = pres[u_e] & pres[v_e]
-        if best is None or em.sum() > best[2].sum():
-            best = (c0, m, em)
-    c0, m, em = best
-    ub = torch.from_numpy(u_e[m]).to(dev)
-    vb = torch.from_numpy(v_e[m] - c0).to(dev)
-    uf = torch.from_numpy(u_e[em]).to(dev)
-    vf = torch.from_numpy(v_e[em]).to(dev)
-    n_build, n_pairs = int(m.sum()), int(em.sum())
+        m, em = block(c0)
+        sizes.append((em.shape[0], c0, m.shape[0]))
+    n_pairs, c0, n_build = max(sizes)
+    m, em = block(c0)
+    ub, vb = ud[m], vd[m] - c0
+    uf, vf = ud[em], vd[em]
     print(f"  RMAT-{SCALE} triangle count: {len(u_e)} oriented edges "
           f"({host_s:.2f} s on the host), block_bits {block_bits} (words "
           f"{words}); the block at column {c0} builds {n_build} edges and "
@@ -1427,17 +1598,13 @@ def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
     print(f"  scatter_combine add, triangle bitmap bound "
           f"{build['bound_ms']:.4f} ms")
     add["triangle_bitmap"] = build
+    del zeros
 
     bits = bits.view(nv + 1, words)
     chunk = 1 << 15
-    pc_err = 0.0
-    ragged = 3 * chunk + 1234
-    for label, a, b in ((f"{n_pairs} pairs", uf, vf),
-                        (f"ragged, {ragged} pairs", uf[:ragged], vf[:ragged]),
-                        ("no pair", uf[:0], vf[:0])):
-        pc_err = max(pc_err, exact(
-            "and_popcount", label, ap.and_popcount(bits, a, b, chunk),
-            ap.and_popcount_ref(bits, a, b, chunk)))
+    pc_err = max(exact("and_popcount", label, ap.and_popcount(*args),
+                       ap.and_popcount_ref(*args))
+                 for label, args in _popcount_cases(bits, uf, vf, chunk, rng))
     k_ms = _median3(f"and_popcount {n_pairs} pairs x {words} words, kernel",
                     "ms", [_cuda_ms(lambda: ap.and_popcount(bits, uf, vf,
                                                             chunk), reps=3)
@@ -1447,20 +1614,57 @@ def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
                         bits, uf, vf, chunk), reps=1) for _ in range(3)], smi)
     n_chunks = -(-n_pairs // chunk)
     # each input read once (the bitmap, both index lists), the chunk sums
-    # written; and an AND, a popcount and an add per word pair
+    # written; the dense design's operations (an AND, a popcount and an add
+    # per word of both rows) are printed for comparison only
     bytes_ms = _bound_ms(4 * n_bits + 8 * n_pairs + 4 * n_chunks)
-    ops_ms = 3 * n_pairs * words / OPS_PER_S * 1e3
-    # the looser bound: both rows read for every pair
+    dense_ops_ms = 3 * n_pairs * words / OPS_PER_S * 1e3
+    # the design's own floor: row u read once per run of equal u, one
+    # 32-byte sector of row v per (pair, non-zero word of u), the index
+    # lists and the sums
+    nz_words = (bits != 0).sum(1, dtype=torch.int64)
+    items = int(nz_words[uf.long()].sum())
+    # what a design that walks the sparser of the two rows would need
+    items_sparser = int(torch.minimum(nz_words[uf.long()],
+                                      nz_words[vf.long()]).sum())
+    runs = int((uf[1:] != uf[:-1]).sum()) + 1
+    floor_ms = _bound_ms(4 * words * runs + 32 * items + 8 * n_pairs
+                         + 4 * n_chunks)
+    # the dense design's reads: both rows for every pair
     rows_ms = _bound_ms(8 * n_pairs * words + 8 * n_pairs)
+    # an AND, a popcount and an add per item
+    ops_ms = 3 * items / OPS_PER_S * 1e3
     print(f"  and_popcount bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
-          f"{bytes_ms:.4f}, operations {ops_ms:.4f}); both rows read per "
-          f"pair: {rows_ms:.4f} ms; kernel at "
-          f"{8 * n_pairs * words / (k_ms * 1e-3) / 1e12:.3f} TB/s of row reads")
+          f"{bytes_ms:.4f}, operations {ops_ms:.4f}; the dense design's "
+          f"{3 * n_pairs * words} operations would take "
+          f"{dense_ops_ms:.4f}); design floor {floor_ms:.4f} ms ({runs} runs "
+          f"of equal u, {items} (pair, non-zero word of u) items; "
+          f"{items_sparser} on the sparser row of each pair); both rows read "
+          f"per pair: {rows_ms:.4f} ms")
+    del bits
+    # one triangle count's launches: every column block with pairs, its
+    # bitmap built as the count builds it
+    per_block = []
+    for n_p, cb, _ in sizes:
+        if n_p == 0:
+            continue
+        mb, eb = block(cb)
+        bb = tc._tc_build_bits(ud[mb], vd[mb] - cb, nv, words)
+        ua, va = ud[eb], vd[eb]
+        per_block.append(_cuda_ms(lambda: ap.and_popcount(bb, ua, va, chunk),
+                                  reps=3))
+        del bb
+    print(f"  and_popcount over one triangle count's {len(per_block)} "
+          f"launches: {sum(per_block):.4f} ms (per block: "
+          f"{', '.join(f'{t:.4f}' for t in per_block)}) on {smi}")
     pc = dict(max_err=pc_err, ms=k_ms, plain_ms=p_ms, library_ms=None,
               bound_ms=max(bytes_ms, ops_ms),
               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-              row_reads_bound_ms=rows_ms, pairs=n_pairs, words=words)
-    del bits, zeros
+              floor_ms=floor_ms,
+              dense_design_operations=3 * n_pairs * words,
+              row_reads_bound_ms=rows_ms, pairs=n_pairs, words=words,
+              runs=runs, items=items, items_sparser_row=items_sparser,
+              per_triangle_count_ms=sum(per_block),
+              launches_per_triangle_count=len(per_block))
     return dict(scatter_err=sc_err, add=add, popcount=pc, oriented=(u_e, v_e),
                 host_s=host_s)
 
@@ -1621,8 +1825,8 @@ def phase_slice6(kernels: dict, ec, graph, oriented, host_s: float,
             and_popcount=sum(t is not None for t in ttrace)))
     blocks = [t for t in ttrace if t is not None]
     print(f"    {tris} triangles; {len(blocks)} of {len(ttrace)} blocks, "
-          f"{sum(t[2] for t in blocks)} pairs, host filter "
-          f"{sum(t[3] for t in blocks):.4f} s, device "
+          f"{sum(t[2] for t in blocks)} pairs, presence filter on the card "
+          f"{sum(t[3] for t in blocks):.4f} s, bitmaps and AND-popcounts "
           f"{sum(t[4] for t in blocks):.4f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     if tris != TRIANGLES_RMAT18 and SCALE == 18:
@@ -1812,6 +2016,7 @@ def main() -> int:
             device_ms=route["device_ms"],
             library_device_ms=route["library_device_ms"],
             one_launch_128_slots=wk["launch"],
+            rmat20_vertex_route=wk["route"],
             **{k: v for k, v in route.items() if k.startswith("advance_")}),
         row("pull_reduce", "pull_reduce.cu", REPLACES, prr["pull"],
             rmat20_i8_any01_ms=pull20["ms"],
@@ -1828,9 +2033,10 @@ def main() -> int:
             device_ms=push["push"]["device_ms"]),
         row("lane_shuffle", "lane_shuffle.cu", REPLACES_LANE, lsr),
         row("and_popcount", "and_popcount.cu", REPLACES_POPCOUNT,
-            k6["popcount"],
-            row_reads_bound_ms=k6["popcount"]["row_reads_bound_ms"],
-            pairs=k6["popcount"]["pairs"], words=k6["popcount"]["words"])],
+            k6["popcount"], **{k: v for k, v in k6["popcount"].items()
+                               if k not in ("max_err", "ms", "plain_ms",
+                                            "library_ms", "bound_ms",
+                                            "bound_by")})],
         "rates": s6["rates"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

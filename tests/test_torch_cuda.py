@@ -33,6 +33,8 @@ from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
 from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
 from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
 from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as sc
+from vectorgraphlibrary_tpu_torch.ops.route import (FinishSpec, apply_route,
+                                                    make_route_plan)
 from vectorgraphlibrary_tpu_torch.utils.verify import verify_results
 
 pytestmark = pytest.mark.gpu
@@ -74,6 +76,27 @@ def test_kernel_equals_plain_version(cuda, dtype, wop):
         if dtype == "f32":
             got, want = got.view(torch.int32), want.view(torch.int32)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,offset", [(1001, 0), (4099, 1), (1 << 12, 3),
+                                      (1 << 12, 4)])
+def test_kernel_tail_and_offset_views_equal_plain_version(cuda, n, offset):
+    """Routes whose length is not a multiple of 4, and index, flag and
+    weight views at an offset (not 16-byte aligned): equal to the plain
+    version."""
+    rng = np.random.default_rng(n + offset)
+
+    def view(a):
+        return torch.from_numpy(a).to(cuda)[offset:]
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    idx = view(rng.integers(0, n, n + offset).astype(np.int32))
+    flags = view(rng.integers(0, 4, n + offset).astype(np.uint8))
+    w = view(rng.standard_normal(n + offset).astype(np.float32))
+    for kw in ({}, dict(flags=flags, exclude_self_loops=True, ident=-1.5),
+               dict(flags=flags, weights=w, weight_op="min", ident=2.0)):
+        got = rg.route_gather_finish(x, idx, **kw)
+        want = rg.route_gather_finish_ref(x, idx, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -641,6 +664,73 @@ def test_and_popcount_equals_plain_version(cuda, rows, words, n, chunk):
     assert ap.and_popcount.launches == before + (1 if n else 0)
     assert got.dtype == torch.int32
     assert torch.equal(got.cpu(), ap.and_popcount_ref(bits, u, v, chunk))
+
+
+def _sparse_bitmap(rng, rows, words, pairs, hub_pairs):
+    """A bitmap with a tenth of its words non-zero and four hub rows with
+    every word non-zero (row 0 all ones), and pairs sorted by u whose first
+    hub_pairs take the hub rows: long runs of one u on the dense case."""
+    bits = rng.integers(-2**31, 2**31, (rows, words), dtype=np.int64)
+    bits[rng.random((rows, words)) < 0.9] = 0
+    bits[:4] = rng.integers(1, 2**31, (4, words))
+    bits[0] = -1
+    u = rng.integers(0, rows, pairs)
+    u[:hub_pairs] = rng.integers(0, 4, hub_pairs)
+    u.sort()
+    v = rng.integers(0, rows, pairs)
+    return (torch.from_numpy(a.astype(np.int32)) for a in (bits, u, v))
+
+
+# (rows, words, pairs, chunk): the word counts of the tests' graphs (1), of
+# RMAT-14 at block_bits 256 (8), not a multiple of 4 (33: scalar row loads),
+# of the RMAT-18 triangle count (512: hub rows past one window of the list)
+# and past 65,536 (windows by span: 16-bit offsets); chunks of 1,000, 100
+# and 7 cut runs of one u, 32,768 leaves a ragged last chunk
+SPARSE_POPCOUNT_CASES = [(4097, 1, 5000, 1000), (4097, 8, 20000, 1000),
+                         (4097, 33, 5000, 7), (4097, 512, 20000, 1000),
+                         (4097, 512, 70000, 32768), (16, 70000, 3000, 100)]
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("rows,words,pairs,chunk", SPARSE_POPCOUNT_CASES)
+def test_and_popcount_sparse_rows_equal_plain_version(cuda, rows, words,
+                                                      pairs, chunk, order):
+    rng = np.random.default_rng(words + pairs)
+    bits, u, v = _sparse_bitmap(rng, rows, words, pairs, pairs // 7)
+    if order == "shuffled":
+        perm = torch.from_numpy(rng.permutation(pairs))
+        u, v = u[perm], v[perm]
+    before = ap.and_popcount.launches
+    got = ap.and_popcount(bits.to(cuda), u.to(cuda), v.to(cuda), chunk)
+    torch.cuda.synchronize()
+    assert ap.and_popcount.launches == before + 1
+    assert torch.equal(got.cpu(), ap.and_popcount_ref(bits, u, v, chunk))
+    assert torch.equal(got[:0], ap.and_popcount(bits.to(cuda), u[:0].to(cuda),
+                                                v[:0].to(cuda), chunk))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("finish", [False, True])
+def test_bool_route_view_equals_cast_path(cuda, inverse, finish):
+    """A bool vector rides a route as its bytes: equal to a cast to int8
+    before the route (and back to bool after it without a finish)."""
+    rng = np.random.default_rng(5)
+    n = 1 << 12
+    flags = rng.integers(0, 4, (2, n)).astype(np.uint8)
+    plan = make_route_plan(rng.permutation(n), flags_fwd=flags[0],
+                           flags_inv=flags[1], device=cuda)
+    x = torch.from_numpy(rng.random(n) < 0.3).to(cuda)
+    fin = FinishSpec(ident=0, exclude_self_loops=True) if finish else None
+    got = apply_route(plan, x, inverse=inverse, finish=fin)
+    idx = plan.inv_idx if inverse else plan.fwd_idx
+    if finish:
+        want = rg.route_gather_finish(
+            x.to(torch.int8), idx,
+            flags=plan.flags_inv if inverse else plan.flags_fwd,
+            exclude_self_loops=True, ident=0)
+    else:
+        want = rg.route_gather_finish(x.to(torch.int8), idx).to(torch.bool)
+    assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def test_and_popcount_rejects_what_it_does_not_take(cuda):

@@ -101,3 +101,30 @@ def test_wrapper_argument_checks():
     with pytest.raises(ValueError):
         rg.route_gather_finish(x, idx, weights=x)
     assert torch.equal(rg.route_gather_finish(x, idx), x.flip(0))
+
+
+@pytest.mark.parametrize("finish", [False, True], ids=["plain", "finish"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_bool_route_equals_cast_path(inverse, finish):
+    """apply_route moves a bool vector as its bytes (a view): the result is
+    what the cast path gave (to int8 before the route, back to bool after it
+    without a finish; int8 with one)."""
+    rng = np.random.default_rng(9)
+    n = 1 << 10
+    flags = rng.integers(0, 4, (2, n)).astype(np.uint8)
+    plan = make_route_plan(rng.permutation(n), flags_fwd=flags[0],
+                           flags_inv=flags[1], device="cpu")
+    x = torch.from_numpy(rng.random(n) < 0.3)
+    x0 = x.clone()
+    fin = FinishSpec(ident=0, exclude_self_loops=True) if finish else None
+    got = apply_route(plan, x, inverse=inverse, finish=fin)
+    idx = plan.inv_idx if inverse else plan.fwd_idx
+    if finish:
+        want = rg.route_gather_finish(
+            x.to(torch.int8), idx,
+            flags=plan.flags_inv if inverse else plan.flags_fwd,
+            exclude_self_loops=True, ident=0)
+    else:
+        want = rg.route_gather_finish(x.to(torch.int8), idx).to(torch.bool)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(x, x0)           # a view of the input, not changed

@@ -5,7 +5,9 @@ graph and a cycle (no cross-component edge); triangle counts against the
 JAX package's and both oracles with block_bits=256 (several blocks) and the
 default; the bitmap build against the JAX package's; Monoid.scatter_at("add")
 against JAX's .at[].add; the AND-popcount kernel's plain version against
-numpy's bit count; and the app's CLI contract (-purdoms, -bfs-based)."""
+numpy's bit count, also on runs of one u across chunks and shuffled pairs;
+the count's trace against the presence filter in numpy; and the app's CLI
+contract (-purdoms, -bfs-based)."""
 import os
 import subprocess
 import sys
@@ -204,6 +206,70 @@ def test_and_popcount_ref_matches_numpy(rows, words, n, chunk):
     assert got.tolist() == want
     np.testing.assert_array_equal(
         ap.popcount32(torch.from_numpy(bits)).numpy(), np.bitwise_count(b))
+
+
+# (words, pairs, chunk): pairs sorted by u in runs that chunks of 100 and 7
+# cut, hub rows with every word non-zero, words of 1, 8 and 512
+RUNS = [(1, 3000, 100), (8, 3000, 7), (512, 2000, 100)]
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("words,n,chunk", RUNS)
+def test_and_popcount_ref_matches_numpy_on_runs(words, n, chunk, order):
+    """The kernel's cases on the card: runs of one u across chunk
+    boundaries, hub rows, and the same pairs shuffled."""
+    rng = np.random.default_rng(words + n)
+    rows = 257
+    bits = rng.integers(-2**31, 2**31, (rows, words), dtype=np.int64)
+    bits[rng.random((rows, words)) < 0.9] = 0
+    bits[:4] = rng.integers(1, 2**31, (4, words))
+    bits = bits.astype(np.int32)
+    bits[0] = -1
+    u = rng.integers(0, rows, n)
+    u[:n // 5] = rng.integers(0, 4, n // 5)
+    u = np.sort(u).astype(np.int32)
+    v = rng.integers(0, rows, n).astype(np.int32)
+    if order == "shuffled":
+        perm = rng.permutation(n)
+        u, v = u[perm], v[perm]
+    else:       # some run of one u straddles a chunk boundary
+        assert (u[chunk - 1:-1:chunk] == u[chunk::chunk]).any()
+    got = ap.and_popcount(torch.from_numpy(bits), torch.from_numpy(u),
+                          torch.from_numpy(v), chunk)
+    b = bits.view(np.uint32)
+    want = [int(np.bitwise_count(b[u[c:c + chunk]] & b[v[c:c + chunk]]).sum())
+            for c in range(0, n, chunk)]
+    assert got.tolist() == want
+
+
+def _numpy_filter(u_e, v_e, v, c0, block_bits):
+    """The presence filter as numpy on the host, as the triangle count ran
+    it before it moved to the device: (edges built, edges counted)."""
+    m = (v_e >= c0) & (v_e < c0 + block_bits)
+    pres = np.zeros(v + 1, bool)
+    pres[u_e[m]] = True
+    em = pres[u_e] & pres[v_e]
+    return int(m.sum()), int(em.sum())
+
+
+@pytest.mark.parametrize("graph,block_bits", [("tiny", 64),
+                                              ("small_rmat", 256),
+                                              ("selfloops", 256)])
+def test_triangle_count_trace_matches_host_filter(graphs, graph, block_bits):
+    ec, _, _ = graphs(graph)
+    trace = []
+    ttc.vgl_triangle_count(ec, block_bits=block_bits, device="cpu",
+                           trace=trace)
+    u_e, v_e = ttc._oriented_simple_edges(ec)
+    v = ec.vertices_count
+    assert len(trace) == -(-v // block_bits)
+    for c0, t in zip(range(0, v, block_bits), trace):
+        built, counted = _numpy_filter(u_e, v_e, v, c0, block_bits)
+        if t is None:
+            assert counted == 0
+            continue
+        assert len(t) == 5 and t[:3] == (c0, built, counted)
+        assert t[3] >= 0 and t[4] >= 0
 
 
 def test_and_popcount_rejects_what_it_does_not_take():

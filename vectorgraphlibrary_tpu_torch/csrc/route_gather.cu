@@ -150,4 +150,19 @@ int vgl_route_gather_i8(const void* x, const void* idx, const void* flags,
                         (int8_t)ident, stream);
 }
 
+// The route without a finish moves values as their bits: one entry for
+// 4-byte values (f32, i32) and one for 1-byte values (int8, uint8, bool),
+// with the fewest arguments (the vertex routes' launches).
+int vgl_route_gather_b4(const void* x, const void* idx, void* out,
+                        long long n, void* stream) {
+  return launch<int32_t>(x, idx, nullptr, nullptr, out, n, 0, W_NONE, 0,
+                         stream);
+}
+
+int vgl_route_gather_b1(const void* x, const void* idx, void* out,
+                        long long n, void* stream) {
+  return launch<int8_t>(x, idx, nullptr, nullptr, out, n, 0, W_NONE, 0,
+                        stream);
+}
+
 }  // extern "C"

@@ -13,9 +13,11 @@ each degree-oriented edge (u, v) adds |N+(u) ∩ N+(v)|, computed by column
 block: per block the out-neighbourhoods become an int32 [v + 1, words]
 bitmap, built by one int32 add scatter (one scatter_combine launch on the
 card), and the edges whose two rows both touch the block (the presence
-filter, numpy on the host) are intersected by the AND-popcount kernel,
-which returns one int32 sum per chunk of edges. Chunk sums are added as
-Python ints, so the total never wraps.
+filter, torch ops on the same device) are intersected by the AND-popcount
+kernel, which returns one int32 sum per chunk of edges. Chunk sums are
+added as Python ints, so the total never wraps. The oriented edges go to
+the device once, and the filter keeps their order (sorted by u, then v,
+which the kernel's runs of equal u rely on for speed).
 """
 from __future__ import annotations
 
@@ -141,8 +143,10 @@ def vgl_triangle_count(ec: EdgesContainer, block_bits: Optional[int] = None,
     0.5 GB), the presence-filtered edges' chunk sums. _oriented: a
     precomputed _oriented_simple_edges(ec), so that a benchmark times the
     host pass apart. `trace`, a list, receives per block (first column,
-    edges built, edges counted, host seconds, device seconds) and None for
-    a skipped block."""
+    edges built, edges counted, filter seconds, count seconds) and None for
+    a skipped block: the filter (on `device`, ending in the reads of its
+    sizes) and the bitmap build with the AND-popcount (ending in the read of
+    its chunk sums), each on the host's clock."""
     v = ec.vertices_count
     u_e, v_e = (_oriented if _oriented is not None
                 else _oriented_simple_edges(ec))
@@ -159,35 +163,36 @@ def vgl_triangle_count(ec: EdgesContainer, block_bits: Optional[int] = None,
         raise ValueError(f"triangle count: chunks of {edge_chunk} edges may "
                          f"sum past int32; lower edge_chunk")
     device = torch.device(device)
-
-    def up(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    # one upload of the oriented edges; the per-block filter runs on device
+    ud, vd = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+              for a in (u_e, v_e))
+    pres = torch.zeros(v + 1, dtype=torch.bool, device=device)
 
     total = 0
     for c0 in range(0, v, block_bits):
         t0 = time.perf_counter()
-        m = (v_e >= c0) & (v_e < c0 + block_bits)
-        if not m.any():
+        m = torch.nonzero((vd >= c0) & (vd < c0 + block_bits)).flatten()
+        if m.shape[0] == 0:
             if trace is not None:
                 trace.append(None)
             continue
+        ub, vb = ud[m], vd[m] - c0
         # presence filter: popcount(bits[u] & bits[v]) is 0 unless both rows
         # have a neighbour inside the block
-        pres = np.zeros(v + 1, bool)
-        pres[u_e[m]] = True
-        em = pres[u_e] & pres[v_e]
-        if not em.any():
+        pres.zero_()
+        pres[ub] = True
+        em = torch.nonzero(pres[ud] & pres[vd]).flatten()
+        if em.shape[0] == 0:
             if trace is not None:
                 trace.append(None)
             continue
-        ub, vb = up(u_e[m]), up(v_e[m] - c0)
-        uf, vf = up(u_e[em]), up(v_e[em])
+        uf, vf = ud[em], vd[em]
         t1 = time.perf_counter()
         bits = _tc_build_bits(ub, vb, v, words)
         chunk_sums = _tc_block_count(bits, uf, vf, edge_chunk).tolist()
         total += sum(chunk_sums)            # host ints: no 2^31 wrap
         if trace is not None:
-            trace.append((c0, int(m.sum()), int(em.sum()), t1 - t0,
+            trace.append((c0, ub.shape[0], uf.shape[0], t1 - t0,
                           time.perf_counter() - t1))
     return total
 

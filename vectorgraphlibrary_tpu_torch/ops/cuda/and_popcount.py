@@ -26,6 +26,10 @@ import torch
 from . import build
 
 _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
+_P = ctypes.c_void_p
+# bits, words, u, v, n, chunk, out
+_LAUNCH = build.Launcher("vgl_and_popcount", _P, ctypes.c_int, _P, _P,
+                         ctypes.c_longlong, ctypes.c_int, _P)
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -86,12 +90,13 @@ def and_popcount(bits: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             raise TypeError(f"and_popcount: {name} must be a 1-D int32 "
                             f"tensor shaped like u")
     _check_chunk(chunk)
-    if bits.device.type == "cpu":
-        return and_popcount_ref(bits, u, v, chunk)
-    if bits.device.type != "cuda":
+    if not bits.is_cuda:
+        if bits.device.type == "cpu":
+            return and_popcount_ref(bits, u, v, chunk)
         raise ValueError(f"and_popcount: no kernel for {bits.device}")
+    dev = bits.get_device()
     for name, t in (("bits", bits), ("u", u), ("v", v)):
-        if t.device != bits.device or not t.is_contiguous():
+        if t.get_device() != dev or not t.is_contiguous():
             raise ValueError(f"and_popcount: {name} must be contiguous on "
                              f"{bits.device}")
     n = u.shape[0]
@@ -99,16 +104,8 @@ def and_popcount(bits: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     out = torch.empty(n_chunks, dtype=torch.int32, device=bits.device)
     if n_chunks == 0:
         return out
-    fn = build.entry("vgl_and_popcount", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(bits.device).cuda_stream
-    with build.on_device(bits.device):
-        rc = fn(bits.data_ptr(), bits.shape[1], u.data_ptr(), v.data_ptr(), n,
-                chunk, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"and_popcount kernel launch failed: CUDA error "
-                           f"{rc}")
+    _LAUNCH(dev, bits.data_ptr(), bits.shape[1], u.data_ptr(), v.data_ptr(),
+            n, chunk, out.data_ptr())
     and_popcount.launches += 1
     return out
 

@@ -1,16 +1,33 @@
-"""Build and load the port's CUDA kernels (every csrc/*.cu in one library).
+"""Build, load and launch the port's CUDA kernels (every csrc/*.cu in one
+library).
 
 nvcc compiles every source for sm_90a, one process per source, all started
 together, and links them into one shared library with a plain C interface,
 at first use, into the gitignored .cache/torch_kernels/, keyed by a hash of
-the sources and the flags; ctypes loads it. Each wrapper module asks
-for its entry points through `entry`, which declares their argument types.
-`compile_shared` is the build step itself; the host router (native.py) uses
-it with the host compiler. `on_device` is the device context of a launch.
+the sources and the flags; ctypes loads it. `compile_shared` is the build
+step itself; the host router (native.py) uses it with the host compiler.
+
+Every wrapper launches through one helper, `Launcher`: one object per C
+entry, made when its module is imported, which resolves the entry at its
+first launch with its argument types declared once, and on every launch
+appends the current stream's raw handle, calls the entry and raises on the
+CUDA error code it returns. The launch path is host time that a wrapper
+pays on top of the kernel (a vertex route's kernel takes a few microseconds
+on the card), so each step of it is the cheapest that measured well on the
+H100's host (chip_smoke.py phase 9 prints the breakdown):
+
+- the raw stream by torch._C._cuda_getCurrentRawStream(device), the call
+  torch's own generated code makes (torch._dynamo.device_interface,
+  torch._inductor), in place of torch.cuda.current_stream(device)
+  .cuda_stream, which builds a Stream object per call;
+- no device context when the process sees one card (every CUDA tensor is
+  then on the current device), else torch.cuda.device(index) only when the
+  tensor is not on the current device;
+- the caller passes the tensor's device index (Tensor.get_device(), an int)
+  rather than a torch.device object.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,7 +50,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_entries: dict = {}
 build_log = ""          # nvcc's output (ptxas register/spill report) of the build
 build_seconds = 0.0
 
@@ -109,21 +125,39 @@ def load_library() -> ctypes.CDLL:
         return _lib
 
 
-def entry(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The library's C function `name`, returning int (a CUDA error code),
-    with its argument types declared (pointers and the stream as c_void_p)."""
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(load_library(), name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
+_one_card: Optional[bool] = None     # the process sees exactly one card
 
 
-def on_device(device: torch.device):
-    """The context to launch on `device` in: none when it is already the
-    current device (the usual case), else torch.cuda.device(device)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
+class Launcher:
+    """One C entry of the kernel library: `launcher(device_index, *args)`
+    calls it with args and the current stream of that device appended, and
+    raises RuntimeError if it returns a CUDA error (a launch the card
+    refused). `argtypes` are the ctypes types of the entry's arguments
+    before the stream (pointers as c_void_p); the entry returns int."""
+
+    __slots__ = ("name", "argtypes", "fn")
+
+    def __init__(self, name: str, *argtypes):
+        self.name = name
+        self.argtypes = (*argtypes, ctypes.c_void_p)
+        self.fn = None
+
+    def __call__(self, device_index: int, *args) -> None:
+        global _one_card
+        fn = self.fn
+        if fn is None:
+            fn = getattr(load_library(), self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self.fn = fn
+            if _one_card is None:
+                _one_card = torch.cuda.device_count() == 1
+        stream = torch._C._cuda_getCurrentRawStream(device_index)
+        if _one_card or device_index == torch.cuda.current_device():
+            rc = fn(*args, stream)
+        else:
+            with torch.cuda.device(device_index):
+                rc = fn(*args, stream)
+        if rc:
+            raise RuntimeError(f"{self.name}: kernel launch failed, CUDA "
+                               f"error {rc}")

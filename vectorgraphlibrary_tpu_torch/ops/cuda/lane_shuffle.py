@@ -22,6 +22,9 @@ import torch
 from . import build
 
 _ELEM_BYTES = {torch.float32: 4, torch.int32: 4, torch.int8: 1}
+# x, idx, out, rows, bytes per element
+_LAUNCH = build.Launcher("vgl_lane_shuffle", ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int)
 # 1-byte types the kernel moves as int8 bits
 _AS_INT8 = (torch.uint8, torch.bool)
 
@@ -47,27 +50,21 @@ def lane_shuffle(x2d: torch.Tensor, idx2d: torch.Tensor) -> torch.Tensor:
                         f"{tuple(idx2d.shape)}")
     if x2d.dtype not in _ELEM_BYTES and x2d.dtype not in _AS_INT8:
         raise TypeError(f"lane_shuffle: unsupported dtype {x2d.dtype}")
-    if x2d.device.type == "cpu":
-        return lane_shuffle_ref(x2d, idx2d)
-    if x2d.device.type != "cuda":
+    if not x2d.is_cuda:
+        if x2d.device.type == "cpu":
+            return lane_shuffle_ref(x2d, idx2d)
         raise ValueError(f"lane_shuffle: no kernel for {x2d.device}")
     if x2d.dtype in _AS_INT8:
         return lane_shuffle(x2d.view(torch.int8), idx2d).view(x2d.dtype)
+    dev = x2d.get_device()
     for name, t in (("x", x2d), ("idx", idx2d)):
-        if t.device != x2d.device or not t.is_contiguous() \
+        if t.get_device() != dev or not t.is_contiguous() \
                 or t.data_ptr() % 16:
             raise ValueError(f"lane_shuffle: {name} must be contiguous and "
                              f"16-byte aligned on {x2d.device}")
-    fn = build.entry("vgl_lane_shuffle", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(x2d)
-    stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    with build.on_device(x2d.device):
-        rc = fn(x2d.data_ptr(), idx2d.data_ptr(), out.data_ptr(),
-                x2d.shape[0], _ELEM_BYTES[x2d.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"lane_shuffle kernel launch failed: CUDA error {rc}")
+    _LAUNCH(dev, x2d.data_ptr(), idx2d.data_ptr(), out.data_ptr(),
+            x2d.shape[0], _ELEM_BYTES[x2d.dtype])
     lane_shuffle.launches += 1
     return out
 

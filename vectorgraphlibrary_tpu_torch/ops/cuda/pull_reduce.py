@@ -44,9 +44,15 @@ _OPS = {"add": 0, "min": 1, "max": 2, "or": 3, "any01": 2}
 _WOPS = {None: 0, "add": 1, "min": 2, "max": 3, "mul": 4}
 _JOIN = {"add": torch.add, "min": torch.minimum, "max": torch.maximum,
          "mul": torch.mul}
-_ENTRY = {torch.float32: ("vgl_pull_reduce_f32", ctypes.c_float),
-          torch.int32: ("vgl_pull_reduce_i32", ctypes.c_int),
-          torch.int8: ("vgl_pull_reduce_i8", ctypes.c_int)}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# row_ptr, col_idx, x, weights, weight op, out, row ends, threads per row,
+# groups, exclude_self_loops, op, ident
+_LAUNCH = {dtype: build.Launcher(name, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                                 _I, ident_t)
+           for dtype, name, ident_t in (
+               (torch.float32, "vgl_pull_reduce_f32", ctypes.c_float),
+               (torch.int32, "vgl_pull_reduce_i32", _I),
+               (torch.int8, "vgl_pull_reduce_i8", _I))}
 
 
 def _check_weights(weights, weight_op) -> None:
@@ -110,18 +116,20 @@ def pull_reduce(row_ptr: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
     if op not in _OPS:
         raise ValueError(f"unknown pull_reduce op {op!r}")
     _check_weights(weights, weight_op)
-    if x.device.type == "cpu":
-        return pull_reduce_ref(row_ptr, col_idx, x, op, exclude_self_loops,
-                               weights, weight_op)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return pull_reduce_ref(row_ptr, col_idx, x, op, exclude_self_loops,
+                                   weights, weight_op)
         raise ValueError(f"pull_reduce: no kernel for {x.device}")
-    if x.dtype not in _ENTRY or x.dim() != 1 or not x.is_contiguous():
+    launch = _LAUNCH.get(x.dtype)
+    if launch is None or x.dim() != 1 or not x.is_contiguous():
         raise TypeError(f"pull_reduce: x must be a contiguous 1-D f32, i32 or "
                         f"int8 tensor, got {x.dtype} of shape {tuple(x.shape)}")
     if op == "or" and x.dtype.is_floating_point:
         raise TypeError("pull_reduce: or needs an integer type")
+    dev = x.get_device()
     for name, t in (("row_ptr", row_ptr), ("col_idx", col_idx)):
-        if t.dtype != torch.int32 or t.dim() != 1 or t.device != x.device \
+        if t.dtype != torch.int32 or t.dim() != 1 or t.get_device() != dev \
                 or not t.is_contiguous():
             raise ValueError(f"pull_reduce: {name} must be a contiguous 1-D "
                              f"int32 tensor on {x.device}")
@@ -129,29 +137,21 @@ def pull_reduce(row_ptr: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
         if x.dtype == torch.int8:
             raise TypeError("pull_reduce: no edge weights with int8 values")
         if weights.dtype != x.dtype or weights.shape != col_idx.shape \
-                or weights.device != x.device or not weights.is_contiguous():
+                or weights.get_device() != dev or not weights.is_contiguous():
             raise ValueError(f"pull_reduce: weights must be a contiguous "
                              f"{x.dtype} tensor of shape "
                              f"{tuple(col_idx.shape)} on {x.device}")
     n = row_ptr.shape[0] - 1
     groups = tuple(groups) if groups is not None else ((n, 32),)
     _check_groups(groups, n)
-    fn_name, ident_t = _ENTRY[x.dtype]
-    fn = build.entry(fn_name, [ctypes.c_void_p] * 4 + [ctypes.c_int] + [
-        ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                ident_t, ctypes.c_void_p])
     ident = M.get(op).identity(x.dtype).item()
     row_end = (ctypes.c_int * len(groups))(*(r for r, _ in groups))
     group = (ctypes.c_int * len(groups))(*(g for _, g in groups))
     out = torch.empty(n, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with build.on_device(x.device):
-        rc = fn(row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
-                None if weights is None else weights.data_ptr(),
-                _WOPS[weight_op], out.data_ptr(), row_end, group, len(groups),
-                int(bool(exclude_self_loops)), _OPS[op], ident, stream)
-    if rc != 0:
-        raise RuntimeError(f"pull_reduce kernel launch failed: CUDA error {rc}")
+    launch(dev, row_ptr.data_ptr(), col_idx.data_ptr(), x.data_ptr(),
+           None if weights is None else weights.data_ptr(), _WOPS[weight_op],
+           out.data_ptr(), row_end, group, len(groups),
+           int(bool(exclude_self_loops)), _OPS[op], ident)
     pull_reduce.launches += 1
     return out
 

@@ -28,6 +28,10 @@ from . import build
 from .scatter_combine import scatter_combine_ref
 
 _OPS = {"min": 0, "max": 1, "or": 2}
+_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+# out, n_out, row_ptr, rows, col_idx, ids, ends, cap, edge capacity, msg, op
+_LAUNCH = build.Launcher("vgl_push_expand_i32", _P, _LL, _P, _LL, _P, _P, _P,
+                         _LL, _LL, ctypes.c_int, ctypes.c_int)
 
 
 def _frontier_degrees(degrees: torch.Tensor, ids: torch.Tensor,
@@ -68,20 +72,21 @@ def push_expand(out: torch.Tensor, row_ptr: torch.Tensor,
     msg = int(msg)
     if not -2**31 <= msg < 2**31:
         raise ValueError(f"push_expand: message {msg} is not int32")
-    if out.device.type == "cpu":
-        return push_expand_ref(out, row_ptr, col_idx, degrees, ids, valid,
-                               edge_capacity, msg, op)
-    if out.device.type != "cuda":
+    if not out.is_cuda:
+        if out.device.type == "cpu":
+            return push_expand_ref(out, row_ptr, col_idx, degrees, ids, valid,
+                                   edge_capacity, msg, op)
         raise ValueError(f"push_expand: no kernel for {out.device}")
     if out.dtype != torch.int32 or out.dim() != 1 or out.shape[0] >= 2**31:
         raise TypeError(f"push_expand: out must be a 1-D int32 tensor, got "
                         f"{out.dtype} of shape {tuple(out.shape)}")
+    dev = out.get_device()
     for name, t, dtype in (("row_ptr", row_ptr, torch.int32),
                            ("col_idx", col_idx, torch.int32),
                            ("degrees", degrees, torch.int32),
                            ("ids", ids, torch.int32),
                            ("valid", valid, torch.bool)):
-        if t.dtype != dtype or t.dim() != 1 or t.device != out.device \
+        if t.dtype != dtype or t.dim() != 1 or t.get_device() != dev \
                 or not t.is_contiguous():
             raise ValueError(f"push_expand: {name} must be a contiguous 1-D "
                              f"{dtype} tensor on {out.device}")
@@ -93,18 +98,9 @@ def push_expand(out: torch.Tensor, row_ptr: torch.Tensor,
         return res
     ends = torch.cumsum(_frontier_degrees(degrees, ids, valid), 0,
                         dtype=torch.int32)
-    fn = build.entry("vgl_push_expand_i32", [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    with build.on_device(out.device):
-        rc = fn(res.data_ptr(), res.shape[0], row_ptr.data_ptr(),
-                row_ptr.shape[0] - 1, col_idx.data_ptr(), ids.data_ptr(),
-                ends.data_ptr(), cap, int(edge_capacity), msg, _OPS[op],
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"push_expand kernel launch failed: CUDA error {rc}")
+    _LAUNCH(dev, res.data_ptr(), res.shape[0], row_ptr.data_ptr(),
+            row_ptr.shape[0] - 1, col_idx.data_ptr(), ids.data_ptr(),
+            ends.data_ptr(), cap, int(edge_capacity), msg, _OPS[op])
     push_expand.launches += 1
     return res
 

@@ -24,9 +24,20 @@ import torch
 from . import build
 
 _WOPS = {None: 0, "add": 1, "min": 2, "max": 3, "mul": 4}
-_ENTRY = {torch.float32: ("vgl_route_gather_f32", ctypes.c_float),
-          torch.int32: ("vgl_route_gather_i32", ctypes.c_int),
-          torch.int8: ("vgl_route_gather_i8", ctypes.c_int)}
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# x, idx, flags, weights, out, n, exclude_self_loops, weight op, ident
+_FINISH = {dtype: (build.Launcher(name, _P, _P, _P, _P, _P, _LL, _I, _I,
+                                  ident_t), cast)
+           for dtype, name, ident_t, cast in (
+               (torch.float32, "vgl_route_gather_f32", ctypes.c_float, float),
+               (torch.int32, "vgl_route_gather_i32", _I, int),
+               (torch.int8, "vgl_route_gather_i8", _I, int))}
+# without flags and weights (the vertex routes) the kernel moves bits,
+# through an entry of 4 arguments: x, idx, out, n (ctypes converts each
+# argument on every launch)
+_B4 = build.Launcher("vgl_route_gather_b4", _P, _P, _P, _LL)
+_PLAIN = {torch.float32: _B4, torch.int32: _B4,
+          torch.int8: build.Launcher("vgl_route_gather_b1", _P, _P, _P, _LL)}
 
 
 def route_gather_finish_ref(x: torch.Tensor, idx: torch.Tensor,
@@ -65,43 +76,42 @@ def route_gather_finish(x: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"unknown weight_op {weight_op!r}")
     if (weights is None) != (weight_op is None):
         raise ValueError("weights must be given exactly when weight_op is")
-    if x.device.type == "cpu":
-        return route_gather_finish_ref(x, idx, flags, weights, weight_op,
-                                       exclude_self_loops, ident)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return route_gather_finish_ref(x, idx, flags, weights, weight_op,
+                                           exclude_self_loops, ident)
         raise ValueError(f"route_gather_finish: no kernel for {x.device}")
-    if x.dtype not in _ENTRY:
+    finish = _FINISH.get(x.dtype)
+    if finish is None:
         raise TypeError(f"route_gather_finish: unsupported dtype {x.dtype}")
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise TypeError("idx must be a 1-D int32 tensor")
-    n = idx.shape[0]
-    for name, t, dtype in (("x", x, x.dtype), ("idx", idx, torch.int32),
-                           ("flags", flags, torch.uint8),
-                           ("weights", weights, x.dtype)):
-        if t is None:
-            continue
-        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
-                             f"{x.device}, got {t.dtype} on {t.device}")
-        if name in ("flags", "weights") and t.shape != (n,):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != ({n},)")
     if x.dim() != 1:
         raise ValueError("x must be 1-D")
-    fn_name, ident_t = _ENTRY[x.dtype]
-    fn = build.entry(fn_name, [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ident_t,
-        ctypes.c_void_p])
-    out = torch.empty(n, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ident_c = float(ident) if x.dtype == torch.float32 else int(ident)
-    with build.on_device(x.device):
-        rc = fn(x.data_ptr(), idx.data_ptr(),
-                None if flags is None else flags.data_ptr(),
-                None if weights is None else weights.data_ptr(),
-                out.data_ptr(), n, int(bool(exclude_self_loops)),
-                _WOPS[weight_op], ident_c, stream)
-    if rc != 0:
-        raise RuntimeError(f"route_gather kernel launch failed: CUDA error {rc}")
+    dev = x.get_device()
+    n = idx.shape[0]
+    if idx.get_device() != dev or not (x.is_contiguous()
+                                       and idx.is_contiguous()):
+        raise ValueError(f"x and idx must be contiguous on {x.device}")
+    out = x.new_empty(n)
+    if flags is None and weights is None:
+        _PLAIN[x.dtype](dev, x.data_ptr(), idx.data_ptr(), out.data_ptr(), n)
+    else:
+        for name, t, dtype in (("flags", flags, torch.uint8),
+                               ("weights", weights, x.dtype)):
+            if t is not None and (t.get_device() != dev or t.dtype != dtype
+                                  or t.shape != (n,)
+                                  or not t.is_contiguous()):
+                raise ValueError(f"{name}: need a contiguous {dtype} tensor "
+                                 f"of shape ({n},) on {x.device}, got "
+                                 f"{t.dtype} of shape {tuple(t.shape)} on "
+                                 f"{t.device}")
+        launch, cast = finish
+        launch(dev, x.data_ptr(), idx.data_ptr(),
+               None if flags is None else flags.data_ptr(),
+               None if weights is None else weights.data_ptr(),
+               out.data_ptr(), n, exclude_self_loops, _WOPS[weight_op],
+               cast(ident))
     route_gather_finish.launches += 1
     return out
 

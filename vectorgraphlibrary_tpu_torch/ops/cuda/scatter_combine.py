@@ -28,9 +28,13 @@ import torch
 from . import build
 
 _OPS = {"min": 0, "max": 1, "or": 2, "add": 3}
-_fns: dict = {}     # the library's entries, looked up at the first launch
-_ENTRY = {torch.int32: ("vgl_scatter_combine_i32", ctypes.c_int),
-          torch.float32: ("vgl_scatter_combine_f32", ctypes.c_float)}
+_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+# out, n_out, idx, msg, msg constant, n, op
+_LAUNCH = {dtype: build.Launcher(name, _P, _LL, _P, _P, msg_t, _LL,
+                                 ctypes.c_int)
+           for dtype, name, msg_t in (
+               (torch.int32, "vgl_scatter_combine_i32", ctypes.c_int),
+               (torch.float32, "vgl_scatter_combine_f32", ctypes.c_float))}
 _REDUCE = {"add": "sum", "min": "amin", "max": "amax"}
 
 
@@ -86,11 +90,12 @@ def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
     `out` is not changed."""
     if op not in _OPS:
         raise ValueError(f"unknown scatter_combine op {op!r}")
-    if out.device.type == "cpu":
-        return scatter_combine_ref(out, idx, msg, op)
-    if out.device.type != "cuda":
+    if not out.is_cuda:
+        if out.device.type == "cpu":
+            return scatter_combine_ref(out, idx, msg, op)
         raise ValueError(f"scatter_combine: no kernel for {out.device}")
-    if out.dtype not in _ENTRY or out.dim() != 1:
+    launch = _LAUNCH.get(out.dtype)
+    if launch is None or out.dim() != 1:
         raise TypeError(f"scatter_combine: out must be a 1-D int32 or f32 "
                         f"tensor, got {out.dtype} of shape {tuple(out.shape)}")
     is_f32 = out.dtype == torch.float32
@@ -98,7 +103,8 @@ def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
         raise TypeError(f"scatter_combine: {op} needs int32")
     if idx.dtype != torch.int32 or idx.dim() != 1:
         raise TypeError("scatter_combine: idx must be a 1-D int32 tensor")
-    if idx.device != out.device or not idx.is_contiguous():
+    dev = out.get_device()
+    if idx.get_device() != dev or not idx.is_contiguous():
         raise ValueError(f"scatter_combine: idx must be contiguous on "
                          f"{out.device}, got {idx.device}")
     if out.shape[0] >= 2**31:
@@ -106,7 +112,7 @@ def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
     msg_const = 0
     if isinstance(msg, torch.Tensor):
         if msg.dtype != out.dtype or msg.shape != idx.shape \
-                or msg.device != out.device or not msg.is_contiguous():
+                or msg.get_device() != dev or not msg.is_contiguous():
             raise ValueError(f"scatter_combine: msg must be a contiguous "
                              f"{out.dtype} tensor of shape "
                              f"{tuple(idx.shape)} on {out.device}")
@@ -116,21 +122,9 @@ def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
         if not is_f32 and not -2**31 <= msg_const < 2**31:
             raise ValueError(f"scatter_combine: message {msg} is not int32")
         msg_ptr = None
-    fn = _fns.get(out.dtype)
-    if fn is None:
-        name, msg_t = _ENTRY[out.dtype]
-        fn = _fns[out.dtype] = build.entry(name, [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, msg_t, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p])
     res = out.contiguous().clone()
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    with build.on_device(out.device):
-        rc = fn(res.data_ptr(), res.shape[0], idx.data_ptr(), msg_ptr,
-                msg_const, idx.shape[0], _OPS[op], stream)
-    if rc != 0:
-        raise RuntimeError(f"scatter_combine kernel launch failed: CUDA "
-                           f"error {rc}")
+    launch(dev, res.data_ptr(), res.shape[0], idx.data_ptr(), msg_ptr,
+           msg_const, idx.shape[0], _OPS[op])
     scatter_combine.launches += 1
     return res
 

@@ -89,7 +89,9 @@ def apply_route(plan: RoutePlan, x: torch.Tensor, inverse: bool = False,
         assert (weights is not None) == (finish.weight_op is not None)
     is_bool = x.dtype == torch.bool
     if is_bool:
-        x = x.to(torch.int8)        # the kernel moves bools as 1-byte values
+        # the kernel moves bools as their bytes (0 or 1 in PyTorch): a view,
+        # no cast and no copy
+        x = x.view(torch.int8)
     out = route_gather_finish(
         x, plan.inv_idx if inverse else plan.fwd_idx, flags=flags,
         weights=weights,
@@ -97,7 +99,7 @@ def apply_route(plan: RoutePlan, x: torch.Tensor, inverse: bool = False,
         exclude_self_loops=finish is not None and finish.exclude_self_loops,
         ident=0 if finish is None else finish.ident)
     if is_bool and finish is None:
-        out = out.to(torch.bool)
+        out = out.view(torch.bool)
     return out
 
 
