@@ -65,9 +65,11 @@ result line):
    entries), timed at the largest push capacity a partial SSSP run takes,
    beside scatter_reduce; what one launch costs on the host (the smallest
    route_gather_finish call by events and by torch.profiler, beside
-   index_select, the earlier wrapper path and each step alone); and
-   the RMAT-20 vertex route by events and on the device, beside
-   index_select and its bound;
+   index_select, the earlier wrapper path and each step alone); the
+   RMAT-20 vertex route by events and on the device, beside
+   index_select and its bound; and scatter_combine's int32 min of 2^16
+   messages into 2^20 (K4's row) again, beside scatter_reduce and
+   index_add in turns, by events and on the device;
 10. slice: the fixpoint family on the weighted RMAT-20 graph, sources as
    bench.py picks them: vgl_dijkstra_all_active and
    vgl_dijkstra_partial_device on 2 sources (equal bit for bit, error count
@@ -102,14 +104,38 @@ result line):
    and_popcount per block not skipped, no pull_reduce), plus RMAT-14 with
    block_bits 256 against seq_triangle_count; MTEPS by bench.py's formulas
    (coloring |E| / (core s + device s), triangles |E| / (host s + device
-   s), SCC and LP |E| / t), medians of 3.
+   s), SCC and LP |E| / t), medians of 3;
+13. slice: GraphSAGE at the widths of OGB's ogbn-products GraphSAGE
+   baseline (100 input features, hidden 256, 47 classes) on the RMAT-20
+   graph of phase 5 (features and labels from seeds): pull_rows against its
+   plain version (run in f64; rtol 1e-5, atol 1e-6) over the GATHER CSR at F
+   = 100 and 256 and over the transposed CSR (the backward's) at 256, two
+   runs bit-identical, integer-valued rows bit for bit, with kernel, plain,
+   torch.sparse.mm times, bound and the design's floor; aggregate_mean
+   against seq_aggregate_mean; 5 full-aggregation Adam steps (exactly 3
+   pull_rows launches each and no other kernel, finite losses, the last
+   below the first), ms per step and peak memory; 3 sampled steps (fan-outs
+   25 and 10) on the RMAT-18 graph of phase 4 (no kernel launched);
+14. slice: max-flow on the RMAT-18 graph, prepared as apps/mf.py does
+   (without self-loops and duplicates, capacities from default_rng(42)),
+   on two (source, sink) pairs as the app picks them: vgl_ford_fulkerson
+   equal to seq_ford_fulkerson, exactly one pull_reduce launch per BFS
+   level, MTEPS by the app's formula (|E| / t), medians of 3;
+   vgl_mf_bfs_levels with zero flow equal to seq_top_down's levels (one
+   segment_reduce launch per level); the BFS level's pull_reduce (i32 min
+   of max(x, w), the sources masked as advance_pull_value masks them, 30 %
+   and all of them active) against its plain version, exactly, and its
+   times; the general advance_pull (min, max,
+   add, with and without a source mask) and segment_reduce (i32 min, f32
+   add and max, int8 any01) against their plain versions on the residual
+   graph, and segment_reduce's times beside a scatter_reduce by row id.
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
 version's time, the one-call PyTorch time (library_ms, null where there is
 none) and its bound (bound_ms: the bytes it must move at the H100's 3.35
 TB/s, or for and_popcount the larger of that and its operations at 67
-TOP/s) at the main path's shapes, and "rates", phase 12's MTEPS. The last line is {"ok": true, "device":
+TOP/s) at the main path's shapes, and "rates", phase 12's and 14's MTEPS. The last line is {"ok": true, "device":
 {...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
 PageRank run, one DO-BFS root, one all-active SSSP run and one HITS call to
 DIR (not part of the default run), and of one call each of SCC, coloring
@@ -707,7 +733,7 @@ def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
             raise AssertionError(f"{label}: levels are not int32 [v_pad]")
         got = as_original_numpy(VertexArray(values=values, direction=bfs.S),
                                 graph)
-        errors = verify_results(got, bfs.seq_top_down(ec, src))
+        errors = verify_results(got, oracle[src])
         if errors:
             raise AssertionError(f"{label} root {src}: error count {errors}")
 
@@ -716,6 +742,15 @@ def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
                    scatter_combine=scm.scatter_combine)
     roots = [common.select_random_source(ec, seed=100 + s)
              for s in range(BFS_ROOTS)]
+    ms_roots = [common.select_random_source(ec, seed=500 + s)
+                for s in range(MS_ROOTS)]
+    ms_rows = (0, MS_ROOTS // 3, 2 * MS_ROOTS // 3, MS_ROOTS - 1)
+    # seq_top_down's levels from every root checked, one matrix build
+    checked = roots + [ms_roots[i] for i in ms_rows]
+    t0 = time.perf_counter()
+    oracle = dict(zip(checked, bfs.seq_top_down(ec, checked)))
+    print(f"  seq_top_down from {len(checked)} roots: "
+          f"{time.perf_counter() - t0:.2f} s on the host")
     torch.cuda.reset_peak_memory_stats()
     totals = dict.fromkeys(kernels, 0)
     for src in roots:
@@ -750,8 +785,6 @@ def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
     print(f"  vgl_top_down and vgl_bfs -bu, root {roots[0]}: launches "
           f"{ {name: k.launches for name, k in kernels.items()} }")
 
-    ms_roots = [common.select_random_source(ec, seed=500 + s)
-                for s in range(MS_ROOTS)]
     for k in kernels.values():
         k.launches = 0
     lv_ms = bfs.vgl_msbfs(graph, ms_roots).values
@@ -760,7 +793,7 @@ def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
           f"{ {name: k.launches for name, k in kernels.items()} }")
     if lv_ms.shape != (MS_ROOTS, graph.v_pad):
         raise AssertionError(f"vgl_msbfs levels of shape {tuple(lv_ms.shape)}")
-    for i in (0, MS_ROOTS // 3, 2 * MS_ROOTS // 3, MS_ROOTS - 1):
+    for i in ms_rows:
         check(f"vgl_msbfs row {i}", lv_ms[i], ms_roots[i])
 
     # the pull at the bottom-up shape: int8 any01 over GATHER, and MS-BFS's
@@ -955,12 +988,13 @@ def phase_weighted_kernels(rg, pl, scm, ec, graph, ea, smi: str) -> dict:
                    bound_ms=bound, device_ms=dev_k["total"],
                    library_device_ms=dev_l["total"], messages=ecap)
 
+    k4 = _k4_retime(scm, smi)
     launch = _launch_cost(rg, smi)
     route = _vertex_route_times(rg, graph.vertex_route_s_from_g,
                                 graph.outgoing.degrees, f"RMAT-{BFS_SCALE}",
                                 smi)
     return dict(pull_err=pull_err, pulls=pulls, scatter=scatter, launch=launch,
-                route=route)
+                route=route, k4=k4)
 
 
 def _vertex_route_times(rg, vplan, x, label: str, smi: str) -> dict:
@@ -1157,6 +1191,10 @@ def phase_fixpoint(kernels: dict, ec, graph, ea, smi: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     sources = _sssp_sources(ec)
+    t0 = time.perf_counter()
+    want_dist = dict(zip(sources, sssp.seq_dijkstra(ec, sources)))
+    print(f"  seq_dijkstra from {len(sources)} sources: "
+          f"{time.perf_counter() - t0:.2f} s on the host")
     rates = {}
     for src in sources:
         dist, iters = counted(
@@ -1168,7 +1206,7 @@ def phase_fixpoint(kernels: dict, ec, graph, ea, smi: str) -> dict:
             raise AssertionError("distances are not f32 [v_pad]")
         print(f"    {iters} sweeps")
         check(f"SSSP source {src}", verify_results(
-            as_original_numpy(dist, graph), sssp.seq_dijkstra(ec, src)))
+            as_original_numpy(dist, graph), want_dist[src]))
         trace = []
         part, p_iters = counted(
             f"vgl_dijkstra_partial_device source {src}",
@@ -1387,7 +1425,8 @@ def phase_persistence(kernels: dict, fresh: dict, router_s: float,
         if n_ls != 8:
             raise AssertionError(f"load launched lane_shuffle {n_ls} times, "
                                  "expected 8 (two per plan)")
-        idle = ("scatter_combine", "and_popcount")
+        idle = ("scatter_combine", "and_popcount", "pull_rows",
+                "segment_reduce")
         if any(counts[k] for k in idle) or not all(
                 v for k, v in counts.items() if k not in idle):
             raise AssertionError(f"a kernel of this path did not launch, or "
@@ -1849,6 +1888,418 @@ def phase_slice6(kernels: dict, ec, graph, oriented, host_s: float,
     return dict(launches=totals, rates=rates, core=core)
 
 
+# GraphSAGE at the widths of OGB's ogbn-products GraphSAGE baseline (100
+# input features, hidden 256, 47 classes; Hu et al. 2020), on RMAT-20 in
+# place of its 2,449,029-vertex graph, which cannot be downloaded; the
+# sampled steps take GraphSAGE's fan-outs S1 = 25, S2 = 10 (Hamilton et al.
+# 2017) on RMAT-18
+SAGE_IN, SAGE_HIDDEN, SAGE_CLASSES = 100, 256, 47
+SAGE_STEPS, SAGE_SAMPLED_STEPS, SAGE_FANOUT = 5, 3, (25, 10)
+SAGE_LR = 1e-3                  # Adam
+REPLACES_ROWS = ("none: vectorgraphlibrary_tpu/models/gnn.py:29 "
+                 "(aggregate_sum_count) runs outside Pallas")
+REPLACES_SEGMENT = ("none: vectorgraphlibrary_tpu/ops/advance.py:82 "
+                    "(_advance_pull_csr) runs outside Pallas")
+INT32_MAX = 2**31 - 1
+
+
+def _counted(kernels: dict, totals: dict, label: str, fn, want: dict):
+    """fn() with every count set to 0 just before and read just after; the
+    counts must equal `want` (kernel name -> launches, 0 if absent); they
+    are added to totals."""
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = {name: k.launches for name, k in kernels.items()}
+    for name in totals:
+        totals[name] += n[name]
+    expect = dict.fromkeys(kernels, 0)
+    expect.update(want(out) if callable(want) else want)
+    print(f"  {label}: {dt:.4f} s, launches "
+          f"{ {k: c for k, c in n.items() if c} }")
+    if n != expect:
+        raise AssertionError(f"{label}: launches {n}, expected {expect}")
+    return out
+
+
+def _rows_check(prw, label: str, csr, x) -> float:
+    """pull_rows against its plain version on the same inputs, run in f64:
+    within rtol 1e-5 / atol 1e-6 (an f32 sum in any order drifts by about
+    that much over RMAT-20's longest rows; the f32 plain version's own error
+    is printed), two runs bit-identical, and integer-valued rows bit for bit
+    against the f32 plain version. Returns the max abs error."""
+    row_ptr, col_idx = csr.row_ptr, csr.col_idx
+    got = prw.pull_rows(csr, x)
+    again = prw.pull_rows(csr, x)
+    want = prw.pull_rows_ref(row_ptr, col_idx, x.double())
+    plain32 = prw.pull_rows_ref(row_ptr, col_idx, x)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs().max().item()
+    err32 = (plain32.double() - want).abs().max().item()
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    close = bool(torch.isclose(got.double(), want, rtol=1e-5,
+                               atol=1e-6).all())
+    xi = torch.floor(x * 16)
+    exact = torch.equal(prw.pull_rows(csr, xi),
+                        prw.pull_rows_ref(row_ptr, col_idx, xi))
+    print(f"  pull_rows {label}: {'within rtol 1e-5' if close else 'MISMATCH'}"
+          f" of the f64 plain version (max abs err {err}; the f32 plain "
+          f"version's {err32}), two runs "
+          f"{'bit-identical' if same else 'DIFFER'}, integer-valued rows "
+          f"{'bit-exact' if exact else 'MISMATCH'}")
+    if not (close and same and exact):
+        raise AssertionError(f"pull_rows != plain version: {label}")
+    return err
+
+
+def _rows_times(prw, label: str, csr, x, e: int, smi: str) -> dict:
+    """Kernel, f32 plain version and torch.sparse.mm of the CSR with ones
+    (the one-call yardstick), medians of 3 by events; the bound (row_ptr,
+    col_idx, x read once, out written once) and the design's floor (each
+    edge's row from device memory)."""
+    row_ptr, col_idx = csr.row_ptr, csr.col_idx
+    n, f = row_ptr.shape[0] - 1, x.shape[1]
+    k_ms = _median3(f"pull_rows {label}, kernel", "ms", [_cuda_ms(
+        lambda: prw.pull_rows(csr, x)) for _ in range(3)], smi)
+    p_ms = _median3(f"pull_rows {label}, plain", "ms", [_cuda_ms(
+        lambda: prw.pull_rows_ref(row_ptr, col_idx, x), reps=2)
+        for _ in range(3)], smi)
+    a = torch.sparse_csr_tensor(row_ptr, col_idx[:e],
+                                torch.ones(e, device=x.device),
+                                size=(n, x.shape[0]))
+    lib = _median3(f"pull_rows {label}, torch.sparse.mm", "ms", [_cuda_ms(
+        lambda: torch.sparse.mm(a, x)) for _ in range(3)], smi)
+    lib_err = (torch.sparse.mm(a, x).double() - prw.pull_rows_ref(
+        row_ptr, col_idx, x.double())).abs().max().item()
+    bound = _bound_ms((n + 1) * 4 + e * 4 + x.shape[0] * f * 4 + n * f * 4)
+    floor = _bound_ms(e * f * 4)
+    print(f"  pull_rows {label}: bound {bound:.4f} ms, the design's floor "
+          f"(every edge's row from device memory) {floor:.4f} ms; "
+          f"torch.sparse.mm's max abs err {lib_err}")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib, bound_ms=bound,
+                floor_ms=floor)
+
+
+def phase_sage(kernels: dict, prw, ec, graph, small_graph, smi: str) -> dict:
+    """GraphSAGE at ogbn-products' widths on RMAT-20 (full aggregation) and
+    RMAT-18 (sampled), through the port's entry points, with pull_rows and
+    its backward against their plain versions at the path's shapes; returns
+    the kernels' launch counts over the training steps, errors and times."""
+    from vectorgraphlibrary_tpu_torch.models import gnn
+    totals = dict.fromkeys(kernels, 0)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    dg = graph.incoming
+    v_pad, e = graph.v_pad, dg.e
+    csr = prw.RowCSR(dg.row_ptr, dg.col_idx)
+    print(f"  RMAT-{BFS_SCALE} GATHER CSR: {e} edges, largest in-degree "
+          f"{int(dg.degrees.max())}, {csr.hubs.numel()} rows of more than "
+          f"{prw.HUB_MIN} edges (a block each)")
+    feats = torch.rand((v_pad, SAGE_IN), generator=gen, device=dev)
+    h = torch.rand((v_pad, SAGE_HIDDEN), generator=gen, device=dev)
+    err = max(_rows_check(prw, f"F = {SAGE_IN}", csr, feats),
+              _rows_check(prw, f"F = {SAGE_HIDDEN}", csr, h))
+    t0 = time.perf_counter()
+    csr_t = prw.RowCSR(*gnn.transposed_csr(dg))
+    torch.cuda.synchronize()
+    print(f"  transposed CSR (the backward's): {time.perf_counter() - t0:.4f}"
+          f" s, {csr_t.hubs.numel()} hub rows")
+    err = max(err, _rows_check(prw, f"backward F = {SAGE_HIDDEN}", csr_t, h))
+    times = {f"f{SAGE_IN}": _rows_times(prw, f"F = {SAGE_IN}", csr, feats, e,
+                                        smi),
+             f"f{SAGE_HIDDEN}": _rows_times(prw, f"F = {SAGE_HIDDEN}", csr, h,
+                                            e, smi),
+             f"backward_f{SAGE_HIDDEN}": _rows_times(
+                 prw, f"backward F = {SAGE_HIDDEN}", csr_t, h, e, smi)}
+    del h
+
+    # aggregate_mean against the oracle, in original ids
+    o2s = graph.incoming.orig_to_sorted[:graph.v].long()
+    mean = gnn.aggregate_mean(graph, feats)[o2s].cpu().numpy()
+    t0 = time.perf_counter()
+    want = gnn.seq_aggregate_mean(ec, feats[o2s].cpu().numpy())
+    ok = np.allclose(mean, want, rtol=1e-5, atol=1e-6)
+    print(f"  aggregate_mean against seq_aggregate_mean "
+          f"({time.perf_counter() - t0:.2f} s on the host): "
+          f"{'within rtol 1e-5' if ok else 'MISMATCH'} (max abs err "
+          f"{np.abs(mean - want).max()})")
+    if not ok:
+        raise AssertionError("aggregate_mean != seq_aggregate_mean")
+
+    # full-aggregation training steps
+    labels = torch.randint(0, SAGE_CLASSES, (v_pad,), generator=gen,
+                           device=dev)
+    mask = torch.arange(v_pad, device=dev) < graph.v
+    params = gnn.init_sage(torch.Generator(device=DEVICE).manual_seed(SEED),
+                           SAGE_IN, SAGE_HIDDEN, SAGE_CLASSES)
+    step = gnn.make_train_step(graph, torch.optim.Adam(params.parameters(),
+                                                       lr=SAGE_LR))
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(_counted(
+        kernels, totals, f"full-aggregation step {i}",
+        lambda: step(params, feats, labels, mask), dict(pull_rows=3)))
+        for i in range(SAGE_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {losses}; peak device memory {peak / 2**20:.1f} MiB")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the full-aggregation loss did not fall: "
+                             f"{losses}")
+    step_ms = _median3(f"full-aggregation step RMAT-{BFS_SCALE}", "ms",
+                       [_cuda_ms(lambda: step(params, feats, labels, mask),
+                                 reps=1) for _ in range(3)], smi)
+
+    # sampled steps on RMAT-18
+    sg = small_graph
+    sfeats = torch.rand((sg.v_pad, SAGE_IN), generator=gen, device=dev)
+    slabels = torch.randint(0, SAGE_CLASSES, (sg.v_pad,), generator=gen,
+                            device=dev)
+    smask = torch.arange(sg.v_pad, device=dev) < sg.v
+    s1, s2 = (gnn.sample_neighbors(sg, k, gen) for k in SAGE_FANOUT)
+    for s, k in ((s1, SAGE_FANOUT[0]), (s2, SAGE_FANOUT[1])):
+        if s.shape != (sg.v_pad, k) or not bool(
+                ((s >= 0) & (s < sg.v_pad)).all()):
+            raise AssertionError(f"the sample of {k} is not [v_pad, {k}] of "
+                                 f"vertex ids")
+    sparams = gnn.init_sage(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 1), SAGE_IN,
+        SAGE_HIDDEN, SAGE_CLASSES)
+    sstep = gnn.make_train_step(sg, torch.optim.Adam(sparams.parameters(),
+                                                     lr=SAGE_LR))
+    torch.cuda.reset_peak_memory_stats()
+    slosses = [float(_counted(
+        kernels, totals, f"sampled step {i} (k = {SAGE_FANOUT})",
+        lambda: sstep(sparams, sfeats, slabels, smask, s1, s2), {}))
+        for i in range(SAGE_SAMPLED_STEPS)]
+    speak = torch.cuda.max_memory_allocated()
+    print(f"  sampled losses {slosses}; peak device memory "
+          f"{speak / 2**20:.1f} MiB")
+    if not all(np.isfinite(slosses)):
+        raise AssertionError(f"sampled losses are not finite: {slosses}")
+    sstep_ms = _median3(f"sampled step RMAT-{SCALE}", "ms", [_cuda_ms(
+        lambda: sstep(sparams, sfeats, slabels, smask, s1, s2), reps=1)
+        for _ in range(3)], smi)
+    return dict(launches=totals, max_err=err, times=times,
+                step_ms=step_ms, sampled_step_ms=sstep_ms,
+                peak_mib=peak / 2**20, sampled_peak_mib=speak / 2**20,
+                losses=losses, sampled_losses=slosses)
+
+
+def _advance_plain(pl, dg, msg, src_active, op):
+    """The general advance's plain version on one direction: the messages
+    (one per CSR slot) of inactive sources set to the identity, then the
+    segment-reduce entry's plain version."""
+    from vectorgraphlibrary_tpu_torch.ops import monoid as M
+    if src_active is not None:
+        msg = torch.where(src_active[dg.col_idx[:dg.e].long()], msg,
+                          M.get(op).identity(msg.dtype).to(msg.device))
+    return pl.segment_reduce_ref(dg.row_ptr, msg, op)
+
+
+def phase_mf(kernels: dict, pl, ec, smi: str) -> dict:
+    """Max-flow on the phase-4 RMAT-18 graph, prepared as apps/mf.py
+    prepares it, on two (source, sink) pairs as the app picks them, through
+    the port's entry points; the general advance and the segment-reduce
+    entry against their plain versions on its residual graph. Returns the
+    kernels' launch counts, errors, times and rates."""
+    from vectorgraphlibrary_tpu_torch.apps import mf as mf_app
+    from vectorgraphlibrary_tpu_torch.graph.edges import DirectedEdgeValues
+    from vectorgraphlibrary_tpu_torch.models import bfs, common, mf
+    from vectorgraphlibrary_tpu_torch.ops.advance import (advance_pull,
+                                                          row_groups)
+    totals = dict.fromkeys(kernels, 0)
+    t0 = time.perf_counter()
+    ec2 = mf_app.prepare(ec, SEED)
+    g2, res0 = mf.build_residual(ec2, DEVICE)[:2]
+    torch.cuda.synchronize()
+    print(f"  RMAT-{SCALE} without self-loops and duplicates: "
+          f"{ec2.edges_count} edges, capacities in [1, 100); residual graph "
+          f"of {g2.e} arcs built in {time.perf_counter() - t0:.2f} s")
+    rates, flows = [], []
+    for it in range(2):
+        src = common.select_random_source(ec, seed=SEED + it)
+        sink = mf_app.sink_for(ec2, src)
+        trace = []
+        flow = _counted(
+            kernels, totals, f"vgl_ford_fulkerson {src} -> {sink}",
+            lambda: mf.vgl_ford_fulkerson(ec2, None, src, sink, device=DEVICE,
+                                          trace=trace),
+            lambda out: dict(pull_reduce=sum(t[0] for t in trace)))
+        t0 = time.perf_counter()
+        want = mf.seq_ford_fulkerson(ec2, src, sink)
+        print(f"    flow {flow} ({len(trace) - 1} augmentations, "
+              f"{sum(t[0] for t in trace)} BFS levels, the longest path "
+              f"{max(t[1] for t in trace)} arcs); seq_ford_fulkerson {want} "
+              f"({time.perf_counter() - t0:.2f} s on the host)")
+        if flow != want or not flow > 0:
+            raise AssertionError(f"max-flow {src} -> {sink}: {flow}, "
+                                 f"expected {want} > 0")
+        flows.append(flow)
+        times = _timed3(lambda: mf.vgl_ford_fulkerson(ec2, None, src, sink,
+                                                      device=DEVICE))
+        print(f"    s per call: {', '.join(f'{t:.5f}' for t in times)}")
+        rates.append(_median3(f"max-flow {src} -> {sink} RMAT-{SCALE} MTEPS "
+                              f"(|E| / t, apps/mf.py's)", "MTEPS",
+                              [ec.edges_count / t / 1e6 for t in times], smi))
+
+    src = common.select_random_source(ec, seed=SEED)
+    zero = np.zeros(ec2.edges_count, np.float32)
+    lv = _counted(kernels, totals, "vgl_mf_bfs_levels, zero flow",
+                  lambda: mf.vgl_mf_bfs_levels(ec2, None, zero, src,
+                                               device=DEVICE),
+                  lambda out: dict(segment_reduce=int(
+                      out[out < INT32_MAX].max())))
+    seq = bfs.seq_top_down(ec2, src)
+    if not np.array_equal(lv, np.where(seq < 0, INT32_MAX, seq)):
+        raise AssertionError("vgl_mf_bfs_levels with zero flow != "
+                             "seq_top_down's levels")
+    print(f"    levels equal seq_top_down's ({int((seq > 0).sum())} "
+          f"reached, {int(seq.max())} levels)")
+
+    # the general advance and the segment-reduce entry on the residual
+    # graph's GATHER CSR, against their plain versions
+    dg = g2.incoming
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    dev = torch.device(DEVICE)
+    iota = torch.arange(dg.e_pad, dtype=torch.int32, device=dev)
+    w = torch.where(res0 > mf._EPS, iota, mf._BIG)
+    on = torch.rand(g2.v_pad, generator=gen, device=dev) < 0.3
+    # the BFS level's pull as vgl_ford_fulkerson launches it: i32 min of
+    # max(x, w), x 0 at the level's sources and the min's identity at the
+    # others (advance_pull_value's mask), with 30 % and all sources active
+    label = f"RMAT-{SCALE} residual G i32 min of max(x, w)"
+    x_lvl = torch.where(on, 0, INT32_MAX).to(torch.int32)
+    pull_err = max(
+        _pull_check(pl, f"{label}, 30 % active", dg, x_lvl, "min", False, w,
+                    "max"),
+        _pull_check(pl, f"{label}, all active", dg, torch.zeros_like(x_lvl),
+                    "min", False, w, "max"))
+    pull = _pull_times(pl, dg, x_lvl, "min", False, f"{label}, 30 % active",
+                       smi, weights=w, weight_op="max")
+    pull.update(max_err=pull_err, library_ms=None)
+    x = torch.rand(g2.v_pad, generator=gen, device=dev)
+    cols = dg.col_idx[:dg.e].long()
+    rows = torch.repeat_interleave(torch.arange(g2.v_pad, device=dev),
+                                   dg.degrees.long(), output_size=dg.e)
+    err = 0.0
+    cases = (("min of the arc id (the BFS's)", "min", {},
+              lambda s, d, ww: ww, w[:dg.e], on),
+             ("max of x[src] + x[dst]", "max", {"x": x},
+              lambda s, d, ww: s["x"] + d["x"], x[cols] + x[rows], on),
+             ("add of x[src] * res", "add", {"x": x},
+              lambda s, d, ww: s["x"] * ww, x[cols] * res0[:dg.e], None))
+    for label, op, arrs, edge_op, msg, act in cases:
+        vals = res0 if op == "add" else w
+        got = advance_pull(g2, arrs, edge_op, op, dst_arrays=arrs,
+                           edge_values=DirectedEdgeValues(flat=vals),
+                           src_active=act)
+        want = _advance_plain(pl, dg, msg, act, op)
+        torch.cuda.synchronize()
+        ok = (bool(torch.isclose(got, want, rtol=1e-5, atol=1e-6).all())
+              if op == "add" else torch.equal(got, want))
+        e_ = torch.where(got == want, 0.0,
+                         (got.double() - want.double()).abs()).max().item()
+        err = max(err, e_)
+        print(f"  advance_pull {label}: "
+              f"{('within rtol 1e-5' if op == 'add' else 'exact') if ok else 'MISMATCH'}"
+              f" (max abs err {e_})")
+        if not ok:
+            raise AssertionError(f"advance_pull != plain version: {label}")
+    groups = row_groups(dg)
+    mi = torch.where(on[cols], w[:dg.e], INT32_MAX).contiguous()
+    mf32 = torch.rand(dg.e_pad, generator=gen, device=dev)
+    mb = (torch.rand(dg.e_pad, generator=gen, device=dev) < 0.1).to(
+        torch.int8)
+    for label, m, op in (("i32 min", mi, "min"), ("f32 add", mf32, "add"),
+                         ("f32 max", mf32, "max"), ("i8 any01", mb, "any01")):
+        got = pl.segment_reduce(dg.row_ptr, m, op, groups)
+        want = pl.segment_reduce_ref(dg.row_ptr, m, op)
+        torch.cuda.synchronize()
+        ok = (bool(torch.isclose(got, want, rtol=1e-5, atol=1e-6).all())
+              if op == "add" else torch.equal(got, want))
+        # equal entries (an empty row's identity, inf or not) count as 0
+        e_ = torch.where(got == want, 0.0,
+                         (got.double() - want.double()).abs()).max().item()
+        err = max(err, e_)
+        print(f"  segment_reduce {label}: "
+              f"{('within rtol 1e-5' if op == 'add' else 'exact') if ok else 'MISMATCH'}"
+              f" (max abs err {e_})")
+        if not ok:
+            raise AssertionError(f"segment_reduce != plain version: {label}")
+    label = f"i32 min over the RMAT-{SCALE} residual CSR ({dg.e} slots)"
+    k_ms = _median3(f"segment_reduce {label}, kernel", "ms", [_cuda_ms(
+        lambda: pl.segment_reduce(dg.row_ptr, mi, "min", groups))
+        for _ in range(3)], smi)
+    p_ms = _median3(f"segment_reduce {label}, plain", "ms", [_cuda_ms(
+        lambda: pl.segment_reduce_ref(dg.row_ptr, mi, "min"))
+        for _ in range(3)], smi)
+    # one PyTorch call with the slots' row ids given: scatter_reduce
+    base = torch.full((g2.v_pad,), INT32_MAX, dtype=torch.int32, device=dev)
+    lib = _median3(f"segment_reduce {label}, scatter_reduce by row id", "ms",
+                   [_cuda_ms(lambda: base.scatter_reduce(
+                       0, rows, mi[:dg.e], "amin")) for _ in range(3)], smi)
+    lengths = dg.degrees.long()
+    f32_lib = _median3(
+        f"segment_reduce f32 add ({dg.e} slots), torch.segment_reduce", "ms",
+        [_cuda_ms(lambda: torch.segment_reduce(
+            mf32[:dg.e], "sum", lengths=lengths, unsafe=True))
+         for _ in range(3)], smi)
+    f32_ms = _median3(f"segment_reduce f32 add ({dg.e} slots), kernel", "ms",
+                      [_cuda_ms(lambda: pl.segment_reduce(
+                          dg.row_ptr, mf32, "add", groups))
+                       for _ in range(3)], smi)
+    # bytes it must move: row_ptr, the slots' messages, out
+    bound = _bound_ms((g2.v_pad + 1) * 4 + dg.e * 4 + g2.v_pad * 4)
+    print(f"  segment_reduce bound {bound:.4f} ms (groups {groups})")
+    return dict(launches=totals, max_err=err, ms=k_ms, plain_ms=p_ms,
+                library_ms=lib, bound_ms=bound, f32_add_ms=f32_ms,
+                f32_add_library_ms=f32_lib, rates=rates, flows=flows,
+                pull=pull)
+
+
+def _k4_retime(scm, smi: str) -> dict:
+    """K4's row under the launch path of build.Launcher: scatter_combine's
+    int32 min of 2^16 messages (an eighth dropped) into 2^20, as phase 5
+    times it, beside scatter_reduce and index_add of the messages that land,
+    in turns, means of 100 launches by events, medians of 3, and each on the
+    device by torch.profiler."""
+    rng = np.random.default_rng(SEED)
+    v = 1 << 20
+    dev = torch.device(DEVICE)
+
+    def i32(n):
+        return torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n,
+                                             dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+    out = i32(v)
+    d = rng.integers(0, v, 1 << 16)
+    d[rng.permutation(1 << 16)[:(1 << 16) // 8]] = v
+    idx = torch.from_numpy(d.astype(np.int32)).to(dev)
+    msg = i32(1 << 16)
+    keep = idx < v
+    idx_in, msg_in = idx[keep].long(), msg[keep]
+    calls = {"kernel": lambda: scm.scatter_combine(out, idx, msg, "min"),
+             "scatter_reduce": lambda: torch.scatter_reduce(
+                 out, 0, idx_in, msg_in, "amin"),
+             "index_add": lambda: torch.index_add(out, 0, idx_in, msg_in)}
+    runs = {k: [] for k in calls}
+    for _ in range(3):
+        for k, fn in calls.items():
+            runs[k].append(_cuda_ms(fn, reps=100))
+    label = "scatter_combine int32 min 2^16 -> 2^20 (K4's row, again)"
+    ms = {k: _median3(f"{label}, {k}", "ms", r, smi) for k, r in runs.items()}
+    ms["plain"] = _median3(f"{label}, plain", "ms", [_cuda_ms(
+        lambda: scm.scatter_combine_ref(out, idx, msg, "min"))
+        for _ in range(3)], smi)
+    device = {k: _profiled_ms(fn)["total"] for k, fn in calls.items()}
+    bound = _bound_ms(8 * v + 4 * idx.shape[0] + 4 * idx_in.shape[0])
+    print(f"  {label}: device ms per call by torch.profiler {device}, bound "
+          f"{bound:.4f} ms")
+    return dict(events_ms=ms, device_ms=device, bound_ms=bound)
+
+
 def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, pr_ec, oriented, core,
             out_dir: str) -> None:
     """Device time by kernel of one call of each slice, beside its wall time
@@ -1903,6 +2354,7 @@ def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, pr_ec, oriented, core,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1912,13 +2364,14 @@ def main() -> int:
     from vectorgraphlibrary_tpu_torch.ops.cuda import build
     from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
     from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
     from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
     from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
     from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as scm
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/12] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/14] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -1926,61 +2379,86 @@ def main() -> int:
     build.load_library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/12] build: {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[2/14] build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
           f"ptxas: " + " | ".join(ptxas))
 
-    print("[3/12] kernel: route_gather_finish vs plain version, n = 2^24")
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print("[3/14] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
-    print(f"[4/12] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[4/14] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
           f"version on its graph")
     prr = phase_pagerank(rg, pl, smi)
     prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
-    print(f"[5/12] kernel: scatter_combine vs plain version, V = 2^20, and "
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[5/14] kernel: scatter_combine vs plain version, V = 2^20, and "
           f"push_expand vs plain version on RMAT-{BFS_SCALE}")
     bfs_ec, bfs_graph, bfs_ea = make_bfs_graph()
     push = phase_scatter(scm, pe, bfs_graph, smi)
 
-    print(f"[6/12] slice: BFS on RMAT-{BFS_SCALE}")
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[6/14] slice: BFS on RMAT-{BFS_SCALE}")
     bfs_root, bfs_launches, pull20 = phase_bfs(rg, pl, pe, scm, bfs_ec,
                                                bfs_graph, smi)
 
-    print(f"[7/12] kernel: lane_shuffle vs plain version, "
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[7/14] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
     lsr = phase_lane_shuffle(ls, prr["graph"], smi)
 
-    print(f"[8/12] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[8/14] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
     kernels = dict(lane_shuffle=ls.lane_shuffle,
                    route_gather_finish=rg.route_gather_finish,
                    pull_reduce=pl.pull_reduce, push_expand=pe.push_expand,
                    scatter_combine=scm.scatter_combine,
-                   and_popcount=ap.and_popcount)
+                   and_popcount=ap.and_popcount, pull_rows=prw.pull_rows,
+                   segment_reduce=pl.segment_reduce)
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
-    print(f"[9/12] kernel: pull_reduce with edge weights and scatter_combine "
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[9/14] kernel: pull_reduce with edge weights and scatter_combine "
           f"f32 vs plain versions on weighted RMAT-{BFS_SCALE}, and the "
           f"host's cost of one launch")
     wk = phase_weighted_kernels(rg, pl, scm, bfs_ec, bfs_graph, bfs_ea, smi)
 
-    print(f"[10/12] slice: SSSP, SSWP, CC and HITS on weighted "
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[10/14] slice: SSSP, SSWP, CC and HITS on weighted "
           f"RMAT-{BFS_SCALE}")
     fix = phase_fixpoint(kernels, bfs_ec, bfs_graph, bfs_ea, smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
 
-    print(f"[11/12] kernel: scatter_combine int32 add and and_popcount vs "
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[11/14] kernel: scatter_combine int32 add and and_popcount vs "
           f"plain versions, at the RMAT-{SCALE} triangle count's shapes")
     k6 = phase_slice6_kernels(scm, ap, prr["ec"], smi)
     push["scatter"]["max_err"] = max(push["scatter"]["max_err"],
                                      wk["scatter"]["max_err"],
                                      k6["scatter_err"])
 
-    print(f"[12/12] slice: SCC, coloring, label propagation, random walks, "
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[12/14] slice: SCC, coloring, label propagation, random walks, "
           f"reachability and triangle count on RMAT-{SCALE}")
     s6 = phase_slice6(kernels, prr["ec"], prr["graph"], k6["oriented"],
                       k6["host_s"], smi)
+
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[13/14] slice: GraphSAGE at ogbn-products' widths (in "
+          f"{SAGE_IN}, hidden {SAGE_HIDDEN}, classes {SAGE_CLASSES}) on "
+          f"RMAT-{BFS_SCALE}, sampled on RMAT-{SCALE}, and pull_rows vs plain "
+          f"version")
+    sage = phase_sage(kernels, prw, bfs_ec, bfs_graph, prr["graph"], smi)
+
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[14/14] slice: max-flow on RMAT-{SCALE}, and the general advance "
+          f"and segment_reduce vs plain versions")
+    mfr = phase_mf(kernels, pl, prr["ec"], smi)
+    prr["pull"]["max_err"] = max(prr["pull"]["max_err"],
+                                 mfr["pull"]["max_err"])
 
     if "--profile" in sys.argv:
         profile(pl, prr["graph"], bfs_graph, bfs_root, bfs_ec, bfs_ea,
@@ -1995,7 +2473,9 @@ def main() -> int:
                    f"bfs_do_rmat{BFS_SCALE}": bfs_launches.get(kernel, 0),
                    f"loaded_rmat{SCALE}": loaded[kernel],
                    f"fixpoint_rmat{BFS_SCALE}": fix["launches"][kernel],
-                   f"slice6_rmat{SCALE}": s6["launches"][kernel]}
+                   f"slice6_rmat{SCALE}": s6["launches"][kernel],
+                   f"sage_rmat{BFS_SCALE}": sage["launches"][kernel],
+                   f"mf_rmat{SCALE}": mfr["launches"][kernel]}
         if kernel == "scatter_combine":
             by_path["exp_push"] = push["scatter"]["launches"]
         return by_path
@@ -2008,6 +2488,8 @@ def main() -> int:
                 "launches_by_path": by_path, "max_abs_err": r["max_err"],
                 **times(r), "bound_by": r.get("bound_by", "bytes"), **extra}
     route = prr["route"]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [
         row("route_gather_finish", "route_gather.cu", REPLACES, route,
@@ -2023,12 +2505,13 @@ def main() -> int:
             rmat20_i8_any01_plain_ms=pull20["plain_ms"],
             rmat20_i8_any01_bound_ms=pull20["bound_ms"],
             rmat20_max_abs_err=pull20["max_err"],
-            rmat20_weighted={k: times(r) for k, r in wk["pulls"].items()}),
+            rmat20_weighted={k: times(r) for k, r in wk["pulls"].items()},
+            mf_level_rmat18_i32_min_of_max=times(mfr["pull"])),
         row("scatter_combine", "scatter_combine.cu", REPLACES_SCATTER,
             push["scatter"], device_ms=push["scatter"]["device_ms"],
             library_device_ms=push["scatter"]["library_device_ms"],
             f32_min={k: v for k, v in wk["scatter"].items()},
-            int32_add=k6["add"]),
+            int32_add=k6["add"], int32_min_retimed=wk["k4"]),
         row("push_expand", "push_expand.cu", REPLACES_SCATTER, push["push"],
             device_ms=push["push"]["device_ms"]),
         row("lane_shuffle", "lane_shuffle.cu", REPLACES_LANE, lsr),
@@ -2036,8 +2519,20 @@ def main() -> int:
             k6["popcount"], **{k: v for k, v in k6["popcount"].items()
                                if k not in ("max_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms",
-                                            "bound_by")})],
-        "rates": s6["rates"]}))
+                                            "bound_by")}),
+        row("pull_rows", "pull_rows.cu", REPLACES_ROWS,
+            dict(max_err=sage["max_err"],
+                 **times(sage["times"][f"f{SAGE_HIDDEN}"])),
+            shape=f"RMAT-{BFS_SCALE} GATHER CSR, F = {SAGE_HIDDEN}",
+            floor_ms=sage["times"][f"f{SAGE_HIDDEN}"]["floor_ms"],
+            by_shape=sage["times"], step_ms=sage["step_ms"],
+            sampled_step_ms=sage["sampled_step_ms"],
+            peak_mib=sage["peak_mib"]),
+        row("segment_reduce", "pull_reduce.cu", REPLACES_SEGMENT, mfr,
+            shape=f"i32 min over the RMAT-{SCALE} residual CSR",
+            f32_add_ms=mfr["f32_add_ms"],
+            f32_add_library_ms=mfr["f32_add_library_ms"])],
+        "rates": dict(s6["rates"], mf_mteps=mfr["rates"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -119,6 +119,17 @@ def test_msbfs_matches_jax_and_oracle(graphs, graph, kind):
 
 
 @pytest.mark.parametrize("graph", GRAPHS)
+def test_oracle_takes_a_list_of_sources(graphs, graph):
+    """One row per source, each equal to that source's own call."""
+    ec = graphs(graph)[0]
+    srcs = [tcommon.select_random_source(ec, seed=s) for s in range(3)]
+    rows = tbfs.seq_top_down(ec, srcs)
+    assert rows.shape == (3, ec.vertices_count) and rows.dtype == np.int32
+    for row, src in zip(rows, srcs):
+        np.testing.assert_array_equal(row, tbfs.seq_top_down(ec, src))
+
+
+@pytest.mark.parametrize("graph", GRAPHS)
 def test_oracle_and_helpers_match_jax(graphs, graph):
     ec = graphs(graph)[0]
     for seed in range(3):

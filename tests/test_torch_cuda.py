@@ -1,10 +1,11 @@
-"""PyTorch port on the card: the route-gather, CSR pull (with edge weights),
-scatter-combine (int32 and f32), expand-and-scatter, lane-shuffle and
-AND-popcount kernels against their plain versions (bit for bit, but f32
-sums of the pull at rtol 1e-5 / atol 1e-6: another order), their launch
-counts, their argument checks, and the slices (PageRank, BFS, loading a
-saved graph, SSSP, SSWP, HITS, CC, SCC, coloring, label propagation, random
-walks, reachability, triangle count) on CUDA against the same slices on the
+"""PyTorch port on the card: the route-gather, CSR pull (with edge weights,
+and its segment-reduce entry), scatter-combine (int32 and f32),
+expand-and-scatter, lane-shuffle, AND-popcount and feature-row pull kernels
+against their plain versions (bit for bit, but f32 sums at rtol 1e-5:
+another order), their launch counts, their argument checks, and the slices
+(PageRank, BFS, loading a saved graph, SSSP, SSWP, HITS, CC, SCC, coloring,
+label propagation, random walks, reachability, triangle count, GraphSAGE,
+the general advance, max-flow) on CUDA against the same slices on the
 CPU. Every test
 here needs an NVIDIA GPU and skips
 without one. The file needs no JAX (the card's host has none), so on the card
@@ -485,7 +486,7 @@ WEIGHTED_PULLS = [("f32", "min", "add"), ("f32", "max", "min"),
                   ("f32", "min", "max"), ("f32", "add", "mul"),
                   ("f32", "add", "add"), ("i32", "min", "add"),
                   ("i32", "max", "min"), ("i32", "add", "mul"),
-                  ("i32", "or", "max")]
+                  ("i32", "or", "max"), ("i32", "min", "max")]
 
 
 @pytest.mark.parametrize("d", ["G", "S"])
@@ -829,3 +830,185 @@ def test_triangle_count_on_cuda_matches_cpu(slice6_cuda, block_bits):
     assert got == tc.vgl_triangle_count(ec, block_bits=block_bits,
                                         device="cpu")
     assert got == tc.seq_triangle_count(ec)
+
+
+# ---- slice 8: the feature-row pull, the segment-reduce entry, GraphSAGE,
+# the general advance and max-flow
+
+def _csr_with_hub(rng, n, f_hub_degree):
+    """A random CSR of n rows (degrees 0 to 40) whose row 3 has
+    f_hub_degree edges (past pull_rows.HUB_MIN: a block of its own)."""
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
+    degs = rng.integers(0, 40, n)
+    degs[3] = f_hub_degree
+    assert f_hub_degree > prw.HUB_MIN
+    row_ptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)
+    col_idx = rng.integers(0, n, int(row_ptr[-1])).astype(np.int32)
+    return torch.from_numpy(row_ptr).cuda(), torch.from_numpy(col_idx).cuda()
+
+
+@pytest.mark.parametrize("ints", [True, False])
+@pytest.mark.parametrize("f", [1, 3, 100, 256])
+def test_pull_rows_equals_plain_version(cuda, f, ints):
+    """Integer-valued features sum exactly in any order: bit for bit;
+    others (non-negative) at rtol 1e-5 against the plain version in f64 (an
+    f32 sum of the hub row's 20,000 values drifts by about that much in any
+    order); two runs give the same bits; a hub row takes a block."""
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
+    rng = np.random.default_rng(f)
+    row_ptr, col_idx = _csr_with_hub(rng, 3000, 20_000)
+    x = (rng.integers(-50, 50, (3000, f)) if ints
+         else rng.random((3000, f))).astype(np.float32)
+    x = torch.from_numpy(x).cuda()
+    csr = prw.RowCSR(row_ptr, col_idx)
+    assert csr.hubs.tolist() == [3]
+    before = prw.pull_rows.launches
+    got = prw.pull_rows(csr, x)
+    again = prw.pull_rows(prw.RowCSR(row_ptr, col_idx), x)
+    torch.cuda.synchronize()
+    assert prw.pull_rows.launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if ints:
+        assert torch.equal(got, prw.pull_rows_ref(row_ptr, col_idx, x))
+    else:
+        want = prw.pull_rows_ref(row_ptr, col_idx, x.double())
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_pull_rows_scalar_path_and_rejects(cuda):
+    """An x view that is not 16-byte aligned takes the scalar loads; what
+    the kernel does not take raises."""
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
+    rng = np.random.default_rng(0)
+    row_ptr, col_idx = _csr_with_hub(rng, 500, 1500)
+    base = torch.from_numpy(rng.integers(-9, 9, 501 * 8).astype(
+        np.float32)).cuda()
+    x = base[1:1 + 500 * 8].view(500, 8)             # 4-byte aligned only
+    assert x.data_ptr() % 16 != 0
+    csr = prw.RowCSR(row_ptr, col_idx)
+    assert torch.equal(prw.pull_rows(csr, x),
+                       prw.pull_rows_ref(row_ptr, col_idx, x))
+    with pytest.raises(TypeError):
+        prw.pull_rows(csr, x.double())
+    with pytest.raises(ValueError):
+        prw.pull_rows(prw.RowCSR(row_ptr.long(), col_idx), x)
+
+
+@pytest.mark.parametrize("d", ["G", "S"])
+def test_aggregation_backward_on_cuda(rmat12_cuda, d):
+    """The gradient through the transposed CSR on the card equals the
+    plain version's over the CPU graph."""
+    from vectorgraphlibrary_tpu_torch.models import gnn
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
+    ec, g = rmat12_cuda
+    cg = import_graph(ec, device="cpu")
+    td = bfs.G if d == "G" else bfs.S
+    rng = np.random.default_rng(9)
+    feats = rng.integers(0, 8, (g.v_pad, 100)).astype(np.float32)
+    r = rng.integers(-3, 3, (g.v_pad, 100)).astype(np.float32)
+    grads = []
+    for graph, dev in ((g, "cuda"), (cg, "cpu")):
+        x = torch.from_numpy(feats).to(dev).requires_grad_()
+        before = prw.pull_rows.launches
+        (gnn.aggregate_sum_count(graph, x, td)[0]
+         * torch.from_numpy(r).to(dev)).sum().backward()
+        assert prw.pull_rows.launches == before + (2 if dev == "cuda" else 0)
+        grads.append(x.grad.cpu())
+    assert torch.equal(grads[0], grads[1])          # integer-valued: exact
+
+
+SEGMENT_CUDA_CASES = [("add", "f32"), ("min", "f32"), ("max", "f32"),
+                      ("add", "i32"), ("min", "i32"), ("or", "i32"),
+                      ("any01", "i8"), ("max", "i8")]
+
+
+@pytest.mark.parametrize("d", ["G", "S"])
+@pytest.mark.parametrize("op,dtype", SEGMENT_CUDA_CASES)
+def test_segment_reduce_equals_plain_version(rmat12_cuda, d, op, dtype):
+    _, g = rmat12_cuda
+    dg = g.direction(bfs.G if d == "G" else bfs.S)
+    rng = np.random.default_rng(5)
+    n = dg.e_pad
+    x = {"f32": lambda: rng.standard_normal(n).astype(np.float32),
+         "i32": lambda: _i32(rng, n),
+         "i8": lambda: rng.integers(0, 2, n).astype(np.int8)}[dtype]()
+    x = torch.from_numpy(x).cuda()
+    want = pl.segment_reduce_ref(dg.row_ptr, x, op)
+    for groups in (advance.row_groups(dg), None, ((g.v_pad, 1),)):
+        before = pl.segment_reduce.launches
+        got = pl.segment_reduce(dg.row_ptr, x, op, groups)
+        torch.cuda.synchronize()
+        assert pl.segment_reduce.launches == before + 1
+        if (op, dtype) == ("add", "f32"):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(got, want)
+
+
+def test_general_advance_on_cuda_matches_cpu(rmat12_cuda):
+    ec, g = rmat12_cuda
+    cg = import_graph(ec, device="cpu")
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 100, g.v_pad).astype(np.float32)
+    act = rng.random(g.v_pad) < 0.5
+    for combine in ("min", "max", "add"):
+        outs = []
+        for graph, dev in ((g, "cuda"), (cg, "cpu")):
+            xs = torch.from_numpy(x).to(dev)
+            outs.append(advance.advance_pull(
+                graph, {"x": xs}, lambda s, dd, w: s["x"] * 2 + dd["x"],
+                combine, dst_arrays={"x": xs},
+                src_active=torch.from_numpy(act).to(dev)).cpu())
+        assert torch.equal(outs[0], outs[1])       # integer-valued f32
+
+
+def test_graphsage_steps_on_cuda(rmat12_cuda):
+    """A full-aggregation step launches pull_rows three times; losses of
+    three Adam steps follow the CPU's."""
+    from vectorgraphlibrary_tpu_torch.models import gnn
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
+    ec, g = rmat12_cuda
+    cg = import_graph(ec, device="cpu")
+    rng = np.random.default_rng(4)
+    feats = rng.random((g.v_pad, 20)).astype(np.float32)
+    labels = rng.integers(0, 4, g.v_pad)
+    losses = []
+    for graph, dev in ((g, "cuda"), (cg, "cpu")):
+        params = gnn.init_sage(torch.Generator().manual_seed(1), 20, 32,
+                               4).to(dev)
+        step = gnn.make_train_step(graph, torch.optim.Adam(
+            params.parameters(), lr=1e-2))
+        args = (torch.from_numpy(feats).to(dev),
+                torch.from_numpy(labels).to(dev),
+                torch.arange(g.v_pad, device=dev) < g.v)
+        run = []
+        for _ in range(3):
+            before = prw.pull_rows.launches
+            run.append(float(step(params, *args)))
+            assert prw.pull_rows.launches == before + (3 if dev == "cuda"
+                                                       else 0)
+        losses.append(run)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    assert losses[0][-1] < losses[0][0]
+
+
+def test_max_flow_on_cuda(cuda):
+    from vectorgraphlibrary_tpu_torch.apps import mf as mf_app
+    from vectorgraphlibrary_tpu_torch.models import mf
+    ec2 = mf_app.prepare(generation.rmat(12, 8, seed=6, weighted=False), 6)
+    src = common.select_random_source(ec2, seed=3)
+    sink = mf_app.sink_for(ec2, src)
+    _reset(pl.pull_reduce, pl.segment_reduce)
+    trace = []
+    got = mf.vgl_ford_fulkerson(ec2, None, src, sink, trace=trace)
+    # one pull per BFS level, the last BFS (which finds no path) included
+    assert pl.pull_reduce.launches == sum(t[0] for t in trace)
+    assert trace[-1][1] == 0 and len(trace) > 1
+    assert got == mf.seq_ford_fulkerson(ec2, src, sink) > 0
+    assert got == mf.vgl_ford_fulkerson(ec2, None, src, sink, device="cpu")
+    lv = mf.vgl_mf_bfs_levels(ec2, None, ec2.weights * 0, src)
+    assert pl.segment_reduce.launches == lv.max(where=lv < 2**31 - 1,
+                                                initial=1)
+    np.testing.assert_array_equal(
+        lv, mf.vgl_mf_bfs_levels(ec2, None, ec2.weights * 0, src,
+                                 device="cpu"))

@@ -15,8 +15,8 @@ torch = pytest.importorskip("torch")
 from vectorgraphlibrary_tpu_torch.ops.cuda import build
 
 PKG = pathlib.Path(build.__file__).resolve().parents[2]
-WRAPPERS = ["and_popcount", "lane_shuffle", "pull_reduce", "push_expand",
-            "route_gather", "scatter_combine"]
+WRAPPERS = ["and_popcount", "lane_shuffle", "pull_reduce", "pull_rows",
+            "push_expand", "route_gather", "scatter_combine"]
 
 
 def _c_entries():

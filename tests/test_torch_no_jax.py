@@ -2,9 +2,11 @@
 JAX package, and running the slices on the CPU (PageRank, a DO-BFS root,
 SSSP in its all-active and partial forms, SSWP, HITS and CC on a weighted
 graph, SCC, coloring, label propagation, random walks, reachability and the
-triangle count, saving a graph, which runs the port's own Beneš router, and
-loading it) neither loads the JAX package's native library nor launches a
-kernel."""
+triangle count, GraphSAGE's full and sampled training steps, the general
+advance in every graph format, compute and reduce with a frontier,
+max-flow and its app's input, saving a graph, which runs the port's own
+Beneš router, and loading it) neither loads the JAX package's native library
+nor launches a kernel."""
 import os
 import subprocess
 import sys
@@ -61,6 +63,40 @@ rw.seq_random_walk_reachable(ec, 0, 3)
 tc.reachability(ec, wg, [0, 1]), tc.vgl_bfs_based_reachability(wg, [0])
 tc.seq_reachability(ec, [0])
 tc.vgl_triangle_count(ec, block_bits=64, device="cpu"), tc.seq_triangle_count(ec)
+import torch
+from vectorgraphlibrary_tpu_torch.config import GraphFormat
+from vectorgraphlibrary_tpu_torch.graph import frontier
+from vectorgraphlibrary_tpu_torch.models import gnn, mf
+from vectorgraphlibrary_tpu_torch.ops import advance
+from vectorgraphlibrary_tpu_torch.ops.compute import compute
+from vectorgraphlibrary_tpu_torch.ops.reduce import reduce as vreduce
+from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
+from vectorgraphlibrary_tpu_torch.apps import mf as mf_app
+params = gnn.init_sage(torch.Generator().manual_seed(0), 4, 8, 3)
+step = gnn.make_train_step(wg, torch.optim.Adam(params.parameters(), lr=1e-2))
+feats = torch.rand(wg.v_pad, 4)
+labels = torch.randint(0, 3, (wg.v_pad,))
+mask = torch.arange(wg.v_pad) < wg.v
+step(params, feats, labels, mask)
+s1 = gnn.sample_neighbors(wg, 3, torch.Generator().manual_seed(1))
+step(params, feats, labels, mask, s1, s1)
+gnn.seq_aggregate_mean(ec, feats[:wg.v].numpy())
+for fmt in GraphFormat.TILE_CSR, GraphFormat.CSR, GraphFormat.EDGES_LIST:
+    fg = import_graph(ec, graph_format=fmt, device="cpu", keep_edge_slots=True)
+    advance.advance_pull(fg, {"x": feats[:, 0]}, lambda s, d, w: s["x"] * d["x"],
+                         "add", dst_arrays={"x": feats[:, 1]})
+advance.advance_pull_fast(wg, {"x": feats[:, 0]}, lambda s, d, w: s["x"] + w,
+                          "min", edge_values=ea.incoming,
+                          src_active=feats[:, 2] > 0.5)
+advance.advance_pull_routed(wg, feats[:, 0], lambda v, i, d, w: v, "max")
+fr = frontier.from_mask(wg, feats[:, 3] > 0.5, frontier.TraversalDirection.SCATTER)
+compute(wg, {"x": feats[:, 0]}, lambda i, dg, a: {"x": a["x"] + 1}, frontier=fr)
+vreduce(wg, feats[:, 0], "add", frontier=fr)
+ec2 = mf_app.prepare(ec, 1)
+src = int(ec2.src_ids[0])
+mf.vgl_ford_fulkerson(ec2, None, src, mf_app.sink_for(ec2, src), device="cpu")
+mf.vgl_mf_bfs_levels(ec2, None, ec2.weights * 0, src, device="cpu")
+mf.seq_ford_fulkerson(ec2, src, mf_app.sink_for(ec2, src))
 with tempfile.TemporaryDirectory() as d:
     persistence.save_graph_to_binary_file(g, os.path.join(d, "g.npz"))
     g2 = persistence.load_graph_from_binary_file(os.path.join(d, "g.npz"),
@@ -76,7 +112,8 @@ print("NATIVE", "libvgl_native" in maps)
 print("ROUTER", "libvgl_router" in maps)
 print("LAUNCHES", rg.route_gather_finish.launches + ls.lane_shuffle.launches
       + pl.pull_reduce.launches + pe.push_expand.launches
-      + sc.scatter_combine.launches + ap.and_popcount.launches)
+      + sc.scatter_combine.launches + ap.and_popcount.launches
+      + pl.segment_reduce.launches + prw.pull_rows.launches)
 """
 
 

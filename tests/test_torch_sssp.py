@@ -65,6 +65,17 @@ def graphs(request):
     return get
 
 
+@pytest.mark.parametrize("graph", GRAPHS)
+def test_oracle_takes_a_list_of_sources(graphs, graph):
+    """One row per source, each equal to that source's own call."""
+    ec = graphs(graph)[0]
+    srcs = [0, 5, ec.vertices_count - 1]
+    rows = tsssp.seq_dijkstra(ec, srcs)
+    assert rows.shape == (3, ec.vertices_count) and rows.dtype == np.float32
+    for row, src in zip(rows, srcs):
+        np.testing.assert_array_equal(row, tsssp.seq_dijkstra(ec, src))
+
+
 # entry point -> (port call, JAX call), both (graph, weights, source) ->
 # (VertexArray, iters)
 VARIANTS = {

@@ -9,6 +9,12 @@
 // the SSSP relaxation, max over min(x, w) the widest-path one. Without w the
 // message is x[col_idx[k]] itself.
 //
+// The segment-reduce entries (vgl_segment_reduce_*) take no col_idx: the
+// message of slot k is x[k] itself, one value per CSR slot, so they reduce
+// per-edge messages over the sorted segments of row_ptr (the general advance,
+// ops/advance.advance_pull, makes the messages with the user's edge op). Same
+// ops, types, work units and fixed order; no weights and no self-loop test.
+//
 // Replaces, on the advance's path, the chain that ran the TPU route kernels of
 // vectorgraphlibrary_tpu/ops/pallas/route_fused.py (_mid_kernel, _big_kernel
 // and the _finish epilogue, whose port is csrc/route_gather.cu): a vertex
@@ -107,7 +113,7 @@ __device__ __forceinline__ C join(int wop, C a, C w) {
   }
 }
 
-template <typename T, int OP, bool HAS_W>
+template <typename T, int OP, bool HAS_W, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 pull_reduce_kernel(const int32_t* __restrict__ row_ptr,
                    const int32_t* __restrict__ col_idx,
@@ -134,6 +140,15 @@ pull_reduce_kernel(const int32_t* __restrict__ row_ptr,
     // kUnroll predicated loads per round, all independent: a row of up to
     // kUnroll * g edges takes one round trip for col_idx and one for x
     for (int k = __ldg(row_ptr + row) + lane; k < end; k += kUnroll * g) {
+      if constexpr (SEG) {          // the messages are x's slots themselves
+        C m[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          m[u] = k + u * g < end ? (C)__ldg(x + k + u * g) : id;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) acc = combine<OP, C>(acc, m[u]);
+        continue;
+      }
       int c[kUnroll];
       C ew[HAS_W ? kUnroll : 1];
 #pragma unroll
@@ -172,14 +187,19 @@ template <typename T, int OP>
 void launch_op(unsigned grid, cudaStream_t st, const int32_t* rp,
                const int32_t* ci, const T* xp, const T* wp, int wop, T* o,
                const Segs& segs, int exclude_self_loops, T ident) {
+  if (ci == nullptr) {
+    pull_reduce_kernel<T, OP, false, true><<<grid, kThreads, 0, st>>>(
+        rp, nullptr, xp, nullptr, 0, o, segs, 0, ident);
+    return;
+  }
   if constexpr (!std::is_same<T, int8_t>::value) {
     if (wp != nullptr) {
-      pull_reduce_kernel<T, OP, true><<<grid, kThreads, 0, st>>>(
+      pull_reduce_kernel<T, OP, true, false><<<grid, kThreads, 0, st>>>(
           rp, ci, xp, wp, wop, o, segs, exclude_self_loops, ident);
       return;
     }
   }
-  pull_reduce_kernel<T, OP, false><<<grid, kThreads, 0, st>>>(
+  pull_reduce_kernel<T, OP, false, false><<<grid, kThreads, 0, st>>>(
       rp, ci, xp, nullptr, 0, o, segs, exclude_self_loops, ident);
 }
 
@@ -189,9 +209,11 @@ int launch(const void* row_ptr, const void* col_idx, const void* x,
            const int* group, int n_segs, int exclude_self_loops, int op,
            T ident, void* stream) {
   if (n_segs < 1 || n_segs > kMaxSegs) return (int)cudaErrorInvalidValue;
-  // edge values come with a join op, and not with 1-byte values
+  // edge values come with a join op, and not with 1-byte values; the
+  // segment reduction (no col_idx) takes neither them nor the self-loop test
   if ((w != nullptr) != (wop != 0) || wop < 0 || wop > WOP_MUL ||
-      (w != nullptr && std::is_same<T, int8_t>::value))
+      (w != nullptr && std::is_same<T, int8_t>::value) ||
+      (col_idx == nullptr && (w != nullptr || exclude_self_loops)))
     return (int)cudaErrorInvalidValue;
   Segs segs;
   segs.n = n_segs;
@@ -275,6 +297,29 @@ int vgl_pull_reduce_i8(const void* row_ptr, const void* col_idx,
                        void* stream) {
   return launch<int8_t>(row_ptr, col_idx, x, w, wop, out, row_end, group,
                         n_segs, exclude_self_loops, op, (int8_t)ident, stream);
+}
+
+// The segment reduction: out[v] = op over k in row v of x[k], x one value per
+// CSR slot (as long as the CSR's slots at least).
+int vgl_segment_reduce_f32(const void* row_ptr, const void* x, void* out,
+                           const int* row_end, const int* group, int n_segs,
+                           int op, float ident, void* stream) {
+  return launch<float>(row_ptr, nullptr, x, nullptr, 0, out, row_end, group,
+                       n_segs, 0, op, ident, stream);
+}
+
+int vgl_segment_reduce_i32(const void* row_ptr, const void* x, void* out,
+                           const int* row_end, const int* group, int n_segs,
+                           int op, int ident, void* stream) {
+  return launch<int32_t>(row_ptr, nullptr, x, nullptr, 0, out, row_end, group,
+                         n_segs, 0, op, (int32_t)ident, stream);
+}
+
+int vgl_segment_reduce_i8(const void* row_ptr, const void* x, void* out,
+                          const int* row_end, const int* group, int n_segs,
+                          int op, int ident, void* stream) {
+  return launch<int8_t>(row_ptr, nullptr, x, nullptr, 0, out, row_end, group,
+                        n_segs, 0, op, (int8_t)ident, stream);
 }
 
 }  // extern "C"

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import VGLConfig, DEFAULT_CONFIG, TraversalDirection
+from ..config import GraphFormat, VGLConfig, DEFAULT_CONFIG, TraversalDirection
 from ..io.edges_container import EdgesContainer
 from ..ops.route import RoutePlan, make_route_plan
 from .build import build_directed_csr
@@ -129,7 +129,12 @@ class VGLGraph:
     persistence needs it). The vertex
     routes change orderings: forward gives the left ordering's values from the
     right ordering's (scatter_vals = apply_route(s_from_g, gather_vals)),
-    inverse the reverse."""
+    inverse the reverse.
+
+    ``graph_format`` is the format the graph was imported as. Every format
+    keeps the same degree-sorted CSR and tiles here, since every advance of
+    the port runs over the CSR; only TILE_CSR builds the advance route, as
+    in the reference."""
 
     outgoing: DeviceDirectedGraph
     incoming: DeviceDirectedGraph
@@ -142,10 +147,20 @@ class VGLGraph:
     e: int
     out_slots: int
     in_slots: int
+    graph_format: GraphFormat = GraphFormat.TILE_CSR
 
     @property
     def device(self) -> torch.device:
         return self.outgoing.degrees.device
+
+    def derived(self, key, build):
+        """A device structure derived from this graph (such as a transposed
+        CSR), made by build() at the first call with `key` and kept with the
+        graph. It is no field: graphs compare, save and load without it."""
+        cache = self.__dict__.setdefault("_derived", {})
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
 
     def direction(self, d: TraversalDirection) -> DeviceDirectedGraph:
         if d == TraversalDirection.SCATTER:
@@ -156,7 +171,8 @@ class VGLGraph:
 
 
 def from_host(h_out, h_in, selfloop_edges: np.ndarray, v: int, e: int,
-              device="cuda", build_route: bool = True) -> VGLGraph:
+              device="cuda", build_route: bool = True,
+              graph_format: GraphFormat = GraphFormat.TILE_CSR) -> VGLGraph:
     """VGLGraph from the two host CSRs (graph/build.py HostDirectedCSR; the
     JAX package's, from its import_graph(ec, _host_out=...), works as well).
     selfloop_edges: bool [e] over COO edge ids. build_route=False leaves
@@ -185,21 +201,34 @@ def from_host(h_out, h_in, selfloop_edges: np.ndarray, v: int, e: int,
                     vertex_route_s_from_o=make_route_plan(o_of_s, device=device),
                     vertex_route_g_from_o=make_route_plan(o_of_g, device=device),
                     v=v, v_pad=out.v_pad, e=e, out_slots=out_slots,
-                    in_slots=in_slots)
+                    in_slots=in_slots, graph_format=graph_format)
 
 
 def import_graph(ec: EdgesContainer, cfg: VGLConfig = DEFAULT_CONFIG,
+                 graph_format: GraphFormat = GraphFormat.TILE_CSR,
                  device="cuda", _host_out: Optional[list] = None,
-                 build_route: bool = True) -> VGLGraph:
+                 build_route: bool = True,
+                 keep_edge_slots: Optional[bool] = None) -> VGLGraph:
     """COO → VGLGraph (both directions, tiles, the flagged advance route and
     the three vertex routes), reference vgl_graph.hpp:60-64. _host_out: a
     list that receives the two host CSRs (outgoing, incoming), which
     graph.edges.build_edge_array_from_host needs to lay out edge values.
     build_route=False skips only the advance route (from_host), as
-    models/tc.reachability does for its condensed graph."""
+    models/tc.reachability does for its condensed graph.
+
+    graph_format (reference device.py:184-247): only TILE_CSR builds the
+    advance route; every format keeps the CSR and tiles (VGLGraph says
+    why). keep_edge_slots is accepted for the reference's signature and
+    stores nothing: the reference keeps per-slot edge indices on the device
+    to lay out its tile copies of edge values, and the port keeps no such
+    copies (graph/edges.py); the host CSRs' edge_perm (_host_out) lays out
+    values in CSR slot order."""
+    del keep_edge_slots
     h_out = build_directed_csr(ec.src_ids, ec.dst_ids, ec.vertices_count, cfg)
     h_in = build_directed_csr(ec.dst_ids, ec.src_ids, ec.vertices_count, cfg)
     if _host_out is not None:
         _host_out.extend([h_out, h_in])
     return from_host(h_out, h_in, ec.src_ids == ec.dst_ids, ec.vertices_count,
-                     ec.edges_count, device, build_route)
+                     ec.edges_count, device,
+                     build_route and graph_format == GraphFormat.TILE_CSR,
+                     graph_format)

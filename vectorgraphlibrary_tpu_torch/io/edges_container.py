@@ -35,6 +35,16 @@ class EdgesContainer:
     def edges_count(self) -> int:
         return int(self.src_ids.shape[0])
 
+    def derived(self, key, build):
+        """A structure derived from these edges (such as max-flow's residual
+        graph), made by build() at the first call with `key` and kept with
+        the container, whose arrays are not changed once it is made. It is
+        no field: containers compare and save without it."""
+        cache = self.__dict__.setdefault("_derived", {})
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
     def transposed(self) -> "EdgesContainer":
         """O(1) transpose via array swap (reference edges_list transpose)."""
         return EdgesContainer(self.dst_ids, self.src_ids, self.vertices_count,

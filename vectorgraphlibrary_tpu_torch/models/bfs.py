@@ -294,11 +294,12 @@ def vgl_msbfs(graph: VGLGraph, source_vertices,
     return VertexArray(values=levels[:k].to(torch.int32), direction=S)
 
 
-def seq_top_down(ec, source_vertex: int) -> np.ndarray:
+def seq_top_down(ec, source_vertex) -> np.ndarray:
     """Sequential oracle: BFS levels, source=1, unvisited=-1 (reference
     seq_bfs); scipy, original ids. The matrix is bool, so duplicate edges
     cannot wrap an int8 sum into a negative weight (unweighted search reads
-    no weights either way)."""
+    no weights either way). source_vertex may be a list of vertices: then
+    one row of levels per source, from one build of the matrix."""
     import scipy.sparse as sp
     import scipy.sparse.csgraph as csg
     v = ec.vertices_count
@@ -306,7 +307,7 @@ def seq_top_down(ec, source_vertex: int) -> np.ndarray:
                        (ec.src_ids, ec.dst_ids)), shape=(v, v))
     hops = csg.shortest_path(a, method="D", unweighted=True, directed=True,
                              indices=source_vertex)
-    levels = np.full(v, UNVISITED, np.int32)
+    levels = np.full(hops.shape, UNVISITED, np.int32)
     reach = ~np.isinf(hops)
     levels[reach] = hops[reach].astype(np.int32) + FIRST_LEVEL
     return levels

@@ -255,8 +255,10 @@ def vgl_dijkstra_multi(graph: VGLGraph, weights: EdgeArray, source_vertices,
     return VertexArray(values=torch.stack(rows), direction=G)
 
 
-def seq_dijkstra(ec, source_vertex: int) -> np.ndarray:
-    """Sequential oracle via SciPy Dijkstra; unreachable = +inf."""
+def seq_dijkstra(ec, source_vertex) -> np.ndarray:
+    """Sequential oracle via SciPy Dijkstra; unreachable = +inf.
+    source_vertex may be a list of vertices: then one row of distances per
+    source, from one build of the matrix."""
     import scipy.sparse as sp
     import scipy.sparse.csgraph as csg
     v = ec.vertices_count

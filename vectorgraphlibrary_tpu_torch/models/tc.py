@@ -217,7 +217,18 @@ def seq_oriented_triangle_count(u_e: np.ndarray, v_e: np.ndarray,
     """Oracle on the oriented edges (_oriented_simple_edges): the sum of
     (A+ · A+) ∘ A+, which forms only the oriented wedges and so stays cheap
     where the hubs' full neighbourhoods make seq_triangle_count's A · A
-    large."""
+    large. Summed over 8 row chunks per host core, one thread per core
+    (scipy's sparse product releases the GIL)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
     import scipy.sparse as sp
     a = sp.csr_matrix((np.ones(len(u_e), np.int64), (u_e, v_e)), shape=(v, v))
-    return int((a @ a).multiply(a).sum())
+    workers = len(os.sched_getaffinity(0))
+    bounds = np.linspace(0, v, 8 * workers + 1).astype(np.int64)
+
+    def rows(r0, r1):
+        b = a[r0:r1]
+        return int((b @ a).multiply(b).sum())
+    with ThreadPoolExecutor(workers) as ex:
+        return sum(ex.map(rows, bounds[:-1], bounds[1:]))

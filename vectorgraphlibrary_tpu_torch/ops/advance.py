@@ -1,5 +1,6 @@
 """Advance: edge traversal — the framework's hot path (port of the fused
-value-pull and the sparse push of vectorgraphlibrary_tpu/ops/advance.py).
+value-pull, the general pull and the sparse push of
+vectorgraphlibrary_tpu/ops/advance.py).
 
 The reference's fused pull broadcasts the source vector over the source
 tiles, moves one message per edge slot through the advance route (a Beneš
@@ -15,6 +16,16 @@ kernel (ops/cuda/pull_reduce.py), after one vertex route when the input is in
 the source side's ordering. The edge values w come from an EdgeArray's copy
 in CSR slot order (graph/edges.py). `advance_cells` keeps the tile pass, for
 structural counts such as self-loops.
+
+`advance_pull` is the general form: a user edge op over named source and
+destination arrays and the edge values. The reference runs it over its tiles
+(TILE_CSR, CSR_VG), as an edge-parallel sorted segment reduction (CSR) or as
+a scatter-combine (EDGES_LIST); here one CSR form serves every format: a
+gather per edge, the edge op on [E, 1] tensors, inactive sources' messages
+set to the identity, and one launch of the CSR kernel's segment-reduce entry
+(ops/cuda/pull_reduce.segment_reduce). `advance_pull_fast` and
+`advance_pull_routed` are the reference's two faster ways to run it, and
+names for the same form here.
 
 `advance_push_sparse` is the work-efficient push from a compacted frontier
 for any edge op: it expands the frontier's CSR rows into a flat edge list of
@@ -37,7 +48,7 @@ from ..graph.edges import DirectedEdgeValues
 from . import monoid as M
 from . import tiles as T
 from .cuda.pull_reduce import BLOCK as PULL_BLOCK, UNROLL as PULL_UNROLL
-from .cuda.pull_reduce import pull_reduce
+from .cuda.pull_reduce import pull_reduce, segment_reduce
 from .cuda.push_expand import push_expand
 from .route import apply_route
 
@@ -142,6 +153,103 @@ def advance_pull_value(graph: VGLGraph,
         # strictly-positive test, not a cast (reference advance.py:605-609)
         out = out > 0
     return out
+
+
+def _slot_rows(dg: DeviceDirectedGraph) -> torch.Tensor:
+    """Owning row (the direction's sorted vertex id) of each of the CSR's e
+    real slots."""
+    return torch.repeat_interleave(
+        torch.arange(dg.v_pad, dtype=torch.int32, device=dg.col_idx.device),
+        dg.degrees.long(), output_size=dg.e)
+
+
+def advance_pull(graph: VGLGraph,
+                 src_arrays: Dict[str, torch.Tensor],
+                 edge_op: Callable,
+                 combine,
+                 dst_arrays: Optional[Dict[str, torch.Tensor]] = None,
+                 edge_values: Optional[DirectedEdgeValues] = None,
+                 src_active: Optional[torch.Tensor] = None,
+                 direction: TraversalDirection = TraversalDirection.GATHER,
+                 out_dtype=None) -> torch.Tensor:
+    """Aggregate over the incoming edges of every vertex (the reference's
+    gather-mode advance, advance.py:119-197, and its CSR form :82-117).
+
+    ``src_arrays`` and ``dst_arrays`` hold [v_pad] values per vertex in the
+    traversal direction's ordering; ``edge_op(src_vals, dst_vals, w)`` gets
+    the edges' [E, 1] slices of them (src_vals[k]: the source's value,
+    dst_vals[k]: the destination's, w: ``edge_values``'s, the direction's, or
+    None) and returns [E, 1] messages, combined per destination. The result
+    is [v_pad] in that ordering, of out_dtype or the messages' type, with
+    the identity for a vertex without messages. ``src_active`` (bool [v_pad])
+    keeps only the messages of active sources: a mask after the edge op,
+    exact for any op (advance_pull_value instead puts an identity into the
+    source vector before its pull). One segment-reduce launch on the card;
+    float sums differ from the reference's tiled ones only in order."""
+    mon = M.get(combine)
+    dg = graph.direction(direction)
+    cols = dg.col_idx[:dg.e].long()
+    sv = {k: a[cols][:, None] for k, a in src_arrays.items()}
+    dv = {}
+    if dst_arrays:
+        rows = _slot_rows(dg).long()
+        dv = {k: a[rows][:, None] for k, a in dst_arrays.items()}
+    w = None if edge_values is None else edge_values.flat[:dg.e, None]
+    msg = edge_op(sv, dv, w)[:, 0]
+    if out_dtype is not None:
+        msg = msg.to(out_dtype)
+    is_bool = msg.dtype == torch.bool
+    if is_bool:
+        # bool messages reduce as int8 (or and max as any01 over {0, 1})
+        msg = msg.to(torch.int8)
+        if mon.name in ("or", "max"):
+            mon = M.ANY01
+    if src_active is not None:
+        msg = torch.where(src_active[cols], msg,
+                          mon.identity(msg.dtype).to(msg.device))
+    out = segment_reduce(dg.row_ptr, msg.contiguous(), mon.name,
+                         row_groups(dg))
+    return out.to(torch.bool) if is_bool else out
+
+
+# the reference's routed, gather-free way to run advance_pull
+# (advance.py:338-435): the same function and the same src_active mask
+advance_pull_fast = advance_pull
+
+
+def advance_pull_routed(graph: VGLGraph,
+                        src_vec: torch.Tensor,
+                        edge_op: Callable,
+                        combine,
+                        edge_values: Optional[DirectedEdgeValues] = None,
+                        src_active: Optional[torch.Tensor] = None,
+                        direction: TraversalDirection
+                        = TraversalDirection.GATHER,
+                        out_dtype=None) -> torch.Tensor:
+    """The reference's gather-free advance (advance.py:227-317) as the CSR
+    form: ``src_vec`` (and ``src_active``) in the SOURCE side's sorted
+    ordering (SCATTER when direction=GATHER and vice versa), the result in
+    the direction's. ``edge_op(vals, src_ids, dst_ids, w)`` gets [E, 1]
+    tensors: the sources' values, their ids and the destinations' ids in the
+    direction's ordering, and the edge values. An inactive source's value is
+    replaced by the combine's identity BEFORE the edge op, as there (the
+    algorithms' ops keep it: linear in vals for add, monotone for min/max)."""
+    mon = M.get(combine)
+    if src_active is not None:
+        ident = 0 if mon.name in ("add", "or", "any01") \
+            else mon.identity(src_vec.dtype).item()
+        src_vec = torch.where(src_active, src_vec,
+                              torch.tensor(ident, dtype=src_vec.dtype,
+                                           device=src_vec.device))
+    # S -> G is the inverse of s_from_g, G -> S its forward
+    src_vec = apply_route(graph.vertex_route_s_from_g, src_vec,
+                          inverse=direction == TraversalDirection.GATHER)
+    ids = torch.arange(graph.v_pad, dtype=torch.int32, device=src_vec.device)
+    return advance_pull(
+        graph, {"x": src_vec, "id": ids},
+        lambda s, d, w: edge_op(s["x"], s["id"], d["id"], w), combine,
+        dst_arrays={"id": ids}, edge_values=edge_values, direction=direction,
+        out_dtype=out_dtype)
 
 
 def advance_cells(graph: VGLGraph,

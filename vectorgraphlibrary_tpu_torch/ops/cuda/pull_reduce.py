@@ -25,6 +25,12 @@ classes.
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the hand-written kernel (built by nvcc for sm_90a at first use) or
 raises. There is no fallback from one to the other.
+
+`segment_reduce(row_ptr, x, op, groups)` is the same kernel's entry without
+col_idx: out[v] = op over k in row v of x[k], x one message per CSR slot.
+It reduces the per-edge messages of the general advance
+(ops/advance.advance_pull) over the direction's rows, with the same ops,
+types, work units and fixed order, and keeps its own launch count.
 """
 from __future__ import annotations
 
@@ -53,6 +59,12 @@ _LAUNCH = {dtype: build.Launcher(name, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                (torch.float32, "vgl_pull_reduce_f32", ctypes.c_float),
                (torch.int32, "vgl_pull_reduce_i32", _I),
                (torch.int8, "vgl_pull_reduce_i8", _I))}
+# row_ptr, x, out, row ends, threads per row, groups, op, ident
+_SEGMENT = {dtype: build.Launcher(name, _P, _P, _P, _P, _P, _I, _I, ident_t)
+            for dtype, name, ident_t in (
+                (torch.float32, "vgl_segment_reduce_f32", ctypes.c_float),
+                (torch.int32, "vgl_segment_reduce_i32", _I),
+                (torch.int8, "vgl_segment_reduce_i8", _I))}
 
 
 def _check_weights(weights, weight_op) -> None:
@@ -157,3 +169,55 @@ def pull_reduce(row_ptr: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
 
 
 pull_reduce.launches = 0
+
+
+def segment_reduce_ref(row_ptr: torch.Tensor, x: torch.Tensor,
+                       op: str) -> torch.Tensor:
+    """Plain PyTorch version of the segment-reduce entry (same result; f32
+    sums in another order): Monoid.segment_reduce of x's first row_ptr[-1]
+    slots over the rows' lengths."""
+    degs = (row_ptr[1:] - row_ptr[:-1]).long()
+    return M.get(op).segment_reduce(x[:int(row_ptr[-1])], degs)
+
+
+def segment_reduce(row_ptr: torch.Tensor, x: torch.Tensor, op: str,
+                   groups: Optional[Sequence[Tuple[int, int]]] = None
+                   ) -> torch.Tensor:
+    """out[v] = op over k in [row_ptr[v], row_ptr[v+1]) of x[k] (module
+    doc): the reduction of one message per CSR slot over the rows.
+
+    row_ptr: int32 [n+1]; x: f32, i32 or int8 with at least row_ptr[-1]
+    entries (or needs an integer type); groups: as for pull_reduce, default
+    one warp per row."""
+    if op not in _OPS:
+        raise ValueError(f"unknown segment_reduce op {op!r}")
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return segment_reduce_ref(row_ptr, x, op)
+        raise ValueError(f"segment_reduce: no kernel for {x.device}")
+    launch = _SEGMENT.get(x.dtype)
+    if launch is None or x.dim() != 1 or not x.is_contiguous():
+        raise TypeError(f"segment_reduce: x must be a contiguous 1-D f32, i32 "
+                        f"or int8 tensor, got {x.dtype} of shape "
+                        f"{tuple(x.shape)}")
+    if op == "or" and x.dtype.is_floating_point:
+        raise TypeError("segment_reduce: or needs an integer type")
+    dev = x.get_device()
+    if row_ptr.dtype != torch.int32 or row_ptr.dim() != 1 \
+            or row_ptr.get_device() != dev or not row_ptr.is_contiguous():
+        raise ValueError(f"segment_reduce: row_ptr must be a contiguous 1-D "
+                         f"int32 tensor on {x.device}")
+    n = row_ptr.shape[0] - 1
+    groups = tuple(groups) if groups is not None else ((n, 32),)
+    _check_groups(groups, n)
+    ident = M.get(op).identity(x.dtype).item()
+    row_end = (ctypes.c_int * len(groups))(*(r for r, _ in groups))
+    group = (ctypes.c_int * len(groups))(*(g for _, g in groups))
+    out = torch.empty(n, dtype=x.dtype, device=x.device)
+    launch(dev, row_ptr.data_ptr(), x.data_ptr(), out.data_ptr(), row_end,
+           group, len(groups), _OPS[op], ident)
+    segment_reduce.launches += 1
+    return out
+
+
+segment_reduce.launches = 0

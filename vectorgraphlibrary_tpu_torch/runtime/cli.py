@@ -5,14 +5,16 @@ Reference flag surface `vgl_runtime/helpers/cmd_parser/cmd_parser.hpp:58-228`:
 graph source (-load a binary .el_container, -import a KONECT text file, or a
 synthetic graph: -s/-e with -rmat/-ru, -seed), -check, -it, -dev, the
 variant flags -td/-bu/-do (BFS), -sv/-bfs-based (CC) and -purdoms/-bfs-based
-(TC) (cfg.algorithm_variant), and SSSP's -all-active/-partial-active and
--push/-pull (cfg.all_active, cfg.push_mode).
+(TC) (cfg.algorithm_variant), SSSP's -all-active/-partial-active and
+-push/-pull (cfg.all_active, cfg.push_mode), and -format (el, csr, csr_vg,
+vect_csr: cfg.graph_format; only vect_csr builds the advance route, and every
+format runs the same CSR kernels here).
 """
 from __future__ import annotations
 
 import argparse
 
-from ..config import VGLConfig, SyntheticGraphType
+from ..config import GraphFormat, VGLConfig, SyntheticGraphType
 
 
 def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
@@ -28,6 +30,10 @@ def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
                    help="average degree for synthetic graphs")
     p.add_argument("-rmat", dest="rmat", action="store_true", default=True)
     p.add_argument("-ru", "-random_uniform", dest="ru", action="store_true")
+    p.add_argument("-format", dest="graph_format", default="vect_csr",
+                   help="el, csr, csr_vg or vect_csr (the default); only "
+                        "vect_csr builds the advance route, and every format "
+                        "runs the same CSR kernels")
     p.add_argument("-check", dest="check", action="store_true")
     p.add_argument("-it", "-iterations", dest="iterations", type=int, default=10)
     p.add_argument("-push", dest="push", action="store_true",
@@ -63,6 +69,7 @@ def parse_args(argv=None, app: str = "vgl") -> VGLConfig:
         avg_degree=ns.avg_degree,
         synthetic_type=(SyntheticGraphType.RANDOM_UNIFORM if ns.ru
                         else SyntheticGraphType.RMAT),
+        graph_format=GraphFormat.parse(ns.graph_format),
         load_path=ns.load_path,
         import_path=ns.import_path,
         check=ns.check,

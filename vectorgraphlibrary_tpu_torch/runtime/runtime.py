@@ -37,7 +37,8 @@ def prepare_graph(cfg: VGLConfig, need_weights: bool = False, device="cuda"
     if need_weights and ec.weights is None:
         ec = ec.with_random_weights(cfg.seed + 1)
     host = []
-    graph = import_graph(ec, cfg, device=device, _host_out=host)
+    graph = import_graph(ec, cfg, cfg.graph_format, device=device,
+                         _host_out=host)
     weights = None
     if need_weights:
         weights = build_edge_array_from_host(ec.weights, graph, host[0],
