@@ -68,8 +68,11 @@ result line):
    index_select, the earlier wrapper path and each step alone); the
    RMAT-20 vertex route by events and on the device, beside
    index_select and its bound; and scatter_combine's int32 min of 2^16
-   messages into 2^20 (K4's row) again, beside scatter_reduce and
-   index_add in turns, by events and on the device;
+   messages into 2^20 (K4's row) again, and its int32 add, beside
+   scatter_reduce and index_add, and the in-place entry scatter_combine_
+   (min and add, first held bit for bit against the plain version) beside
+   index_add_, in turns, by events and on the device, with a bound for
+   each entry (in place: the target's sectors that the messages touch);
 10. slice: the fixpoint family on the weighted RMAT-20 graph, sources as
    bench.py picks them: vgl_dijkstra_all_active and
    vgl_dijkstra_partial_device on 2 sources (equal bit for bit, error count
@@ -90,7 +93,11 @@ result line):
    shuffled, a ragged last chunk, runs straddling chunks, an empty edge
    list, and bitmaps of 1, 8, 33 and 512 words with hub rows; kernel,
    plain, one-call PyTorch (index_add; none for and_popcount), bound and
-   the design's floor, and the kernel over one triangle count's blocks;
+   the design's floor, and the kernel over one triangle count's blocks; the
+   bitmap build as models/tc._tc_build_bits runs it (a zero fill and the
+   in-place add, bit for bit against the copying entry and the plain
+   version in place) beside torch.zeros + index_add_, and the count's 16
+   builds in place beside the same builds with the copying entry;
 12. slice: on the phase-4 RMAT-18 graph, vgl_forward_backward
    (equal_components 0 against seq_scc; per trim round 2 pull_reduce and 4
    route_gather_finish, per flood hop 1 and 2), vgl_coloring(ec=...)
@@ -111,10 +118,12 @@ result line):
    plain version (run in f64; rtol 1e-5, atol 1e-6) over the GATHER CSR at F
    = 100 and 256 and over the transposed CSR (the backward's) at 256, two
    runs bit-identical, integer-valued rows bit for bit, with kernel, plain,
-   torch.sparse.mm times, bound and the design's floor; aggregate_mean
-   against seq_aggregate_mean; 5 full-aggregation Adam steps (exactly 3
-   pull_rows launches each and no other kernel, finite losses, the last
-   below the first), ms per step and peak memory; 3 sampled steps (fan-outs
+   torch.sparse.mm times, bound, the all-DRAM floor (every edge's row from
+   device memory) and the launch shape (floats per lane, chunk width, and
+   the share of edges whose row is read under L2's evict_last);
+   aggregate_mean against seq_aggregate_mean; 5 full-aggregation Adam
+   steps (exactly 3 pull_rows launches each and no other kernel, finite
+   losses, the last below the first), ms per step and peak memory; 3 sampled steps (fan-outs
    25 and 10) on the RMAT-18 graph of phase 4 (no kernel launched);
 14. slice: max-flow on the RMAT-18 graph, prepared as apps/mf.py does
    (without self-loops and duplicates, capacities from default_rng(42)),
@@ -1637,7 +1646,33 @@ def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
     print(f"  scatter_combine add, triangle bitmap bound "
           f"{build['bound_ms']:.4f} ms")
     add["triangle_bitmap"] = build
-    del zeros
+    # the build as models/tc._tc_build_bits runs it: a zero fill and the
+    # in-place add (scatter_combine_), beside torch.zeros + index_add_;
+    # the bound counts the bitmap written once and 8 bytes per edge
+    built = tc._tc_build_bits(ub, vb, nv, words).view(-1)
+    sc_err = max(sc_err, exact(
+        "scatter_combine_", f"_tc_build_bits, {n_build} bits -> "
+        f"[{nv + 1}, {words}]", built, bits))
+    plain_in_place = scm.scatter_combine_ref_(torch.zeros_like(zeros),
+                                              flat_idx, bit, "add")
+    sc_err = max(sc_err, exact("scatter_combine_", "plain version in place",
+                               built, plain_in_place))
+    del built, plain_in_place
+    fidx = flat_idx.long()
+    build_in_place = dict(
+        ms=_median3("_tc_build_bits (zero fill + scatter_combine_)", "ms",
+                    [_cuda_ms(lambda: tc._tc_build_bits(ub, vb, nv, words),
+                              reps=3) for _ in range(3)], smi),
+        library_ms=_median3(
+            "triangle bitmap, torch.zeros + index_add_", "ms",
+            [_cuda_ms(lambda: torch.zeros(n_bits, dtype=torch.int32,
+                                          device=dev).index_add_(
+                0, fidx, bit), reps=3) for _ in range(3)], smi),
+        bound_ms=_bound_ms(4 * n_bits + 8 * n_build))
+    print(f"  _tc_build_bits (zero fill + in-place add) bound "
+          f"{build_in_place['bound_ms']:.4f} ms")
+    add["triangle_bitmap_in_place"] = build_in_place
+    del zeros, fidx
 
     bits = bits.view(nv + 1, words)
     chunk = 1 << 15
@@ -1682,19 +1717,35 @@ def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
     del bits
     # one triangle count's launches: every column block with pairs, its
     # bitmap built as the count builds it
-    per_block = []
+    per_block, builds, copy_builds = [], [], []
     for n_p, cb, _ in sizes:
         if n_p == 0:
             continue
         mb, eb = block(cb)
-        bb = tc._tc_build_bits(ud[mb], vd[mb] - cb, nv, words)
+        ub_c, vb_c = ud[mb], vd[mb] - cb
+        bb = tc._tc_build_bits(ub_c, vb_c, nv, words)
         ua, va = ud[eb], vd[eb]
         per_block.append(_cuda_ms(lambda: ap.and_popcount(bb, ua, va, chunk),
                                   reps=3))
         del bb
+        # the build as the count runs it, and as it ran with the copying
+        # entry (a zero fill, the copy of it, the kernel), in turns
+        bidx = ub_c * words + (vb_c >> 5)
+        bbit = torch.bitwise_left_shift(torch.ones_like(vb_c), vb_c & 31)
+        builds.append(_cuda_ms(lambda: tc._tc_build_bits(ub_c, vb_c, nv,
+                                                         words), reps=3))
+        copy_builds.append(_cuda_ms(lambda: scm.scatter_combine(
+            torch.zeros(n_bits, dtype=torch.int32, device=dev), bidx, bbit,
+            "add"), reps=3))
     print(f"  and_popcount over one triangle count's {len(per_block)} "
           f"launches: {sum(per_block):.4f} ms (per block: "
           f"{', '.join(f'{t:.4f}' for t in per_block)}) on {smi}")
+    print(f"  the count's {len(builds)} bitmap builds: {sum(builds):.4f} ms "
+          f"in place (zero fill + scatter_combine_), {sum(copy_builds):.4f}"
+          f" ms with the copying entry; {sum(copy_builds) - sum(builds):.4f}"
+          f" ms less on {smi}")
+    add["triangle_count_builds_ms"] = sum(builds)
+    add["triangle_count_builds_copying_ms"] = sum(copy_builds)
     pc = dict(max_err=pc_err, ms=k_ms, plain_ms=p_ms, library_ms=None,
               bound_ms=max(bytes_ms, ops_ms),
               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -1958,8 +2009,9 @@ def _rows_check(prw, label: str, csr, x) -> float:
 def _rows_times(prw, label: str, csr, x, e: int, smi: str) -> dict:
     """Kernel, f32 plain version and torch.sparse.mm of the CSR with ones
     (the one-call yardstick), medians of 3 by events; the bound (row_ptr,
-    col_idx, x read once, out written once) and the design's floor (each
-    edge's row from device memory)."""
+    col_idx, x read once, out written once), the all-DRAM floor (each
+    edge's row from device memory), the kernel's lanes and the share of
+    edges whose row it reads under L2's evict_last."""
     row_ptr, col_idx = csr.row_ptr, csr.col_idx
     n, f = row_ptr.shape[0] - 1, x.shape[1]
     k_ms = _median3(f"pull_rows {label}, kernel", "ms", [_cuda_ms(
@@ -1976,11 +2028,16 @@ def _rows_times(prw, label: str, csr, x, e: int, smi: str) -> dict:
         row_ptr, col_idx, x.double())).abs().max().item()
     bound = _bound_ms((n + 1) * 4 + e * 4 + x.shape[0] * f * 4 + n * f * 4)
     floor = _bound_ms(e * f * 4)
-    print(f"  pull_rows {label}: bound {bound:.4f} ms, the design's floor "
-          f"(every edge's row from device memory) {floor:.4f} ms; "
-          f"torch.sparse.mm's max abs err {lib_err}")
+    vec, cv, n_chunks = prw.lanes(f, x.data_ptr() | 4 * f)
+    hot = float((col_idx[:e] < prw.L2_LAST_ROWS).sum()) / e
+    print(f"  pull_rows {label}: bound {bound:.4f} ms, every edge's row "
+          f"from device memory {floor:.4f} ms; torch.sparse.mm's max abs err "
+          f"{lib_err}; {vec} floats per lane, chunks of {cv * vec} floats "
+          f"({n_chunks}); columns below {prw.L2_LAST_ROWS} (L2 evict_last): "
+          f"{100 * hot:.1f} % of the edges")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib, bound_ms=bound,
-                floor_ms=floor)
+                floor_ms=floor, chunk_floats=cv * vec, floats_per_lane=vec,
+                l2_last_rows=prw.L2_LAST_ROWS, l2_last_edge_share=hot)
 
 
 def phase_sage(kernels: dict, prw, ec, graph, small_graph, smi: str) -> dict:
@@ -2262,9 +2319,15 @@ def phase_mf(kernels: dict, pl, ec, smi: str) -> dict:
 def _k4_retime(scm, smi: str) -> dict:
     """K4's row under the launch path of build.Launcher: scatter_combine's
     int32 min of 2^16 messages (an eighth dropped) into 2^20, as phase 5
-    times it, beside scatter_reduce and index_add of the messages that land,
-    in turns, means of 100 launches by events, medians of 3, and each on the
-    device by torch.profiler."""
+    times it, beside scatter_reduce and index_add of the messages that land;
+    the int32 add the same way; and the in-place entry scatter_combine_
+    (min and add, into a target of its own) beside index_add_; in turns,
+    means of 100 launches by events, medians of 3, and each on the device by
+    torch.profiler. The in-place calls combine into the same target again
+    and again, which changes its values but not the work. Two bounds: the
+    copying entry's reads and writes the whole target; the in-place
+    entry's only the 32-byte sectors of it that the landing messages
+    touch, each read and written once."""
     rng = np.random.default_rng(SEED)
     v = 1 << 20
     dev = torch.device(DEVICE)
@@ -2280,24 +2343,47 @@ def _k4_retime(scm, smi: str) -> dict:
     msg = i32(1 << 16)
     keep = idx < v
     idx_in, msg_in = idx[keep].long(), msg[keep]
+    t_min, t_add, t_lib = out.clone(), out.clone(), out.clone()
+    # the in-place entry equals the copying one and the plain version
+    for op, t in (("min", t_min), ("add", t_add)):
+        got = scm.scatter_combine_(t, idx, msg, op)
+        want = scm.scatter_combine_ref(out, idx, msg, op)
+        torch.cuda.synchronize()
+        if got is not t or not torch.equal(got, want) or not torch.equal(
+                got, scm.scatter_combine(out, idx, msg, op)):
+            raise AssertionError(f"scatter_combine_ {op} != plain version")
+        print(f"  scatter_combine_ (in place) int32 {op} 2^16 -> 2^20: "
+              f"bit-exact against the plain version and the copying entry")
     calls = {"kernel": lambda: scm.scatter_combine(out, idx, msg, "min"),
              "scatter_reduce": lambda: torch.scatter_reduce(
                  out, 0, idx_in, msg_in, "amin"),
-             "index_add": lambda: torch.index_add(out, 0, idx_in, msg_in)}
+             "index_add": lambda: torch.index_add(out, 0, idx_in, msg_in),
+             "kernel_add": lambda: scm.scatter_combine(out, idx, msg, "add"),
+             "kernel_in_place_min": lambda: scm.scatter_combine_(
+                 t_min, idx, msg, "min"),
+             "kernel_in_place_add": lambda: scm.scatter_combine_(
+                 t_add, idx, msg, "add"),
+             "index_add_": lambda: t_lib.index_add_(0, idx_in, msg_in)}
     runs = {k: [] for k in calls}
     for _ in range(3):
         for k, fn in calls.items():
             runs[k].append(_cuda_ms(fn, reps=100))
-    label = "scatter_combine int32 min 2^16 -> 2^20 (K4's row, again)"
+    label = "scatter_combine int32 2^16 -> 2^20 (K4's row, again)"
     ms = {k: _median3(f"{label}, {k}", "ms", r, smi) for k, r in runs.items()}
     ms["plain"] = _median3(f"{label}, plain", "ms", [_cuda_ms(
         lambda: scm.scatter_combine_ref(out, idx, msg, "min"))
         for _ in range(3)], smi)
     device = {k: _profiled_ms(fn)["total"] for k, fn in calls.items()}
-    bound = _bound_ms(8 * v + 4 * idx.shape[0] + 4 * idx_in.shape[0])
+    msg_bytes = 4 * idx.shape[0] + 4 * idx_in.shape[0]
+    bound = _bound_ms(8 * v + msg_bytes)
+    sectors = torch.unique(idx_in >> 3).numel()
+    bound_in_place = _bound_ms(2 * 32 * sectors + msg_bytes)
     print(f"  {label}: device ms per call by torch.profiler {device}, bound "
-          f"{bound:.4f} ms")
-    return dict(events_ms=ms, device_ms=device, bound_ms=bound)
+          f"{bound:.4f} ms copying, {bound_in_place:.4f} ms in place "
+          f"({sectors} sectors of the target touched) on {smi}")
+    return dict(events_ms=ms, device_ms=device, bound_ms=bound,
+                bound_in_place_ms=bound_in_place,
+                sectors_touched=sectors)
 
 
 def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, pr_ec, oriented, core,
@@ -2511,7 +2597,7 @@ def main() -> int:
             push["scatter"], device_ms=push["scatter"]["device_ms"],
             library_device_ms=push["scatter"]["library_device_ms"],
             f32_min={k: v for k, v in wk["scatter"].items()},
-            int32_add=k6["add"], int32_min_retimed=wk["k4"]),
+            int32_add=k6["add"], int32_retimed_and_in_place=wk["k4"]),
         row("push_expand", "push_expand.cu", REPLACES_SCATTER, push["push"],
             device_ms=push["push"]["device_ms"]),
         row("lane_shuffle", "lane_shuffle.cu", REPLACES_LANE, lsr),

@@ -469,6 +469,82 @@ def test_scatter_combine_f32_equals_plain_version(cuda, case, op):
         assert torch.equal(got, out)
 
 
+def _scatter_inputs(rng, case, dtype, op):
+    n_out, n, kind = SCATTER_CASES[case]
+    if kind == "dup":
+        idx = rng.integers(0, 5, n)
+    elif kind == "drop":
+        idx = np.where(rng.random(n) < 0.5, n_out + rng.integers(0, 9, n),
+                       -1 - rng.integers(0, 9, n))
+    else:
+        idx = rng.integers(0, n_out, n)
+        idx[rng.random(n) < 1 / 8] = n_out
+        idx[rng.random(n) < 1 / 64] = -3
+    if dtype == "i32":
+        out, msg = _i32(rng, n_out), _i32(rng, n)
+    else:
+        out = rng.standard_normal(n_out).astype(np.float32) * 100
+        out[::5] = np.inf if op == "min" else -np.inf
+        msg = rng.standard_normal(n).astype(np.float32) * 100
+    return (torch.from_numpy(out).cuda(),
+            torch.from_numpy(idx.astype(np.int32)).cuda(),
+            torch.from_numpy(msg).cuda())
+
+
+@pytest.mark.parametrize("dtype,op", [("i32", "min"), ("i32", "max"),
+                                      ("i32", "or"), ("i32", "add"),
+                                      ("f32", "min"), ("f32", "max")])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_combine_in_place_equals_copy_and_plain(cuda, case, dtype,
+                                                        op):
+    """scatter_combine_ combines into its target itself and returns it, bit
+    for bit equal to scatter_combine (which leaves its target alone) and to
+    the plain versions, copying and in place; one launch each, on the
+    kernel's one count."""
+    out, idx, msgs = _scatter_inputs(np.random.default_rng(9), case, dtype,
+                                     op)
+    const = 7 if dtype == "i32" else -2.5
+    for msg in (msgs, const):
+        keep = out.clone()
+        before = sc.scatter_combine.launches
+        want = sc.scatter_combine(out, idx, msg, op)
+        target = out.clone()
+        got = sc.scatter_combine_(target, idx, msg, op)
+        torch.cuda.synchronize()
+        assert sc.scatter_combine.launches == before + 2
+        assert got is target
+        assert torch.equal(out.view(torch.int32), keep.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        plain = out.cpu()
+        assert sc.scatter_combine_ref_(plain, idx.cpu(),
+                                       msg.cpu() if torch.is_tensor(msg)
+                                       else msg, op) is plain
+        assert torch.equal(got.cpu().view(torch.int32),
+                           plain.view(torch.int32))
+
+
+def test_scatter_at_in_place_on_the_card(cuda):
+    """Monoid.scatter_at_ on the card: the kernel cases are one in-place
+    launch; the others raise as scatter_at does; a view that is not
+    contiguous is refused."""
+    idx = torch.arange(8, dtype=torch.int32, device=cuda)
+    bits = torch.zeros(8, dtype=torch.int32, device=cuda)
+    before = sc.scatter_combine.launches
+    got = monoid.ADD.scatter_at_(bits, idx % 4, idx)
+    assert got is bits and sc.scatter_combine.launches == before + 1
+    assert bits.cpu().tolist() == [4, 6, 8, 10, 0, 0, 0, 0]
+    mark = torch.full((8,), -1, dtype=torch.int32, device=cuda)
+    assert monoid.MAX.scatter_at_(mark, idx // 2, idx) is mark
+    assert mark.cpu().tolist() == [1, 3, 5, 7, -1, -1, -1, -1]
+    with pytest.raises(TypeError):
+        monoid.ADD.scatter_at_(bits.float(), idx, idx.float())
+    with pytest.raises(NotImplementedError):
+        monoid.OR.scatter_at_(bits, idx, idx)
+    with pytest.raises(ValueError):
+        sc.scatter_combine_(torch.zeros(16, dtype=torch.int32,
+                                        device=cuda)[::2], idx, 1, "add")
+
+
 @pytest.fixture(scope="module")
 def weighted_cuda():
     """Weighted RMAT-12 on the card and on the CPU, with both EdgeArrays."""
@@ -892,6 +968,65 @@ def test_pull_rows_scalar_path_and_rejects(cuda):
         prw.pull_rows(csr, x.double())
     with pytest.raises(ValueError):
         prw.pull_rows(prw.RowCSR(row_ptr.long(), col_idx), x)
+
+
+def _kahan_rows(row_ptr, col_idx, x):
+    """f32 sequential compensated (Kahan) sums of x's rows over each CSR
+    row, in edge order, as the kernel takes them on a row that is not a
+    hub (numpy, all rows a step at a time)."""
+    n, f = row_ptr.shape[0] - 1, x.shape[1]
+    s = np.zeros((n, f), np.float32)
+    c = np.zeros((n, f), np.float32)
+    deg = np.diff(row_ptr)
+    for j in range(int(deg.max(initial=0))):
+        rows = np.flatnonzero(deg > j)
+        y = x[col_idx[row_ptr[rows] + j]] - c[rows]
+        t = s[rows] + y
+        c[rows] = (t - s[rows]) - y
+        s[rows] = t
+    return s
+
+
+@pytest.mark.parametrize("f", [1, 3, 32, 100, 256])
+@pytest.mark.parametrize("offset", [0, 2])
+def test_pull_rows_equals_kahan_sum_in_edge_order(cuda, f, offset):
+    """Rows under HUB_MIN equal an f32 sequential Kahan sum in edge order
+    bit for bit, whatever the lanes (x's start `offset` floats into its
+    storage, 8 bytes, takes 2 floats a lane where F allows 4); every row,
+    hubs too, is within rtol 1e-5 of the f64 sum; two runs give the same
+    bits. Columns are half hot (below L2_LAST_ROWS) and half anywhere in x,
+    which has more rows than that."""
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
+    rng = np.random.default_rng(100 + f)
+    n, n_x = 4000, 70_000
+    assert n_x > prw.L2_LAST_ROWS
+    degs = rng.integers(0, 40, n)
+    degs[[5, 17, 1999]] = [prw.HUB_MIN + 1, 30_000, 3_000]
+    degs[[8, 9, 2500]] = [prw.HUB_MIN, 700, 0]
+    row_ptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)
+    e = int(row_ptr[-1])
+    col_idx = np.where(rng.random(e) < 0.5, rng.integers(0, 600, e),
+                       rng.integers(0, n_x, e)).astype(np.int32)
+    x = rng.standard_normal((n_x, f)).astype(np.float32)
+    csr = prw.RowCSR(torch.from_numpy(row_ptr).cuda(),
+                     torch.from_numpy(col_idx).cuda())
+    base = torch.empty(n_x * f + offset, device="cuda")
+    xt = base[offset:].view(n_x, f)
+    xt.copy_(torch.from_numpy(x))
+    if offset and f % 4 == 0:
+        assert prw.lanes(f, xt.data_ptr() | 4 * f)[0] == 2
+    before = prw.pull_rows.launches
+    got = prw.pull_rows(csr, xt)
+    again = prw.pull_rows(csr, xt)
+    torch.cuda.synchronize()
+    assert prw.pull_rows.launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    small = degs <= prw.HUB_MIN
+    kahan = _kahan_rows(row_ptr, col_idx, x)
+    assert np.array_equal(got.cpu().numpy()[small].view(np.int32),
+                          kahan[small].view(np.int32))
+    want = prw.pull_rows_ref(csr.row_ptr, csr.col_idx, xt.double())
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("d", ["G", "S"])

@@ -77,6 +77,16 @@ def test_fast_oracle_equals_loop_oracle(graphs, graph, n_it):
                                   tlp.seq_label_propagation(ec, n_it))
 
 
+@pytest.mark.parametrize("graph", list(CASES))
+@pytest.mark.parametrize("n_it", [1, 20])
+def test_fast_oracle_equals_jax_oracle(graphs, graph, n_it):
+    """The vectorised oracle (one packed-key sort per round) equals the
+    JAX package's seq_label_propagation."""
+    ec = graphs(graph)[0]
+    np.testing.assert_array_equal(tlp.seq_label_propagation_fast(ec, n_it),
+                                  jlp.seq_label_propagation(ec, n_it))
+
+
 def test_app_cli_contract():
     out = subprocess.run(
         [sys.executable, "-m", "vectorgraphlibrary_tpu_torch.apps.lp", "-s",

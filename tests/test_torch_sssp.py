@@ -76,6 +76,23 @@ def test_oracle_takes_a_list_of_sources(graphs, graph):
         np.testing.assert_array_equal(row, tsssp.seq_dijkstra(ec, src))
 
 
+@pytest.mark.parametrize("graph", GRAPHS + ["parallel"])
+def test_oracle_equals_jax_oracle(graphs, graph):
+    """seq_dijkstra (parallel edges deduped by one sort of packed keys,
+    the least weight kept) equals the JAX package's seq_dijkstra, also on
+    a graph of many parallel edges of different weights."""
+    if graph == "parallel":
+        rng = np.random.default_rng(4)
+        s, d = rng.integers(0, 30, 600), rng.integers(0, 30, 600)
+        ec = EdgesContainer(s.astype(np.int32), d.astype(np.int32), 30,
+                            rng.uniform(1, 100, 600).astype(np.float32))
+        src = 0
+    else:
+        ec, src = graphs(graph)[0], graphs(graph)[-1]
+    np.testing.assert_array_equal(tsssp.seq_dijkstra(ec, src),
+                                  jsssp.seq_dijkstra(ec, src))
+
+
 # entry point -> (port call, JAX call), both (graph, weights, source) ->
 # (VertexArray, iters)
 VARIANTS = {

@@ -44,9 +44,34 @@
 // first), and a NaN is ordered by its bit pattern (above +inf or below -inf)
 // and not propagated. Distances are non-negative and never NaN.
 //
+// In place. The kernel always combines into `out`. The wrapper's
+// scatter_combine first copies the caller's target (its result is a new
+// tensor); scatter_combine_ (ops/cuda/scatter_combine.py) hands the caller's
+// own target to the same entry, for the two callers that have just made it
+// and read it nowhere else: the triangle count's bitmap
+// (models/tc._tc_build_bits) and the sparse push's owner mark
+// (ops/advance.advance_push_sparse). What that saves:
+//
+// - The triangle bitmap (RMAT-18, the densest column block: 2,933,910 bits
+//   into int32 [262,145, 512]): the bound was the bitmap read and its copy
+//   written plus an index and a bit per edge, 2 x 536,872,960 + 8 x
+//   2,933,910 bytes, 0.3275 ms at 3.35 TB/s. Without the copy it is the
+//   bitmap written once (its zero fill) plus 8 bytes per edge, 536,872,960
+//   + 8 x 2,933,910 bytes, 0.1673 ms. The zero fill stays the caller's
+//   torch.zeros: one fill kernel at the memory rate, and the kernel cannot
+//   do it itself, since every block's atomics must see the whole target
+//   zeroed first (a fill inside the C entry would be the same memset on the
+//   same stream and save only one host call of a few microseconds against
+//   the fill's 0.16 ms).
+// - 2^16 messages into 2^20 (the bound is 8 bytes per message plus the
+//   target, 0.0027 ms, below one launch's latency): the copy was a second
+//   launch, so the in-place call is one launch, bound by the launch's own
+//   latency on the host and the card.
+//
 // Plain C interface (loaded with ctypes): the entry returns cudaGetLastError()
-// after the launch, runs on the given stream and allocates nothing; the
-// caller has already copied the target into `out`.
+// after the launch, runs on the given stream and allocates nothing; `out` is
+// the target itself (scatter_combine_) or the wrapper's copy of it
+// (scatter_combine).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -95,24 +95,23 @@ def seq_label_propagation(ec, max_iterations: int = 20) -> np.ndarray:
 
 
 def seq_label_propagation_fast(ec, max_iterations: int = 20) -> np.ndarray:
-    """seq_label_propagation vectorised for large graphs: per round one
-    lexsort of the edges by (destination, source label), the runs of equal
-    pairs, and per destination the smallest label among its longest runs.
-    Equal to the loop version (tests/test_torch_lp.py)."""
+    """seq_label_propagation vectorised for large graphs: per round one sort
+    of the edges' (destination, source label) keys, packed into one int64
+    (destination * v + label: labels are vertex ids below v), the runs of
+    equal keys, and per destination the smallest label among its longest
+    runs. Equal to the loop version (tests/test_torch_lp.py)."""
     v = ec.vertices_count
     labels = np.arange(v, dtype=np.int64)
-    dst = ec.dst_ids.astype(np.int64)
+    dst_key = ec.dst_ids.astype(np.int64) * v
     if ec.edges_count == 0:
         return labels.astype(np.int32)
     for _ in range(max_iterations):
-        lab = labels[ec.src_ids]
-        order = np.lexsort((lab, dst))
-        d, lab = dst[order], lab[order]
-        start = np.ones(len(d), bool)
-        start[1:] = (d[1:] != d[:-1]) | (lab[1:] != lab[:-1])
+        key = np.sort(dst_key + labels[ec.src_ids])
+        start = np.ones(len(key), bool)
+        start[1:] = key[1:] != key[:-1]
         first = np.flatnonzero(start)
-        run_d, run_lab = d[first], lab[first]
-        run_len = np.diff(np.append(first, len(d)))
+        run_d, run_lab = np.divmod(key[first], v)
+        run_len = np.diff(np.append(first, len(key)))
         # runs are sorted by destination: reduce each destination's runs
         row = np.flatnonzero(np.diff(run_d, prepend=-1))
         longest = np.maximum.reduceat(run_len, row)

@@ -263,11 +263,16 @@ def seq_dijkstra(ec, source_vertex) -> np.ndarray:
     import scipy.sparse.csgraph as csg
     v = ec.vertices_count
     # parallel edges: keep the minimum weight (matches relaxation semantics);
-    # csr_matrix would SUM duplicates, so dedupe first
-    order = np.lexsort((ec.weights, ec.dst_ids, ec.src_ids))
-    s, d, w = ec.src_ids[order], ec.dst_ids[order], ec.weights[order]
-    first = np.ones(len(s), bool)
-    first[1:] = (s[1:] != s[:-1]) | (d[1:] != d[:-1])
-    m = sp.csr_matrix((w[first], (s[first], d[first])), shape=(v, v))
+    # csr_matrix would SUM duplicates, so dedupe first: one sort of the
+    # (source, destination) keys, then the least weight of each run
+    key = ec.src_ids.astype(np.int64) * v + ec.dst_ids
+    order = np.argsort(key)
+    key, w = key[order], ec.weights[order]
+    first = np.ones(len(key), bool)
+    first[1:] = key[1:] != key[:-1]
+    at = np.flatnonzero(first)
+    w = np.minimum.reduceat(w, at) if len(at) else w
+    s, d = np.divmod(key[at], v)
+    m = sp.csr_matrix((w, (s, d)), shape=(v, v))
     dist = csg.dijkstra(m, directed=True, indices=source_vertex)
     return dist.astype(np.float32)

@@ -116,7 +116,9 @@ def _tc_build_bits(u_blk: torch.Tensor, v_local: torch.Tensor, v_rows: int,
     bitmap (the last row stays zero): one add of bit v_local & 31 into word
     v_local >> 5 of row u_blk per edge, flattened to index row · words +
     word. The edges are deduplicated, so every (row, word, bit) is added
-    once and the add is an or (bit 31 adds -2^31 in int32)."""
+    once and the add is an or (bit 31 adds -2^31 in int32). The bitmap is
+    made here and the add goes into it in place (Monoid.scatter_at_): one
+    zero fill and one scatter_combine launch, no copy of the bitmap."""
     n_bits = (v_rows + 1) * words
     if n_bits >= 2**31:
         raise ValueError(f"triangle count: a [{v_rows + 1}, {words}] bitmap "
@@ -124,7 +126,7 @@ def _tc_build_bits(u_blk: torch.Tensor, v_local: torch.Tensor, v_rows: int,
     bits = torch.zeros(n_bits, dtype=torch.int32, device=u_blk.device)
     idx = u_blk * words + (v_local >> 5)
     bit = torch.bitwise_left_shift(torch.ones_like(v_local), v_local & 31)
-    return M.ADD.scatter_at(bits, idx, bit).view(v_rows + 1, words)
+    return M.ADD.scatter_at_(bits, idx, bit).view(v_rows + 1, words)
 
 
 def _tc_block_count(bits: torch.Tensor, u_e: torch.Tensor, v_e: torch.Tensor,

@@ -332,12 +332,13 @@ def advance_push_sparse(graph: VGLGraph,
     # owner row of each flat edge slot: each nonempty row's index is marked
     # at its start offset, then a running max fills the run. Zero-degree rows
     # share start offsets and must not mark; rows starting past the capacity
-    # drop (a clamp would steal the last slot's ownership).
+    # drop (a clamp would steal the last slot's ownership). The marks go
+    # into the target made here, in place.
     frontier_idx = torch.arange(cap, dtype=i32, device=dev)
     mark_slot = torch.where(frontier_valid & (degs > 0)
                             & (starts_local < edge_capacity),
                             starts_local, edge_capacity)
-    owner_c = M.MAX.scatter_at(
+    owner_c = M.MAX.scatter_at_(
         torch.full((edge_capacity,), -1, dtype=i32, device=dev), mark_slot,
         frontier_idx)
     owner_c = torch.cummax(owner_c, 0).values

@@ -5,18 +5,26 @@
 {"min", "max", "or", "add"} (f32: min and max; the int32 add wraps modulo
 2^32 as torch's does); a message whose index lies outside
 [0, len(out)) is dropped. `msg` is a tensor of out's dtype shaped like `idx`,
-or one number for every message. The f32 min is the combine of SSSP's sparse
+or one number for every message. `scatter_combine_(out, idx, msg, op)` is the
+same combine into `out` itself, for a caller that has just made the target
+and does not read it again (the triangle count's bitmaps, the sparse push's
+owner mark): the same checks, the same C entries and kernel, no copy. The
+f32 min is the combine of SSSP's sparse
 push; csrc/scatter_combine.cu says how it orders -0.0 and NaN (distances
-hold neither). It replaces the TPU kernel of apps/exp_push.py (make_c/_kern, the
-case op="or", msg=1) and runs the scatter stages of the generic sparse push
-(ops/advance.advance_push_sparse, through Monoid.scatter_at) and the int32
-add of Monoid.scatter_at("add") (the triangle count's bitmaps); the BFS push
-runs csrc/push_expand.cu instead. csrc/scatter_combine.cu says what bounds
-it on the card.
+hold neither). It replaces the TPU kernel of apps/exp_push.py (make_c/_kern,
+the case op="or", msg=1) and runs the scatter stages of the generic sparse push
+(ops/advance.advance_push_sparse, through Monoid.scatter_at and
+Monoid.scatter_at_) and the int32 add of Monoid.scatter_at_("add") (the
+triangle count's bitmaps); the BFS push runs csrc/push_expand.cu instead.
+csrc/scatter_combine.cu says what bounds it on the card.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the hand-written kernel (built by nvcc for sm_90a at first use) or
-raises. There is no fallback from one to the other.
+Both entries count their launches on `scatter_combine.launches`: one
+kernel, one count.
+
+On a CPU tensor the wrapper runs the plain version (scatter_combine_ref,
+scatter_combine_ref_ in place); on a CUDA tensor it launches the
+hand-written kernel (built by nvcc for sm_90a at first use) or raises.
+There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -80,6 +88,51 @@ def scatter_combine_ref(out: torch.Tensor, idx: torch.Tensor,
     return res
 
 
+def scatter_combine_ref_(out: torch.Tensor, idx: torch.Tensor,
+                         msg: Union[torch.Tensor, int],
+                         op: str) -> torch.Tensor:
+    """Plain version of scatter_combine_: scatter_combine_ref's result
+    written into `out`, which is returned."""
+    return out.copy_(scatter_combine_ref(out, idx, msg, op))
+
+
+def _launch(res: torch.Tensor, idx: torch.Tensor,
+            msg: Union[torch.Tensor, int], op: str, name: str) -> None:
+    """Check a launch into the CUDA tensor `res` and make it (both
+    entries' checks, module doc)."""
+    launch = _LAUNCH.get(res.dtype)
+    if launch is None or res.dim() != 1:
+        raise TypeError(f"{name}: out must be a 1-D int32 or f32 "
+                        f"tensor, got {res.dtype} of shape {tuple(res.shape)}")
+    is_f32 = res.dtype == torch.float32
+    if is_f32 and op in ("or", "add"):
+        raise TypeError(f"{name}: {op} needs int32")
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise TypeError(f"{name}: idx must be a 1-D int32 tensor")
+    dev = res.get_device()
+    if idx.get_device() != dev or not idx.is_contiguous():
+        raise ValueError(f"{name}: idx must be contiguous on "
+                         f"{res.device}, got {idx.device}")
+    if res.shape[0] >= 2**31:
+        raise ValueError(f"{name}: out exceeds int32 indices")
+    msg_const = 0
+    if isinstance(msg, torch.Tensor):
+        if msg.dtype != res.dtype or msg.shape != idx.shape \
+                or msg.get_device() != dev or not msg.is_contiguous():
+            raise ValueError(f"{name}: msg must be a contiguous "
+                             f"{res.dtype} tensor of shape "
+                             f"{tuple(idx.shape)} on {res.device}")
+        msg_ptr = msg.data_ptr()
+    else:
+        msg_const = float(msg) if is_f32 else int(msg)
+        if not is_f32 and not -2**31 <= msg_const < 2**31:
+            raise ValueError(f"{name}: message {msg} is not int32")
+        msg_ptr = None
+    launch(dev, res.data_ptr(), res.shape[0], idx.data_ptr(), msg_ptr,
+           msg_const, idx.shape[0], _OPS[op])
+    scatter_combine.launches += 1
+
+
 def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
                     msg: Union[torch.Tensor, int], op: str) -> torch.Tensor:
     """New tensor: `out` with msg combined in at idx by op (module doc).
@@ -94,39 +147,30 @@ def scatter_combine(out: torch.Tensor, idx: torch.Tensor,
         if out.device.type == "cpu":
             return scatter_combine_ref(out, idx, msg, op)
         raise ValueError(f"scatter_combine: no kernel for {out.device}")
-    launch = _LAUNCH.get(out.dtype)
-    if launch is None or out.dim() != 1:
-        raise TypeError(f"scatter_combine: out must be a 1-D int32 or f32 "
-                        f"tensor, got {out.dtype} of shape {tuple(out.shape)}")
-    is_f32 = out.dtype == torch.float32
-    if is_f32 and op in ("or", "add"):
-        raise TypeError(f"scatter_combine: {op} needs int32")
-    if idx.dtype != torch.int32 or idx.dim() != 1:
-        raise TypeError("scatter_combine: idx must be a 1-D int32 tensor")
-    dev = out.get_device()
-    if idx.get_device() != dev or not idx.is_contiguous():
-        raise ValueError(f"scatter_combine: idx must be contiguous on "
-                         f"{out.device}, got {idx.device}")
-    if out.shape[0] >= 2**31:
-        raise ValueError("scatter_combine: out exceeds int32 indices")
-    msg_const = 0
-    if isinstance(msg, torch.Tensor):
-        if msg.dtype != out.dtype or msg.shape != idx.shape \
-                or msg.get_device() != dev or not msg.is_contiguous():
-            raise ValueError(f"scatter_combine: msg must be a contiguous "
-                             f"{out.dtype} tensor of shape "
-                             f"{tuple(idx.shape)} on {out.device}")
-        msg_ptr = msg.data_ptr()
-    else:
-        msg_const = float(msg) if is_f32 else int(msg)
-        if not is_f32 and not -2**31 <= msg_const < 2**31:
-            raise ValueError(f"scatter_combine: message {msg} is not int32")
-        msg_ptr = None
     res = out.contiguous().clone()
-    launch(dev, res.data_ptr(), res.shape[0], idx.data_ptr(), msg_ptr,
-           msg_const, idx.shape[0], _OPS[op])
-    scatter_combine.launches += 1
+    _launch(res, idx, msg, op, "scatter_combine")
     return res
+
+
+def scatter_combine_(out: torch.Tensor, idx: torch.Tensor,
+                     msg: Union[torch.Tensor, int],
+                     op: str) -> torch.Tensor:
+    """scatter_combine into `out` itself, which is returned: the same
+    arguments and checks, and `out` must be contiguous. For a target that
+    the caller has just made and reads nowhere else. JAX's arrays are
+    immutable, and the JAX package's scatter returns a new one; the port
+    combines in place here because that saves a copy of the target (537 MB
+    for a triangle-count bitmap at RMAT-18) and its device time."""
+    if op not in _OPS:
+        raise ValueError(f"unknown scatter_combine op {op!r}")
+    if not out.is_cuda:
+        if out.device.type == "cpu":
+            return scatter_combine_ref_(out, idx, msg, op)
+        raise ValueError(f"scatter_combine_: no kernel for {out.device}")
+    if not out.is_contiguous():
+        raise ValueError("scatter_combine_: out must be contiguous")
+    _launch(out, idx, msg, op, "scatter_combine_")
+    return out
 
 
 scatter_combine.launches = 0

@@ -3,9 +3,9 @@ vectorgraphlibrary_tpu/ops/monoid.py).
 
 Each monoid has an identity, an elementwise combine, a reduction along one
 axis, a reduction over sorted segments and a scatter (scatter_at, the sparse
-push's combine). Segments are given by their
-lengths, which are static graph structure (graph.device.HugeTile.seg_lengths),
-so no reduction has to read a device value back to the host. Float sums over
+push's combine, and scatter_at_, the same combine in place). Segments are
+given by their lengths, which are static graph structure
+(graph.device.HugeTile.seg_lengths), so no reduction has to read a device value back to the host. Float sums over
 segments use torch.segment_reduce, which reduces each segment in one pass in a
 fixed order: the result does not change from run to run.
 """
@@ -16,7 +16,8 @@ from typing import Callable
 
 import torch
 
-from .cuda.scatter_combine import scatter_combine, scatter_reduce_drop
+from .cuda.scatter_combine import (scatter_combine, scatter_combine_,
+                                   scatter_reduce_drop)
 
 
 def _segment(reduce: str):
@@ -96,6 +97,29 @@ class Monoid:
         segment gets the identity."""
         return self._segment_reduce(self, data, lengths)
 
+    def _scatter_op(self, target: torch.Tensor, vals: torch.Tensor,
+                    mode: str) -> tuple[str, bool]:
+        """(the scatter's op, whether the card has a kernel for it on
+        target's dtype); raises where scatter_at does."""
+        if mode != "drop":
+            raise ValueError(f"scatter_at: mode {mode!r} (only 'drop')")
+        op = self.name
+        if op == "any01":
+            op = "max"
+        if op == "or":
+            if target.dtype != torch.bool and vals.dtype != torch.bool:
+                raise NotImplementedError(
+                    "int bitwise-or scatter: use a pull/segment formulation "
+                    "(max only equals OR for {0,1} values)")
+            op = "max"
+        kernel = (op in ("min", "max") and target.dtype in (torch.int32,
+                                                            torch.float32)) \
+            or (op == "add" and target.dtype == torch.int32)
+        if not kernel and target.device.type != "cpu":
+            raise TypeError(f"scatter_at: no kernel for {self.name} over "
+                            f"{target.dtype} on {target.device}")
+        return op, kernel
+
     def scatter_at(self, target: torch.Tensor, idx: torch.Tensor,
                    vals: torch.Tensor, mode: str = "drop") -> torch.Tensor:
         """New tensor: `target` with vals[i] combined into target[idx[i]]
@@ -110,27 +134,26 @@ class Monoid:
         raises (an f32 add by atomics would not give the same bits twice);
         on the CPU every case runs in plain PyTorch (those five through the
         kernel's plain version)."""
-        if mode != "drop":
-            raise ValueError(f"scatter_at: mode {mode!r} (only 'drop')")
-        op = self.name
-        if op == "any01":
-            op = "max"
-        if op == "or":
-            if target.dtype != torch.bool and vals.dtype != torch.bool:
-                raise NotImplementedError(
-                    "int bitwise-or scatter: use a pull/segment formulation "
-                    "(max only equals OR for {0,1} values)")
-            op = "max"
-        if (op in ("min", "max") and target.dtype in (torch.int32,
-                                                      torch.float32)) \
-                or (op == "add" and target.dtype == torch.int32):
+        op, kernel = self._scatter_op(target, vals, mode)
+        if kernel:
             return scatter_combine(target, idx.contiguous(),
                                    vals.to(target.dtype).contiguous(), op)
-        if target.device.type != "cpu":
-            raise TypeError(f"scatter_at: no kernel for {self.name} over "
-                            f"{target.dtype} on {target.device}")
         return scatter_reduce_drop(target, idx, vals, op)
 
+    def scatter_at_(self, target: torch.Tensor, idx: torch.Tensor,
+                    vals: torch.Tensor, mode: str = "drop") -> torch.Tensor:
+        """scatter_at into `target` itself, which is returned: the port's
+        in-place form of the reference's `target.at[idx].<op>(vals,
+        mode="drop")`, for a target the caller has just made and reads
+        nowhere else. JAX's arrays are immutable; the port updates in place
+        here to save the target's copy. The same cases and errors as
+        scatter_at; on the card the kernel cases are one scatter_combine_
+        launch into a contiguous target."""
+        op, kernel = self._scatter_op(target, vals, mode)
+        if kernel:
+            return scatter_combine_(target, idx.contiguous(),
+                                    vals.to(target.dtype).contiguous(), op)
+        return target.copy_(scatter_reduce_drop(target, idx, vals, op))
 
 def _sum(a, dim):
     # integer sums keep their dtype (torch.sum would widen int32 to int64)
