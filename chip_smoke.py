@@ -19,8 +19,14 @@ result line):
    are printed. Then pull_reduce against its plain version on that graph
    (f32 add within rtol 1e-5 / atol 1e-6, every other case exactly: f32
    add without self-loops and min over GATHER, add and max over SCATTER,
-   i32 min, max and or, int8 any01), its time beside the plain version's
-   and torch.mv of the CSR tensor; the route kernel on the graph's routes,
+   i32 min, max and or, int8 any01), and on CSRs that put its schedule at
+   its edges (every edge in one row, rows of one tile's items and one more
+   or less, tiles that start on an empty row, empty rows in the middle and
+   at the tail, no edges, one row of one edge: f32 add, i32 min and int8
+   any01 with and without self-loops, f32 min of x + w; two f32 add pulls
+   bit for bit); its time beside the plain version's and torch.mv of the
+   CSR tensor, the time to make its plan (set-up) and the device time of
+   each of its kernels per call; the route kernel on the graph's routes,
    timed on the vertex route the path runs and on the 2^24 advance route,
    and bool vectors through the routes (as bytes) equal to a cast to int8;
 5. kernel: scatter_combine against its plain version on the card, bit for
@@ -276,26 +282,19 @@ def phase_kernel(rg) -> tuple[float, float, float]:
     return max_err, k_ms, p_ms
 
 
-def _pull_check(pl, label: str, dg, x, op: str, excl: bool, weights=None,
-                weight_op=None) -> float:
-    """pull_reduce against its plain version on the same inputs, with the
-    graph's work units: f32 sums at rtol 1e-5 / atol 1e-6 (the plain version
-    sums each row in another order), everything else exactly. Returns the
-    max abs error."""
-    from vectorgraphlibrary_tpu_torch.ops.advance import row_groups
-    kw = dict(weights=weights, weight_op=weight_op)
-    got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, row_groups(dg),
-                         **kw)
-    want = pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op, excl, **kw)
+def _pull_compare(label: str, got, want, op: str) -> float:
+    """A pull's result against its plain version's: f32 sums at rtol 1e-5 /
+    atol 1e-6 (the plain version sums each row in another order),
+    everything else exactly. Returns the max abs error."""
     torch.cuda.synchronize()
     # equal entries (identities of empty rows, inf or not) count as 0
     err = torch.where(got == want, 0.0, (got.double() - want.double()).abs()) \
-        .max().item()
-    if op == "add" and x.dtype == torch.float32:
+        .max().item() if got.numel() else 0.0
+    if op == "add" and got.dtype == torch.float32:
         ok = bool(torch.isclose(got, want, rtol=1e-5, atol=1e-6).all())
         how = "within rtol 1e-5, atol 1e-6"
     else:
-        ok = torch.equal(got, want)
+        ok = got.dtype == want.dtype and torch.equal(got, want)
         how = "exact"
     print(f"  pull_reduce {label}: {how if ok else 'MISMATCH'} (max abs err "
           f"{err})")
@@ -304,16 +303,110 @@ def _pull_check(pl, label: str, dg, x, op: str, excl: bool, weights=None,
     return err
 
 
+def _pull_check(pl, label: str, dg, x, op: str, excl: bool, weights=None,
+                weight_op=None) -> float:
+    """pull_reduce against its plain version on the same inputs, with the
+    plan the graph keeps (_pull_compare's tolerances). Returns the max abs
+    error."""
+    from vectorgraphlibrary_tpu_torch.ops.advance import pull_plan
+    kw = dict(weights=weights, weight_op=weight_op)
+    got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, pull_plan(dg),
+                         **kw)
+    want = pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op, excl, **kw)
+    return _pull_compare(label, got, want, op)
+
+
+def _adversarial_csrs(g_in, tile: int) -> list:
+    """(label, row_ptr, col_idx) of CSRs that put the pull's schedule at its
+    edges (tile: merge items per block): every edge of the graph in one
+    row; rows of one tile's items, one item more and less; tiles that
+    start on an empty row; empty rows between non-empty ones, in the
+    middle and at the tail; no edges; one row of one edge."""
+    dev = g_in.col_idx.device
+    e, v = g_in.e, g_in.v_pad
+    rng = np.random.default_rng(SEED + 4)
+
+    def csr(degs):
+        degs = np.asarray(degs, np.int64)
+        rp = np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)
+        ci = rng.integers(0, v, int(rp[-1])).astype(np.int32)
+        # self-loops where a row is long enough to hold one
+        for r in np.flatnonzero(degs[:v] > 2)[:64]:
+            ci[rp[r] + 1] = r
+        return (torch.from_numpy(rp).to(dev), torch.from_numpy(ci).to(dev))
+    # a tile holds (rows ending in it) + (slots in it) items: a row of
+    # tile - 1 slots and its end fill one tile exactly
+    run = [tile - 1, tile, tile - 2, 3 * tile - 1, 1, tile + 1, 0, tile - 1]
+    # tile - 2 slots and the row end leave one item, an empty row's end, so
+    # the next tile starts on an empty row
+    on_empty = ([tile - 2] + [0] * 3 + [tile - 4] + [0] * (tile + 5)) * 3
+    gaps = rng.choice([0, 0, 0, 1, 2, 7, 40, 300, 5000], size=30000)
+    gaps[-2000:] = 0
+    cases = [("one row of every RMAT edge",
+              torch.tensor([0, e], dtype=torch.int32, device=dev),
+              g_in.col_idx[:e])]
+    cases += [(label, *csr(d)) for label, d in (
+        ("rows of one tile, one more and one less", run),
+        ("tiles that start on an empty row", on_empty),
+        ("empty rows in the middle and at the tail", gaps),
+        ("no edges", [0] * 5000),
+        ("one row of one edge", [1]))]
+    return cases
+
+
+def _pull_adversarial(pl, g_in) -> dict:
+    """Each adversarial CSR through pull_reduce (with its plan) against the
+    plain version: f32 add, i32 min and int8 any01, each with and without
+    self-loops, and f32 min of x + w; a second f32 add, bit for bit.
+    Returns the max abs error and each CSR's tiles and rows cut."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    n_x = g_in.v_pad
+    xf = torch.rand(n_x, device=DEVICE, generator=gen)
+    xi = torch.randint(-2**31, 2**31 - 1, (n_x,), device=DEVICE,
+                       generator=gen, dtype=torch.int32)
+    xb = torch.randint(0, 2, (n_x,), device=DEVICE, generator=gen,
+                       dtype=torch.int8)
+    dist = xf * 300
+    dist[::5] = torch.inf
+    err, shapes = 0.0, {}
+    for label, rp, ci in _adversarial_csrs(g_in, pl.TILE):
+        plan = pl.make_plan(rp)
+        shapes[label] = dict(rows=rp.shape[0] - 1, slots=ci.shape[0],
+                             tiles=plan.n_tiles, rows_cut=plan.n_fix)
+        w = torch.rand(ci.shape[0], device=DEVICE, generator=gen) * 99 + 1
+        for name, x, op, excl, kw in (
+                ("f32 add", xf, "add", False, {}),
+                ("f32 add excl", xf, "add", True, {}),
+                ("i32 min", xi, "min", False, {}),
+                ("i32 min excl", xi, "min", True, {}),
+                ("i8 any01", xb, "any01", False, {}),
+                ("i8 any01 excl", xb, "any01", True, {}),
+                ("f32 min of x + w", dist, "min", False,
+                 dict(weights=w, weight_op="add"))):
+            got = pl.pull_reduce(rp, ci, x, op, excl, plan, **kw)
+            want = pl.pull_reduce_ref(rp, ci, x, op, excl, **kw)
+            err = max(err, _pull_compare(f"{label} ({plan.n_tiles} tiles, "
+                                         f"{plan.n_fix} rows cut): {name}",
+                                         got, want, op))
+            if name == "f32 add":
+                again = pl.pull_reduce(rp, ci, x, op, excl, plan, **kw)
+                if not torch.equal(_bits(got), _bits(again)):
+                    raise AssertionError(f"two f32 add pulls differ: {label}")
+    print(f"  pull_reduce on {len(shapes)} adversarial CSRs: every case "
+          f"right, two f32 add pulls bit-identical on each")
+    return dict(max_err=err, csrs=shapes)
+
+
 def _pull_times(pl, dg, x, op: str, excl: bool, label: str, smi: str,
                 weights=None, weight_op=None) -> dict:
     """Kernel and plain version on the same pull, medians of 3, each the mean
     of 10 launches."""
-    from vectorgraphlibrary_tpu_torch.ops.advance import row_groups
-    groups = row_groups(dg)
+    from vectorgraphlibrary_tpu_torch.ops.advance import pull_plan
+    plan = pull_plan(dg)
     kw = dict(weights=weights, weight_op=weight_op)
     k_ms = _median3(f"pull_reduce {label}, kernel", "ms",
                     [_cuda_ms(lambda: pl.pull_reduce(
-                        dg.row_ptr, dg.col_idx, x, op, excl, groups, **kw))
+                        dg.row_ptr, dg.col_idx, x, op, excl, plan, **kw))
                      for _ in range(3)], smi)
     p_ms = _median3(f"pull_reduce {label}, plain", "ms",
                     [_cuda_ms(lambda: pl.pull_reduce_ref(
@@ -324,7 +417,8 @@ def _pull_times(pl, dg, x, op: str, excl: bool, label: str, smi: str,
     per_edge = 4 if weights is None else 4 + weights.element_size()
     bound = _bound_ms((dg.v_pad + 1) * 4 + dg.e * per_edge
                       + 2 * dg.v_pad * x.element_size())
-    print(f"  pull_reduce {label} bound {bound:.4f} ms (groups {groups})")
+    print(f"  pull_reduce {label} bound {bound:.4f} ms ({plan.n_tiles} "
+          f"tiles, {plan.n_fix} rows cut)")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound)
 
 
@@ -415,8 +509,34 @@ def phase_pagerank(rg, pl, smi: str):
         _pull_check(pl, f"RMAT-{SCALE} G i8 any01", g_in, xb, "any01", False),
         _pull_check(pl, f"RMAT-{SCALE} S i8 any01 excl", g_out, xb, "any01",
                     True))
+    adversarial = _pull_adversarial(pl, g_in)
+    pull_err = max(pull_err, adversarial["max_err"])
     pull = _pull_times(pl, g_in, xf, "add", True,
                        f"RMAT-{SCALE} G f32 add excl", smi)
+    # the schedule's cost (set-up: once per CSR) and the device kernels of
+    # one call
+    from vectorgraphlibrary_tpu_torch.ops.advance import pull_plan
+    plan_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        schedule = pl.make_plan(g_in.row_ptr)
+        torch.cuda.synchronize()
+        plan_s.append(time.perf_counter() - t0)
+    per_call: dict = {}
+    for ev in _device_events(lambda: pl.pull_reduce(
+            g_in.row_ptr, g_in.col_idx, xf, "add", True, pull_plan(g_in)),
+            reps=10):
+        per_call[ev.name[:60]] = per_call.get(ev.name[:60], 0.0) \
+            + ev.time_range.elapsed_us() / 1e4
+    print(f"  pull_reduce RMAT-{SCALE} G plan: {schedule.n_tiles} tiles of "
+          f"{pl.TILE} items, {schedule.n_fix} rows cut by a tile boundary, made "
+          f"in {statistics.median(plan_s) * 1e3:.3f} ms (median of 3, "
+          f"set-up); device ms per call by kernel {per_call}")
+    pull.update(plan_build_ms=statistics.median(plan_s) * 1e3,
+                tiles=schedule.n_tiles, rows_cut=schedule.n_fix,
+                device_kernels_per_call=per_call,
+                adversarial=adversarial["csrs"])
     # one-call PyTorch: cuSPARSE SpMV of the CSR with 1.0 per edge and 0.0
     # on self-loops (the same function up to the order of the sums)
     e = g_in.e
@@ -2165,7 +2285,7 @@ def phase_mf(kernels: dict, pl, ec, smi: str) -> dict:
     from vectorgraphlibrary_tpu_torch.graph.edges import DirectedEdgeValues
     from vectorgraphlibrary_tpu_torch.models import bfs, common, mf
     from vectorgraphlibrary_tpu_torch.ops.advance import (advance_pull,
-                                                          row_groups)
+                                                          pull_plan)
     totals = dict.fromkeys(kernels, 0)
     t0 = time.perf_counter()
     ec2 = mf_app.prepare(ec, SEED)
@@ -2264,14 +2384,14 @@ def phase_mf(kernels: dict, pl, ec, smi: str) -> dict:
               f" (max abs err {e_})")
         if not ok:
             raise AssertionError(f"advance_pull != plain version: {label}")
-    groups = row_groups(dg)
+    plan = pull_plan(dg)
     mi = torch.where(on[cols], w[:dg.e], INT32_MAX).contiguous()
     mf32 = torch.rand(dg.e_pad, generator=gen, device=dev)
     mb = (torch.rand(dg.e_pad, generator=gen, device=dev) < 0.1).to(
         torch.int8)
     for label, m, op in (("i32 min", mi, "min"), ("f32 add", mf32, "add"),
                          ("f32 max", mf32, "max"), ("i8 any01", mb, "any01")):
-        got = pl.segment_reduce(dg.row_ptr, m, op, groups)
+        got = pl.segment_reduce(dg.row_ptr, m, op, plan)
         want = pl.segment_reduce_ref(dg.row_ptr, m, op)
         torch.cuda.synchronize()
         ok = (bool(torch.isclose(got, want, rtol=1e-5, atol=1e-6).all())
@@ -2287,7 +2407,7 @@ def phase_mf(kernels: dict, pl, ec, smi: str) -> dict:
             raise AssertionError(f"segment_reduce != plain version: {label}")
     label = f"i32 min over the RMAT-{SCALE} residual CSR ({dg.e} slots)"
     k_ms = _median3(f"segment_reduce {label}, kernel", "ms", [_cuda_ms(
-        lambda: pl.segment_reduce(dg.row_ptr, mi, "min", groups))
+        lambda: pl.segment_reduce(dg.row_ptr, mi, "min", plan))
         for _ in range(3)], smi)
     p_ms = _median3(f"segment_reduce {label}, plain", "ms", [_cuda_ms(
         lambda: pl.segment_reduce_ref(dg.row_ptr, mi, "min"))
@@ -2305,11 +2425,12 @@ def phase_mf(kernels: dict, pl, ec, smi: str) -> dict:
          for _ in range(3)], smi)
     f32_ms = _median3(f"segment_reduce f32 add ({dg.e} slots), kernel", "ms",
                       [_cuda_ms(lambda: pl.segment_reduce(
-                          dg.row_ptr, mf32, "add", groups))
+                          dg.row_ptr, mf32, "add", plan))
                        for _ in range(3)], smi)
     # bytes it must move: row_ptr, the slots' messages, out
     bound = _bound_ms((g2.v_pad + 1) * 4 + dg.e * 4 + g2.v_pad * 4)
-    print(f"  segment_reduce bound {bound:.4f} ms (groups {groups})")
+    print(f"  segment_reduce bound {bound:.4f} ms ({plan.n_tiles} tiles, "
+          f"{plan.n_fix} rows cut)")
     return dict(launches=totals, max_err=err, ms=k_ms, plain_ms=p_ms,
                 library_ms=lib, bound_ms=bound, f32_add_ms=f32_ms,
                 f32_add_library_ms=f32_lib, rates=rates, flows=flows,
@@ -2587,6 +2708,9 @@ def main() -> int:
             rmat20_vertex_route=wk["route"],
             **{k: v for k, v in route.items() if k.startswith("advance_")}),
         row("pull_reduce", "pull_reduce.cu", REPLACES, prr["pull"],
+            **{k: prr["pull"][k] for k in (
+                "plan_build_ms", "tiles", "rows_cut",
+                "device_kernels_per_call", "adversarial")},
             rmat20_i8_any01_ms=pull20["ms"],
             rmat20_i8_any01_plain_ms=pull20["plain_ms"],
             rmat20_i8_any01_bound_ms=pull20["bound_ms"],

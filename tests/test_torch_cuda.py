@@ -316,8 +316,8 @@ PULL_CASES = [("f32", "add"), ("f32", "min"), ("f32", "max"), ("i32", "add"),
 @pytest.mark.parametrize("d", ["G", "S"])
 @pytest.mark.parametrize("dtype,op", PULL_CASES)
 def test_pull_reduce_equals_plain_version(rmat12_cuda, d, dtype, op):
-    """Every work-unit split (the graph's classes, a warp per row, a thread
-    per row, blocks then 4 threads) gives the plain version's result."""
+    """The graph's kept plan and a plan made for the call give the plain
+    version's result, and two f32 add pulls the same bits."""
     _, g = rmat12_cuda
     dg = g.direction(bfs.G if d == "G" else bfs.S)
     n = g.v_pad
@@ -328,20 +328,18 @@ def test_pull_reduce_equals_plain_version(rmat12_cuda, d, dtype, op):
                         else rng.integers(-128, 128, n)).astype(np.int8)
          }[dtype]()
     x = torch.from_numpy(x).cuda()
-    splits = (advance.row_groups(dg), None, ((n, 1),),
-              ((16, pl.BLOCK), (n, 4)))
     for excl in (False, True):
         want = pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op, excl)
-        for groups in splits:
+        for plan in (advance.pull_plan(dg), None):
             before = pl.pull_reduce.launches
-            got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, groups)
+            got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, plan)
             torch.cuda.synchronize()
             assert pl.pull_reduce.launches == before + 1
             assert got.dtype == want.dtype and got.shape == (n,)
             if (dtype, op) == ("f32", "add"):
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
                 again = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl,
-                                       groups)
+                                       plan)
                 assert torch.equal(got.view(torch.int32),
                                    again.view(torch.int32))
             else:
@@ -354,8 +352,8 @@ def test_pull_reduce_propagates_nan(cuda):
     col_idx = torch.tensor([0, 1, 2, 2, 3], dtype=torch.int32, device=cuda)
     x = torch.tensor([1.0, float("nan"), -2.0, 4.0], device=cuda)
     for op, rest in (("min", -2.0), ("max", 4.0)):
-        for groups in (None, ((3, 1),), ((3, pl.BLOCK),)):
-            got = pl.pull_reduce(row_ptr, col_idx, x, op, groups=groups).cpu()
+        for plan in (None, pl.make_plan(row_ptr)):
+            got = pl.pull_reduce(row_ptr, col_idx, x, op, plan=plan).cpu()
             assert torch.isnan(got[0]) and got[1].item() == rest
             assert got[2].item() == (float("inf") if op == "min"
                                      else float("-inf"))
@@ -375,9 +373,9 @@ def test_pull_reduce_rejects_what_it_does_not_take(cuda):
         pl.pull_reduce(row_ptr, col_idx.cpu(), x, "add")
     with pytest.raises(ValueError):
         pl.pull_reduce(row_ptr, col_idx, x, "mul")
-    for groups in (((1, 32),), ((2, 64),), ((2, 32), (1, 1))):
-        with pytest.raises(ValueError):
-            pl.pull_reduce(row_ptr, col_idx, x, "add", groups=groups)
+    with pytest.raises(ValueError):        # a plan of another row_ptr
+        pl.pull_reduce(row_ptr, col_idx, x, "add",
+                       plan=pl.make_plan(row_ptr.clone()))
 
 
 PUSH_CASES = ["2^10", "2^14", "overflow", "zero-degree", "empty"]
@@ -582,14 +580,12 @@ def test_pull_reduce_with_weights_equals_plain_version(weighted_cuda, d, dtype,
         x = _i32(rng, n)
         w = torch.from_numpy(_i32(rng, dg.e_pad)).cuda()
     x = torch.from_numpy(x).cuda()
-    splits = (advance.row_groups(dg), None, ((n, 1),),
-              ((16, pl.BLOCK), (n, 4)))
     for excl in (False, True):
         want = pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op, excl,
                                   weights=w, weight_op=wop)
-        for groups in splits:
+        for plan in (advance.pull_plan(dg), None):
             before = pl.pull_reduce.launches
-            got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, groups,
+            got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, excl, plan,
                                  weights=w, weight_op=wop)
             torch.cuda.synchronize()
             assert pl.pull_reduce.launches == before + 1
@@ -598,6 +594,147 @@ def test_pull_reduce_with_weights_equals_plain_version(weighted_cuda, d, dtype,
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
             else:
                 assert torch.equal(got, want)
+
+
+def _adversarial_csr(kind, dev):
+    """(row_ptr, col_idx, columns' bound) of a CSR that puts the pull's
+    schedule at its edges, for the kernel's tiles of pl.TILE items: every
+    edge in one row; rows of one tile's items and one more or less; tiles
+    that start on an empty row; empty rows in the middle and at the tail;
+    no edges; one row of one edge; a row_ptr that starts past 0."""
+    t = pl.TILE
+    rng = np.random.default_rng(len(kind))
+    base = 0
+    degs = {"one row": [3 * t + 77],
+            "tile rows": [t - 1, t, t - 2, 3 * t - 1, 1, t + 1, 0, t - 1],
+            "empty at tile start": ([t - 2] + [0] * 3 + [t - 4]
+                                    + [0] * (t + 5)) * 3,
+            "empty rows": rng.choice([0, 0, 0, 1, 2, 7, 40, 300, 5000],
+                                     size=20000),
+            "no edges": [0] * 5000,
+            "one edge": [1],
+            "offset": rng.choice([0, 1, 3, 50, 2 * t], size=3000)}[kind]
+    degs = np.asarray(degs, np.int64)
+    if kind == "empty rows":
+        degs[-1000:] = 0
+    if kind == "offset":
+        base = 1001
+    rp = (base + np.concatenate([[0], np.cumsum(degs)])).astype(np.int32)
+    v = max(len(degs), 2)
+    ci = rng.integers(0, v, int(rp[-1])).astype(np.int32)
+    for r in np.flatnonzero(degs > 2)[:64]:
+        ci[rp[r] + 1] = r                       # self-loops
+    return (torch.from_numpy(rp).to(dev), torch.from_numpy(ci).to(dev), v)
+
+
+ADVERSARIAL = ["one row", "tile rows", "empty at tile start", "empty rows",
+               "no edges", "one edge", "offset"]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+def test_pull_reduce_on_adversarial_csrs(cuda, kind, weighted):
+    """Every dtype, op and weight op over a CSR at the schedule's edges,
+    with and without self-loops, against the plain version (f32 add at
+    rtol 1e-5, the rest exactly); two launches bit for bit; one launches
+    step per call; and, once the plan is made, no read back to the host."""
+    rp, ci, v = _adversarial_csr(kind, cuda)
+    # the plain version reads row_ptr from 0: it gets the rebased CSR
+    rp0, ci0 = rp - rp[0], ci[int(rp[0]):]
+    plan = pl.make_plan(rp)
+    rng = np.random.default_rng(9)
+    cases = WEIGHTED_PULLS if weighted else [(d, o, None)
+                                             for d, o in PULL_CASES]
+    for dtype, op, wop in cases:
+        x = {"f32": lambda: rng.random(v).astype(np.float32) * 300,
+             "i32": lambda: _i32(rng, v),
+             "i8": lambda: (rng.integers(0, 2, v) if op == "any01"
+                            else rng.integers(-128, 128, v)).astype(np.int8)
+             }[dtype]()
+        x = torch.from_numpy(x).to(cuda)
+        w = None
+        if wop is not None:
+            w = torch.from_numpy(
+                rng.random(ci.shape[0]).astype(np.float32) * 99 + 1
+                if dtype == "f32" else _i32(rng, ci.shape[0])).to(cuda)
+        w0 = None if w is None else w[int(rp[0]):]
+        for excl in (False, True):
+            want = pl.pull_reduce_ref(rp0, ci0, x, op, excl, weights=w0,
+                                      weight_op=wop)
+            before = pl.pull_reduce.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = pl.pull_reduce(rp, ci, x, op, excl, plan, weights=w,
+                                     weight_op=wop)
+                again = pl.pull_reduce(rp, ci, x, op, excl, plan, weights=w,
+                                       weight_op=wop)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            assert pl.pull_reduce.launches == before + 2
+            assert got.dtype == want.dtype and got.shape == want.shape
+            if (dtype, op) == ("f32", "add"):
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            else:
+                assert torch.equal(got, want), (dtype, op, wop, excl)
+            bits = (lambda t: t.view(torch.int32)) if dtype == "f32" \
+                else (lambda t: t)
+            assert torch.equal(bits(got), bits(again))
+
+
+def test_pull_reduce_with_an_x_too_large_for_l1(cuda):
+    """A 4-byte x over X_IN_L1_BYTES is read through L1 only below L1_COLS:
+    columns on both sides of that bound, every op and with weights, give
+    the plain version's result."""
+    rng = np.random.default_rng(13)
+    n_x = pl.X_IN_L1_BYTES // 4 + 4099
+    degs = rng.integers(0, 300, 3000)
+    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(degs)])
+                               .astype(np.int32)).to(cuda)
+    e = int(row_ptr[-1])
+    cols = rng.integers(0, n_x, e)
+    cols[::3] = rng.integers(0, pl.L1_COLS, cols[::3].shape[0])
+    col_idx = torch.from_numpy(cols.astype(np.int32)).to(cuda)
+    for dtype, op, wop in (("f32", "add", None), ("f32", "min", "add"),
+                           ("f32", "max", "min"), ("i32", "min", None),
+                           ("i32", "or", "max")):
+        x = torch.from_numpy(rng.random(n_x).astype(np.float32) * 300
+                             if dtype == "f32" else _i32(rng, n_x)).to(cuda)
+        w = None if wop is None else torch.from_numpy(
+            rng.random(e).astype(np.float32) * 99 + 1 if dtype == "f32"
+            else _i32(rng, e)).to(cuda)
+        got = pl.pull_reduce(row_ptr, col_idx, x, op, weights=w,
+                             weight_op=wop)
+        want = pl.pull_reduce_ref(row_ptr, col_idx, x, op, weights=w,
+                                  weight_op=wop)
+        if op == "add":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(got, want), (dtype, op, wop)
+
+
+def test_advance_reads_nothing_back_after_its_first_pull(rmat12_cuda):
+    """advance_pull_value and advance_pull keep each direction's plan: after
+    the first call on a graph no call copies row_ptr (or any count) to the
+    host."""
+    _, g = rmat12_cuda
+    x = torch.rand(g.v_pad, device="cuda")
+    for d in (bfs.G, bfs.S):
+        advance.advance_pull_value(g, x, "add", direction=d)
+        advance.advance_pull(g, {"x": x}, lambda s, dd, w: s["x"], "max",
+                             direction=d)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for d in (bfs.G, bfs.S):
+            advance.advance_pull_value(g, x, "add", direction=d,
+                                       exclude_self_loops=True)
+            advance.advance_pull_value(g, x > 0.5, "or", direction=d)
+            advance.advance_pull(g, {"x": x}, lambda s, dd, w: s["x"], "min",
+                                 direction=d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def test_pull_reduce_rejects_bad_weights(cuda):
@@ -1069,9 +1206,9 @@ def test_segment_reduce_equals_plain_version(rmat12_cuda, d, op, dtype):
          "i8": lambda: rng.integers(0, 2, n).astype(np.int8)}[dtype]()
     x = torch.from_numpy(x).cuda()
     want = pl.segment_reduce_ref(dg.row_ptr, x, op)
-    for groups in (advance.row_groups(dg), None, ((g.v_pad, 1),)):
+    for plan in (advance.pull_plan(dg), None):
         before = pl.segment_reduce.launches
-        got = pl.segment_reduce(dg.row_ptr, x, op, groups)
+        got = pl.segment_reduce(dg.row_ptr, x, op, plan)
         torch.cuda.synchronize()
         assert pl.segment_reduce.launches == before + 1
         if (op, dtype) == ("add", "f32"):

@@ -3,8 +3,8 @@
 advance_pull_value (its route kernels in Pallas interpret mode) on an RMAT
 graph, a uniform graph with self-loops and a graph with huge rows in both
 directions, without and with edge weights (f32 and i32, every weight op);
-the kernel's work units (ops/advance.row_groups); and CPU runs of PageRank
-and DO-BFS, which launch no kernel.
+and CPU runs of PageRank and DO-BFS, which launch no kernel (the kernel's
+schedule has its own tests, tests/test_torch_pull_schedule.py).
 
 Tolerance: f32 sums at rtol 1e-5 / atol 1e-6, because a row's sum is taken
 in CSR order, not in the reference's tile order; min, max, or and integers
@@ -208,9 +208,9 @@ def test_pull_reduce_ref_with_weights_matches_jax(wgraphs, kind, case):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
     else:
         np.testing.assert_array_equal(got, want)
-    # the wrapper takes the plain version for a CPU tensor, groups or not
+    # the wrapper takes the plain version for a CPU tensor, plan or not
     full = pr_mod.pull_reduce(dg.row_ptr, dg.col_idx, torch.from_numpy(x),
-                              combine, excl, tadvance.row_groups(dg),
+                              combine, excl, tadvance.pull_plan(dg),
                               weights=tea.direction(td).flat, weight_op=wop)
     np.testing.assert_array_equal(full.numpy(), got)
 
@@ -227,38 +227,6 @@ def test_pull_reduce_weights_come_with_a_weight_op():
                dict(weights=w, weight_op="sub")):
         with pytest.raises(ValueError):
             pr_mod.pull_reduce(row_ptr, col_idx, x, "min", **kw)
-
-
-@pytest.mark.parametrize("kind", ["rmat", "hub"])
-@pytest.mark.parametrize("d", ["G", "S"])
-def test_row_groups_cover_the_rows(graphs, kind, d):
-    """Ascending row ends up to v_pad, thread counts the kernel takes, one
-    block per wide huge row and a warp per other huge row, each bucket's
-    rows in a group of width / UNROLL threads (1 to 32)."""
-    _, _, tg = graphs(kind)
-    dg = tg.direction(_dirs(d)[1])
-    groups = tadvance.row_groups(dg)
-    ends = [r for r, _ in groups]
-    assert ends == sorted(ends) and ends[-1] == dg.v_pad
-    assert len(groups) <= pr_mod.MAX_GROUPS
-    assert all(g in pr_mod.GROUPS for _, g in groups)
-    assert len({g for _, g in groups}) == len(groups)
-
-    def group_of(row):
-        return next(g for r, g in groups if row < r)
-    if kind == "hub":
-        h = dg.huge
-        assert h is not None and h.n_rows >= 1
-        degs = dg.degrees.numpy()
-        assert h.n_wide_rows == int((degs > 4 * h.chunk_w).sum())
-        assert h.n_wide_rows == (1 if d == "G" else 0)
-        for r in range(h.n_rows):
-            assert group_of(r) == (pr_mod.BLOCK if r < h.n_wide_rows else 32)
-    for b in dg.buckets:
-        assert group_of(b.row_start) == group_of(b.row_start + b.rows - 1) \
-            == min(max(b.width // pr_mod.UNROLL, 1), 32)
-    degs = dg.degrees.numpy()
-    assert all(group_of(r) == 1 for r in np.flatnonzero(degs == 0)[:50])
 
 
 def test_cpu_runs_launch_no_kernel(graphs):

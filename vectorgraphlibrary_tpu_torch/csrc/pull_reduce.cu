@@ -13,7 +13,7 @@
 // message of slot k is x[k] itself, one value per CSR slot, so they reduce
 // per-edge messages over the sorted segments of row_ptr (the general advance,
 // ops/advance.advance_pull, makes the messages with the user's edge op). Same
-// ops, types, work units and fixed order; no weights and no self-loop test.
+// ops, types, schedule and fixed order; no weights and no self-loop test.
 //
 // Replaces, on the advance's path, the chain that ran the TPU route kernels of
 // vectorgraphlibrary_tpu/ops/pallas/route_fused.py (_mid_kernel, _big_kernel
@@ -24,36 +24,59 @@
 // were its slow operation; here that chain computes the formula above over the
 // direction's own CSR, which the device graph already holds.
 //
-// What bounds it on Hopper: memory. Per edge it streams col_idx (4 B,
-// coalesced within a row; w[k] beside it, 4 B more, at the same offsets) and
-// reads x[col_idx[k]] at random; x is a vertex
-// vector (1 MB of f32 at RMAT-18, 1 MB of int8 at RMAT-20) that stays in the
-// 50 MB L2, so those reads cost L2 bandwidth, not HBM sectors. No slot-sized
-// array is read or written. Rows are in descending degree order, so the
-// graph's degree classes give contiguous row ranges of similar width; the
-// caller passes them as segments, each with a group of threads per row:
+// What bounds it on Hopper: the gathers of x. Per edge it reads col_idx
+// (4 B; w[k] beside it, 4 B more) once and x[col_idx[k]] at random; x is a
+// vertex vector (4 MB of f32 at RMAT-20) that L1 and the 50 MB L2 serve, and
+// how many of those reads L1 serves sets the pace: the bytes bound is 0.0238
+// ms at RMAT-20, the kernel takes about 0.08. So nothing per slot goes
+// through shared memory (it would take its room from L1: designs that staged
+// the messages there were slower the more shared memory they held), x is
+// read through L1 under L2's evict_last policy, and row_ptr under
+// evict_first past L1. A 4-byte x too large for L1 to keep its hot part
+// (over 2 MB: 4 MB at RMAT-20, 1 MB at RMAT-18) reads only its first
+// columns through L1 (COLD, hot: the graph's highest-degree vertices come
+// first) and the rest past it, so that those stay.
 //
-//   wide huge rows   one block of kThreads per row (over 2,048 edges),
-//                    fixed-shape reduction through shared memory
-//   other huge rows  one warp per row, strided lane loop, __shfl_xor_sync
-//                    tree
-//   bucket rows      1..32 threads per row, the same tree
+// The schedule balances edges and rows together (merge path, as in Merrill
+// and Garland's CSR SpMV): the n row ends and the e slots of the CSR form one
+// sorted sequence of n + e items (row v's end comes after its last slot), and
+// block b takes items [b * kTile, (b + 1) * kTile). Its start (row, slot)
+// comes from the plan (ops/cuda/pull_reduce.make_plan: one search over
+// row_ptr, made once per CSR and kept), so an empty row costs one item and a
+// hub row spreads over as many blocks as its slots fill. A block:
 //
-// Each thread makes kUnroll predicated loads of col_idx (and of w), then
-// kUnroll of x, all independent: the first version, with one or two loads in flight per
-// thread, took 14x its bound, so the kernel is bound by how many loads are in
-// flight. A bucket of width w gets w / kUnroll threads per row
-// (ops/advance.row_groups), so that a row takes one round trip for each.
+//   1. reads its tile's row ends, lane-contiguous, into shared memory (2 B
+//      each: tile-local slots);
+//   2. gives each thread kItems consecutive items, found by a merge-path
+//      search over them at both ends;
+//   3. reads the thread's slots' columns (and w), then gathers x for them:
+//      kItems loads of each in flight, all before the first use;
+//   4. walks the items in order in registers: a slot folds the first
+//      message in and shifts the rest down, a row end writes the row (the
+//      thread's first row end waits for step 5);
+//   5. combines the threads' open rows by a segmented scan over the block in
+//      a fixed tree (shuffles, then one pass over the warps), which gives each
+//      thread the value its first row carries in from earlier threads;
+//   6. leaves, for a row cut by its tile's boundaries, the tile's tail value
+//      and the head value in a carry array; a second, small launch
+//      (pull_reduce_fixup_kernel, a warp per row) combines each such row's
+//      carries in tile order. No atomics: every row is reduced in one fixed
+//      order, so an f32 sum has the same bits on every run.
 //
-// Everything runs in one launch: a block finds its segment from the block
-// ranges. No atomics: each row is reduced by one group in a fixed order (each
-// thread's strided partial, then a fixed tree), so an f32 sum comes out with
-// the same bits on every run. min/max propagate NaN as torch.minimum/maximum
-// do. 1-byte values compute in int32 and are narrowed on store; integer sums
-// wrap as torch's do.
+// kItems = 5 and 8 blocks of 256 threads an SM (at most 32 registers a
+// thread, no spill; 2,660 B of shared memory a block) were the fastest of
+// the shapes tried on RMAT-18 and RMAT-20 (2 to 16 items, 128 to 512
+// threads). On an H100 80GB HBM3 at 700 W, f32 add took 0.0379 ms on
+// RMAT-18 without self-loops and 0.0839 on RMAT-20 against 0.0564 and
+// 0.1279 for torch.mv (chip_smoke.py, CUDA events, both kernels and the gap
+// between them); by device time in one run (apps/exp_pull.py), 0.0337 and
+// 0.0793 against 0.0546 and 0.1642 for the degree-class schedule before it.
+//
+// min/max propagate NaN as torch.minimum/maximum do. 1-byte values compute in
+// int32 and are narrowed on store; integer sums wrap as torch's do.
 //
 // Plain C interface (loaded with ctypes): each entry returns cudaGetLastError()
-// after the launch, runs on the given stream and allocates nothing.
+// after its launches, runs on the given stream and allocates nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,19 +87,15 @@ namespace {
 
 enum Op { OP_ADD = 0, OP_MIN = 1, OP_MAX = 2, OP_OR = 3 };
 enum Wop { WOP_ADD = 1, WOP_MIN = 2, WOP_MAX = 3, WOP_MUL = 4 };
+// what a slot's message is: x[col_idx[k]], joined to w[k], or x[k]
+enum Mode { GATHER = 0, WEIGHTED = 1, SEGMENT = 2 };
 
-constexpr int kThreads = 512;     // block size; also the group of a huge row
-constexpr int kMaxSegs = 8;
-constexpr int kUnroll = 8;        // loads in flight per thread
-
-// Segment s covers rows [row_end[s-1], row_end[s]) (row_end[-1] = 0) with
-// group[s] threads per row, in blocks [block_end[s-1], block_end[s]).
-struct Segs {
-  int n;
-  int row_end[kMaxSegs];
-  int group[kMaxSegs];
-  int block_end[kMaxSegs];
-};
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 5;                   // merge items per thread
+constexpr int kTile = kThreads * kItems;    // merge items per block
+constexpr int kFixThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Compute { typedef T type; };
 template <> struct Compute<int8_t> { typedef int32_t type; };
@@ -113,150 +132,327 @@ __device__ __forceinline__ C join(int wop, C a, C w) {
   }
 }
 
-template <typename T, int OP, bool HAS_W, bool SEG>
-__global__ void __launch_bounds__(kThreads)
-pull_reduce_kernel(const int32_t* __restrict__ row_ptr,
-                   const int32_t* __restrict__ col_idx,
-                   const T* __restrict__ x, const T* __restrict__ w, int wop,
-                   T* __restrict__ out, Segs segs, int exclude_self_loops,
-                   T ident) {
-  typedef typename Compute<T>::type C;
-  __shared__ C s_warp[kThreads / 32];
-  const int b = blockIdx.x;
-  int s = 0;
-  while (s < segs.n - 1 && b >= segs.block_end[s]) ++s;
-  const int row0 = s == 0 ? 0 : segs.row_end[s - 1];
-  const int block0 = s == 0 ? 0 : segs.block_end[s - 1];
-  const int g = segs.group[s];
-  const int tid = threadIdx.x;
-  const int row = row0 + (b - block0) * (kThreads / g) + tid / g;
-  const int lane = tid & (g - 1);
-  const bool live = row < segs.row_end[s];
-  const C id = (C)ident;
-
-  C acc = id;
-  if (live) {
-    const int end = __ldg(row_ptr + row + 1);
-    // kUnroll predicated loads per round, all independent: a row of up to
-    // kUnroll * g edges takes one round trip for col_idx and one for x
-    for (int k = __ldg(row_ptr + row) + lane; k < end; k += kUnroll * g) {
-      if constexpr (SEG) {          // the messages are x's slots themselves
-        C m[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          m[u] = k + u * g < end ? (C)__ldg(x + k + u * g) : id;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) acc = combine<OP, C>(acc, m[u]);
-        continue;
-      }
-      int c[kUnroll];
-      C ew[HAS_W ? kUnroll : 1];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const bool in = k + u * g < end;
-        c[u] = in ? __ldg(col_idx + k + u * g) : -1;
-        if constexpr (HAS_W) ew[u] = in ? (C)__ldg(w + k + u * g) : id;
-      }
-      C v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const bool keep = !(c[u] < 0 || (exclude_self_loops && c[u] == row));
-        v[u] = keep ? (C)__ldg(x + c[u]) : id;
-        if constexpr (HAS_W) v[u] = keep ? join<C>(wop, v[u], ew[u]) : id;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) acc = combine<OP, C>(acc, v[u]);
-    }
-  }
-  // the group's tree: lanes of one group differ only in their low bits
-  for (int off = (g < 32 ? g : 32) / 2; off > 0; off >>= 1)
-    acc = combine<OP, C>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-  if (g == kThreads) {          // uniform over the block
-    if ((tid & 31) == 0) s_warp[tid >> 5] = acc;
-    __syncthreads();
-    if (tid < 32) {
-      acc = tid < kThreads / 32 ? s_warp[tid] : id;
-      for (int off = kThreads / 64; off > 0; off >>= 1)
-        acc = combine<OP, C>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-    }
-  }
-  if (live && lane == 0) out[row] = (T)acc;
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
 }
 
-template <typename T, int OP>
-void launch_op(unsigned grid, cudaStream_t st, const int32_t* rp,
-               const int32_t* ci, const T* xp, const T* wp, int wop, T* o,
-               const Segs& segs, int exclude_self_loops, T ident) {
-  if (ci == nullptr) {
-    pull_reduce_kernel<T, OP, false, true><<<grid, kThreads, 0, st>>>(
-        rp, nullptr, xp, nullptr, 0, o, segs, 0, ident);
-    return;
+// 4-byte reads through the non-coherent path (nothing the kernel reads is
+// written during its life) under an L2 cache policy: ld_stream skips L1 (a
+// warp's coalesced read of row_ptr, x's cold columns), ld_keep allocates in
+// it.
+__device__ __forceinline__ int32_t ld_stream(const void* p, uint64_t pol) {
+  int32_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.b32 %0, [%1], %2;"
+      : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ int32_t ld_keep(const void* p, uint64_t pol) {
+  int32_t v;
+  asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;"
+      : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+template <typename C> __device__ __forceinline__ C as(int32_t v) { return v; }
+template <> __device__ __forceinline__ float as<float>(int32_t v) {
+  return __int_as_float(v);
+}
+// One value of x, w or col_idx: 4-byte types under pol, bytes plainly.
+// Through L1 in either case: x's hot lines stay there, and a lane's slots
+// are consecutive, so the lines a warp's strided read of one step brings
+// in serve its next steps.
+template <typename T>
+__device__ __forceinline__ typename Compute<T>::type load(const T* p,
+                                                         uint64_t pol) {
+  if constexpr (sizeof(T) == 1) return __ldg(p);
+  else return as<typename Compute<T>::type>(ld_keep(p, pol));
+}
+// x[c] (4-byte) for a column past the hot ones: it skips L1, so that the
+// hot lines stay there
+template <typename T>
+__device__ __forceinline__ T load_cold(const T* p, uint64_t pol) {
+  return as<T>(ld_stream(p, pol));
+}
+
+// s_end's entry for the row open at the tile's end: past every slot
+constexpr uint16_t kOpenRow = 0xffff;
+
+// How many of the tile's rows end within its first d items: the i with
+// s_end[i] + i + 1 <= d, searched in [max(0, d - ns), min(d, a_len)].
+__device__ __forceinline__ int rows_before(const uint16_t* s_end, int d,
+                                           int ns, int a_len) {
+  int lo = max(0, d - ns), hi = min(d, a_len);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_end[mid] + mid + 1 <= d) lo = mid + 1;
+    else hi = mid;
   }
-  if constexpr (!std::is_same<T, int8_t>::value) {
-    if (wp != nullptr) {
-      pull_reduce_kernel<T, OP, true, false><<<grid, kThreads, 0, st>>>(
-          rp, ci, xp, wp, wop, o, segs, exclude_self_loops, ident);
+  return lo;
+}
+
+// Block b's tile is merge items [b * kTile, (b + 1) * kTile): rows
+// [tiles[b].x, tiles[b + 1].x) end in it and it holds slots [tiles[b].y,
+// tiles[b + 1].y). carry (or null when no row crosses a tile boundary) gets
+// each tile's tail value at [b] and its head value at [n_tiles + b].
+template <typename T, int OP, int MODE, bool EXCL, bool COLD>
+__global__ void __launch_bounds__(kThreads, 8)
+pull_reduce_kernel(const int32_t* __restrict__ row_ptr,
+            const int32_t* __restrict__ col_idx, const T* __restrict__ x,
+            const T* __restrict__ w, int wop, int hot,
+            T* __restrict__ out, const int2* __restrict__ tiles,
+            typename Compute<T>::type* __restrict__ carry, int n_tiles,
+            T ident) {
+  typedef typename Compute<T>::type C;
+  // row ends as tile-local slots (at most kTile): the tile's only shared
+  // array, so that L1 keeps nearly all of its 256 KB for x
+  __shared__ uint16_t s_end[kTile + 1];
+  __shared__ int s_wkey[kWarps];
+  __shared__ C s_wval[kWarps];
+  __shared__ C s_wcarry[kWarps];
+
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int2 lo = tiles[b];
+  const int2 hi = tiles[b + 1];
+  const int r0 = lo.x, k0 = lo.y;
+  const int a_len = hi.x - r0;              // rows that end in the tile
+  const int ns = hi.y - k0;                 // slots in the tile
+  const int items = a_len + ns;
+  const C id = (C)ident;
+
+  // 1. the tile's row ends, read lane-contiguous
+  const uint64_t pol_stream = policy_evict_first();
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = t + j * kThreads;
+    if (i < a_len)
+      s_end[i] = (uint16_t)(ld_stream(row_ptr + r0 + i + 1, pol_stream) - k0);
+  }
+  if (t == 0) s_end[a_len] = kOpenRow;      // the row open at the tile's end
+  __syncthreads();
+
+  // 2. the thread's items [d0, d1): after d items of the tile, rows i end
+  // where s_end[i] + i + 1 <= d, and d minus their count slots are taken
+  const int d0 = min(t * kItems, items);
+  const int d1 = min(d0 + kItems, items);
+  const int i0 = rows_before(s_end, d0, ns, a_len);
+  const int ks = d0 - i0;                   // the thread's first slot
+  const int n = d1 - rows_before(s_end, d1, ns, a_len) - ks;
+
+  // 3. its slots' columns (and w), then x, every load in flight before the
+  // first use; without col_idx a slot's message is x[k] itself
+  C m[kItems];
+  int c[kItems];
+  if constexpr (MODE == SEGMENT) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+      m[j] = j < n ? load(x + k0 + ks + j, pol_stream) : id;
+  } else {
+    C ew[MODE == WEIGHTED ? kItems : 1];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      c[j] = j < n ? load(col_idx + k0 + ks + j, pol_stream) : -1;
+      if constexpr (MODE == WEIGHTED)
+        ew[j] = j < n ? load(w + k0 + ks + j, pol_stream) : id;
+    }
+    const uint64_t pol_keep = policy_evict_last();
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      if constexpr (COLD)
+        m[j] = j < n ? (c[j] < hot ? load(x + c[j], pol_keep)
+                                   : load_cold(x + c[j], pol_keep))
+                     : id;
+      else
+        m[j] = j < n ? load(x + c[j], pol_keep) : id;
+      if constexpr (MODE == WEIGHTED) m[j] = join<C>(wop, m[j], ew[j]);
+    }
+  }
+
+  // 4. the walk: a row end writes the row (the thread's first waits for
+  // step 5), a slot folds m[0] in and the registers shift down by one
+  int i = i0, k = ks;
+  C acc = id, first_acc = id;
+  int first = -1;
+#pragma unroll
+  for (int s = 0; s < kItems; ++s) {
+    if (d0 + s < d1) {
+      if (s_end[i] <= k) {                  // row r0 + i ends
+        if (first < 0) {
+          first = i;
+          first_acc = acc;
+        } else {
+          out[r0 + i] = (T)acc;
+        }
+        acc = id;
+        ++i;
+      } else {
+        C v = m[0];
+        if constexpr (EXCL) {
+          if (c[0] == r0 + i) v = id;
+        }
+        acc = combine<OP, C>(acc, v);
+        ++k;
+#pragma unroll
+        for (int j = 0; j + 1 < kItems; ++j) {
+          m[j] = m[j + 1];
+          if constexpr (EXCL) c[j] = c[j + 1];
+        }
+      }
+    }
+  }
+
+  // 5. segmented inclusive scan of the threads' open rows (key i, value acc):
+  // keys never decrease from thread to thread, and thread t's first row is
+  // thread t - 1's open row
+  const int lane = t & 31, wid = t >> 5;
+  C val = acc;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int ko = __shfl_up_sync(kFull, i, o);
+    const C vo = __shfl_up_sync(kFull, val, o);
+    if (lane >= o && ko == i) val = combine<OP, C>(vo, val);
+  }
+  if (lane == 31) {
+    s_wkey[wid] = i;
+    s_wval[wid] = val;
+  }
+  __syncthreads();
+  if (t == 0) {
+    C run = s_wval[0];
+    for (int q = 1; q < kWarps; ++q) {
+      s_wcarry[q] = run;                    // the block's value at warp q - 1's end
+      run = s_wkey[q] == s_wkey[q - 1] ? combine<OP, C>(run, s_wval[q])
+                                        : s_wval[q];
+    }
+  }
+  __syncthreads();
+  const C win = wid > 0 ? s_wcarry[wid] : id;
+  const C bval = wid > 0 && i == s_wkey[wid - 1] ? combine<OP, C>(win, val)
+                                                 : val;
+  C cin = __shfl_up_sync(kFull, bval, 1);
+  if (lane == 0) cin = win;
+  if (first >= 0) {
+    const C v = combine<OP, C>(cin, first_acc);
+    // a row that began in an earlier tile: its head value waits for the fixup
+    if (first == 0 && __ldg(row_ptr + r0) < k0) carry[n_tiles + b] = v;
+    else out[r0 + first] = (T)v;
+  }
+  // 6. the tile's tail value: the thread that holds the tile's last item
+  if (carry != nullptr && d0 < items && d1 == items) carry[b] = bval;
+}
+
+// fix[f] = (tile b, tile bs): the row that ends in tile b began in tile bs <
+// b; its value is the tails of tiles bs .. b - 1, then b's head. A warp per
+// row: lane l folds tails bs + l, bs + l + 32, ... in order, a fixed tree
+// joins the lanes, then the head comes last.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kFixThreads)
+pull_reduce_fixup_kernel(const int2* __restrict__ tiles,
+                         const int2* __restrict__ fix, int n_fix,
+                         const typename Compute<T>::type* __restrict__ carry,
+                         int n_tiles, T* __restrict__ out, T ident) {
+  typedef typename Compute<T>::type C;
+  const int f = (blockIdx.x * kFixThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (f >= n_fix) return;                   // the whole warp
+  const int2 e = fix[f];
+  C acc = (C)ident;
+  for (int q = e.y + lane; q < e.x; q += 32)
+    acc = combine<OP, C>(acc, carry[q]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc = combine<OP, C>(acc, __shfl_down_sync(kFull, acc, o));
+  if (lane == 0)
+    out[tiles[e.x].x] = (T)combine<OP, C>(acc, carry[n_tiles + e.x]);
+}
+
+struct Args {
+  const int32_t* row_ptr;
+  const int32_t* col_idx;
+  const void* x;
+  const void* w;
+  int wop;
+  int hot;                      // columns below it read x through L1; < 0: all
+  void* out;
+  const int2* tiles;
+  int n_tiles;
+  const int2* fix;
+  int n_fix;
+  void* carry;
+  int exclude_self_loops;
+  bool segment;                 // the segment-reduce entries: no col_idx
+};
+
+template <typename T, int OP, int MODE, bool EXCL, bool COLD = false>
+void launch_kernels(const Args& a, T ident, cudaStream_t st) {
+  typedef typename Compute<T>::type C;
+  pull_reduce_kernel<T, OP, MODE, EXCL, COLD><<<a.n_tiles, kThreads, 0, st>>>(
+      a.row_ptr, a.col_idx, (const T*)a.x, (const T*)a.w, a.wop, a.hot,
+      (T*)a.out,
+      a.tiles, (C*)a.carry, a.n_tiles, ident);
+  constexpr int rows_per_block = kFixThreads / 32;
+  if (a.n_fix > 0)
+    pull_reduce_fixup_kernel<T, OP>
+        <<<(a.n_fix + rows_per_block - 1) / rows_per_block, kFixThreads, 0,
+           st>>>(a.tiles, a.fix, a.n_fix, (const C*)a.carry, a.n_tiles,
+                 (T*)a.out, ident);
+}
+
+// The gathering modes: with or without the self-loop test, and for a
+// 4-byte x with a hot bound (a byte's x reads through L1 either way)
+template <typename T, int OP, int MODE>
+void launch_gather(const Args& a, T ident, cudaStream_t st) {
+  if constexpr (sizeof(T) == 4) {
+    if (a.hot >= 0) {
+      if (a.exclude_self_loops) launch_kernels<T, OP, MODE, true, true>(a, ident, st);
+      else launch_kernels<T, OP, MODE, false, true>(a, ident, st);
       return;
     }
   }
-  pull_reduce_kernel<T, OP, false, false><<<grid, kThreads, 0, st>>>(
-      rp, ci, xp, nullptr, 0, o, segs, exclude_self_loops, ident);
+  if (a.exclude_self_loops) launch_kernels<T, OP, MODE, true>(a, ident, st);
+  else launch_kernels<T, OP, MODE, false>(a, ident, st);
+}
+
+template <typename T, int OP>
+void launch_op(const Args& a, T ident, cudaStream_t st) {
+  if (a.segment) {
+    launch_kernels<T, OP, SEGMENT, false>(a, ident, st);
+    return;
+  }
+  if constexpr (!std::is_same<T, int8_t>::value) {
+    if (a.wop != 0) {
+      launch_gather<T, OP, WEIGHTED>(a, ident, st);
+      return;
+    }
+  }
+  launch_gather<T, OP, GATHER>(a, ident, st);
 }
 
 template <typename T>
-int launch(const void* row_ptr, const void* col_idx, const void* x,
-           const void* w, int wop, void* out, const int* row_end,
-           const int* group, int n_segs, int exclude_self_loops, int op,
-           T ident, void* stream) {
-  if (n_segs < 1 || n_segs > kMaxSegs) return (int)cudaErrorInvalidValue;
-  // edge values come with a join op, and not with 1-byte values; the
-  // segment reduction (no col_idx) takes neither them nor the self-loop test
-  if ((w != nullptr) != (wop != 0) || wop < 0 || wop > WOP_MUL ||
-      (w != nullptr && std::is_same<T, int8_t>::value) ||
-      (col_idx == nullptr && (w != nullptr || exclude_self_loops)))
+int launch(const Args& a, int op, T ident, void* stream) {
+  // edge values (wop != 0; w may be NULL only when there is no slot) come
+  // not with 1-byte values; the segment reduction takes neither them nor
+  // the self-loop test
+  if (a.wop < 0 || a.wop > WOP_MUL ||
+      (a.wop != 0 && std::is_same<T, int8_t>::value) ||
+      (a.segment && (a.wop != 0 || a.exclude_self_loops)) ||
+      a.n_tiles < 0 || a.n_fix < 0 || (a.n_fix > 0 && a.carry == nullptr))
     return (int)cudaErrorInvalidValue;
-  Segs segs;
-  segs.n = n_segs;
-  long long blocks = 0;
-  int prev = 0;
-  for (int s = 0; s < n_segs; ++s) {
-    const int g = group[s];
-    if (g < 1 || g > kThreads || (g & (g - 1)) != 0 || (g > 32 && g != kThreads)
-        || row_end[s] < prev)
-      return (int)cudaErrorInvalidValue;
-    const int per_block = kThreads / g;
-    blocks += ((long long)row_end[s] - prev + per_block - 1) / per_block;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    segs.row_end[s] = row_end[s];
-    segs.group[s] = g;
-    segs.block_end[s] = (int)blocks;
-    prev = row_end[s];
-  }
-  if (blocks == 0) return (int)cudaGetLastError();
+  if (a.n_tiles == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  const int32_t* rp = (const int32_t*)row_ptr;
-  const int32_t* ci = (const int32_t*)col_idx;
-  const T* xp = (const T*)x;
-  const T* wp = (const T*)w;
-  T* o = (T*)out;
-  const unsigned grid = (unsigned)blocks;
   switch (op) {
-    case OP_ADD:
-      launch_op<T, OP_ADD>(grid, st, rp, ci, xp, wp, wop, o, segs,
-                           exclude_self_loops, ident);
-      break;
-    case OP_MIN:
-      launch_op<T, OP_MIN>(grid, st, rp, ci, xp, wp, wop, o, segs,
-                           exclude_self_loops, ident);
-      break;
-    case OP_MAX:
-      launch_op<T, OP_MAX>(grid, st, rp, ci, xp, wp, wop, o, segs,
-                           exclude_self_loops, ident);
-      break;
+    case OP_ADD: launch_op<T, OP_ADD>(a, ident, st); break;
+    case OP_MIN: launch_op<T, OP_MIN>(a, ident, st); break;
+    case OP_MAX: launch_op<T, OP_MAX>(a, ident, st); break;
     case OP_OR:
       if (std::is_same<T, float>::value) return (int)cudaErrorInvalidValue;
-      launch_op<T, OP_OR>(grid, st, rp, ci, xp, wp, wop, o, segs,
-                          exclude_self_loops, ident);
+      launch_op<T, OP_OR>(a, ident, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -268,58 +464,78 @@ int launch(const void* row_ptr, const void* col_idx, const void* x,
 
 extern "C" {
 
-// row_end/group: n_segs host ints (the segments above); the last row_end is
-// the number of rows, and out has that many entries. w: one value of x's type
-// per CSR slot with wop in 1..4 (add, min, max, mul), or NULL with wop 0.
+// tiles: int32 [n_tiles + 1, 2], fix: int32 [n_fix, 2], the plan of row_ptr
+// (ops/cuda/pull_reduce.make_plan); carry: 2 * n_tiles 4-byte values of
+// scratch, or NULL when n_fix is 0. out has row_ptr's n entries. w: one value
+// of x's type per CSR slot with wop in 1..4 (add, min, max, mul), or wop 0
+// for none. hot: x[c] with c < hot is read through L1, the rest past it
+// (4-byte types; every x[c] through L1 when hot < 0).
 int vgl_pull_reduce_f32(const void* row_ptr, const void* col_idx,
-                        const void* x, const void* w, int wop, void* out,
-                        const int* row_end, const int* group, int n_segs,
-                        int exclude_self_loops, int op, float ident,
-                        void* stream) {
-  return launch<float>(row_ptr, col_idx, x, w, wop, out, row_end, group,
-                       n_segs, exclude_self_loops, op, ident, stream);
+                        const void* x, const void* w, int wop, int hot,
+                        void* out, const void* tiles, int n_tiles,
+                        const void* fix, int n_fix, void* carry,
+                        int exclude_self_loops, int op,
+                        float ident, void* stream) {
+  const Args a{(const int32_t*)row_ptr, (const int32_t*)col_idx, x, w, wop,
+               hot, out, (const int2*)tiles, n_tiles, (const int2*)fix,
+               n_fix, carry, exclude_self_loops, false};
+  return launch<float>(a, op, ident, stream);
 }
 
 int vgl_pull_reduce_i32(const void* row_ptr, const void* col_idx,
-                        const void* x, const void* w, int wop, void* out,
-                        const int* row_end, const int* group, int n_segs,
-                        int exclude_self_loops, int op, int ident,
-                        void* stream) {
-  return launch<int32_t>(row_ptr, col_idx, x, w, wop, out, row_end, group,
-                         n_segs, exclude_self_loops, op, (int32_t)ident,
-                         stream);
+                        const void* x, const void* w, int wop, int hot,
+                        void* out, const void* tiles, int n_tiles,
+                        const void* fix, int n_fix, void* carry,
+                        int exclude_self_loops, int op,
+                        int ident, void* stream) {
+  const Args a{(const int32_t*)row_ptr, (const int32_t*)col_idx, x, w, wop,
+               hot, out, (const int2*)tiles, n_tiles, (const int2*)fix,
+               n_fix, carry, exclude_self_loops, false};
+  return launch<int32_t>(a, op, (int32_t)ident, stream);
 }
 
 int vgl_pull_reduce_i8(const void* row_ptr, const void* col_idx,
-                       const void* x, const void* w, int wop, void* out,
-                       const int* row_end, const int* group, int n_segs,
-                       int exclude_self_loops, int op, int ident,
-                       void* stream) {
-  return launch<int8_t>(row_ptr, col_idx, x, w, wop, out, row_end, group,
-                        n_segs, exclude_self_loops, op, (int8_t)ident, stream);
+                       const void* x, const void* w, int wop, int hot,
+                       void* out, const void* tiles, int n_tiles,
+                       const void* fix, int n_fix, void* carry,
+                       int exclude_self_loops, int op,
+                       int ident, void* stream) {
+  const Args a{(const int32_t*)row_ptr, (const int32_t*)col_idx, x, w, wop,
+               hot, out, (const int2*)tiles, n_tiles, (const int2*)fix,
+               n_fix, carry, exclude_self_loops, false};
+  return launch<int8_t>(a, op, (int8_t)ident, stream);
 }
 
 // The segment reduction: out[v] = op over k in row v of x[k], x one value per
 // CSR slot (as long as the CSR's slots at least).
 int vgl_segment_reduce_f32(const void* row_ptr, const void* x, void* out,
-                           const int* row_end, const int* group, int n_segs,
-                           int op, float ident, void* stream) {
-  return launch<float>(row_ptr, nullptr, x, nullptr, 0, out, row_end, group,
-                       n_segs, 0, op, ident, stream);
+                           const void* tiles, int n_tiles, const void* fix,
+                           int n_fix, void* carry, int op, float ident,
+                           void* stream) {
+  const Args a{(const int32_t*)row_ptr, nullptr, x, nullptr, 0, 0, out,
+               (const int2*)tiles, n_tiles, (const int2*)fix, n_fix, carry, 0,
+               true};
+  return launch<float>(a, op, ident, stream);
 }
 
 int vgl_segment_reduce_i32(const void* row_ptr, const void* x, void* out,
-                           const int* row_end, const int* group, int n_segs,
-                           int op, int ident, void* stream) {
-  return launch<int32_t>(row_ptr, nullptr, x, nullptr, 0, out, row_end, group,
-                         n_segs, 0, op, (int32_t)ident, stream);
+                           const void* tiles, int n_tiles, const void* fix,
+                           int n_fix, void* carry, int op, int ident,
+                           void* stream) {
+  const Args a{(const int32_t*)row_ptr, nullptr, x, nullptr, 0, 0, out,
+               (const int2*)tiles, n_tiles, (const int2*)fix, n_fix, carry, 0,
+               true};
+  return launch<int32_t>(a, op, (int32_t)ident, stream);
 }
 
 int vgl_segment_reduce_i8(const void* row_ptr, const void* x, void* out,
-                          const int* row_end, const int* group, int n_segs,
-                          int op, int ident, void* stream) {
-  return launch<int8_t>(row_ptr, nullptr, x, nullptr, 0, out, row_end, group,
-                        n_segs, 0, op, (int8_t)ident, stream);
+                          const void* tiles, int n_tiles, const void* fix,
+                          int n_fix, void* carry, int op, int ident,
+                          void* stream) {
+  const Args a{(const int32_t*)row_ptr, nullptr, x, nullptr, 0, 0, out,
+               (const int2*)tiles, n_tiles, (const int2*)fix, n_fix, carry, 0,
+               true};
+  return launch<int8_t>(a, op, (int8_t)ident, stream);
 }
 
 }  // extern "C"

@@ -39,16 +39,9 @@ class TileBucket:
         return self.rows_pad * self.width
 
 
-# a huge row of more chunks than this is wide: the pull kernel gives it a
-# block of threads, and every other huge row a warp (ops/advance.row_groups)
-WIDE_ROW_CHUNKS = 4
-
-
 @dataclasses.dataclass(frozen=True)
 class HugeTile:
-    """Row-split high-degree class: rows cut into chunks of chunk_w slots.
-    The first n_wide_rows rows (degree-sorted) have more than
-    WIDE_ROW_CHUNKS chunks."""
+    """Row-split high-degree class: rows cut into chunks of chunk_w slots."""
 
     adj: torch.Tensor               # int32 [n_chunks_pad, chunk_w]
     seg_ids: torch.Tensor           # int32 [n_chunks_pad], ascending row ids
@@ -57,21 +50,19 @@ class HugeTile:
     n_rows: int
     n_chunks: int
     n_chunks_pad: int
-    n_wide_rows: int
 
 
 def huge_tile(adj: torch.Tensor, seg_ids: np.ndarray, chunk_w: int,
               n_rows: int, n_chunks: int, n_chunks_pad: int,
               device) -> HugeTile:
-    """A HugeTile on `device` from its host arrays; the chunks per row and
-    the count of wide rows come from the host's seg_ids."""
+    """A HugeTile on `device` from its host arrays; the chunks per row come
+    from the host's seg_ids."""
     lengths = np.bincount(seg_ids, minlength=n_rows + 1)
     return HugeTile(adj=adj, seg_ids=_i32(seg_ids, device),
                     seg_lengths=torch.from_numpy(
                         lengths.astype(np.int64)).to(device),
                     chunk_w=chunk_w, n_rows=n_rows, n_chunks=n_chunks,
-                    n_chunks_pad=n_chunks_pad,
-                    n_wide_rows=int((lengths[:n_rows] > WIDE_ROW_CHUNKS).sum()))
+                    n_chunks_pad=n_chunks_pad)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +80,16 @@ class DeviceDirectedGraph:
     v_pad: int
     e: int
     e_pad: int
+
+    def derived(self, key, build):
+        """A device structure derived from this direction (such as the pull
+        kernel's schedule), made by build() at the first call with `key`
+        and kept with it. It is no field: graphs compare, save and load
+        without it."""
+        cache = self.__dict__.setdefault("_derived", {})
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
 
 
 def _i32(a: np.ndarray, device) -> torch.Tensor:

@@ -47,8 +47,7 @@ from ..graph.device import DeviceDirectedGraph, VGLGraph
 from ..graph.edges import DirectedEdgeValues
 from . import monoid as M
 from . import tiles as T
-from .cuda.pull_reduce import BLOCK as PULL_BLOCK, UNROLL as PULL_UNROLL
-from .cuda.pull_reduce import pull_reduce, segment_reduce
+from .cuda.pull_reduce import Plan, make_plan, pull_reduce, segment_reduce
 from .cuda.push_expand import push_expand
 from .route import apply_route
 
@@ -61,30 +60,11 @@ def _assemble(parts, covered: int, v_pad: int, ident: torch.Tensor, dtype,
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def row_groups(dg: DeviceDirectedGraph) -> tuple:
-    """The pull kernel's work units over one direction's rows, from the
-    degree classes the graph holds as Python ints: one block per wide huge
-    row, one warp per other huge row, width / UNROLL threads (1 to 32) per
-    row of each bucket, so that a row takes one round of loads, one thread
-    per row of degree 0 (and padding) up to v_pad. Ascending (row_end,
-    threads) pairs; neighbours with the same thread count merge, and a
-    class without rows adds nothing."""
-    groups = []
-
-    def add(row_end, g):
-        if row_end == (groups[-1][0] if groups else 0):
-            return
-        if groups and groups[-1][1] == g:
-            groups[-1] = (row_end, g)
-        else:
-            groups.append((row_end, g))
-    if dg.huge is not None:
-        add(dg.huge.n_wide_rows, PULL_BLOCK)
-        add(dg.huge.n_rows, 32)
-    for b in dg.buckets:
-        add(b.row_start + b.rows, min(max(b.width // PULL_UNROLL, 1), 32))
-    add(dg.v_pad, 1)
-    return tuple(groups)
+def pull_plan(dg: DeviceDirectedGraph) -> Plan:
+    """The pull kernel's schedule over one direction's CSR
+    (ops/cuda/pull_reduce.make_plan), made at the first pull and kept with
+    the graph."""
+    return dg.derived("pull_plan", lambda: make_plan(dg.row_ptr))
 
 
 def advance_pull_value(graph: VGLGraph,
@@ -147,7 +127,7 @@ def advance_pull_value(graph: VGLGraph,
     if weights is not None and weights.dtype != dtype:
         weights = weights.to(dtype)
     out = pull_reduce(dg.row_ptr, dg.col_idx, src_vec, mon.name,
-                      exclude_self_loops, row_groups(dg), weights=weights,
+                      exclude_self_loops, pull_plan(dg), weights=weights,
                       weight_op=weight_op)
     if is_bool:
         # strictly-positive test, not a cast (reference advance.py:605-609)
@@ -208,7 +188,7 @@ def advance_pull(graph: VGLGraph,
         msg = torch.where(src_active[cols], msg,
                           mon.identity(msg.dtype).to(msg.device))
     out = segment_reduce(dg.row_ptr, msg.contiguous(), mon.name,
-                         row_groups(dg))
+                         pull_plan(dg))
     return out.to(torch.bool) if is_bool else out
 
 
