@@ -79,6 +79,9 @@ result line):
    (min and add, first held bit for bit against the plain version) beside
    index_add_, in turns, by events and on the device, with a bound for
    each entry (in place: the target's sectors that the messages touch);
+   then the in-place add step by step: the wrapper, the parent commit's
+   wrapper rebuilt, index_add_ and Monoid.scatter_at_ in turns, and each
+   step of the launch alone;
 10. slice: the fixpoint family on the weighted RMAT-20 graph, sources as
    bench.py picks them: vgl_dijkstra_all_active and
    vgl_dijkstra_partial_device on 2 sources (equal bit for bit, error count
@@ -100,10 +103,14 @@ result line):
    list, and bitmaps of 1, 8, 33 and 512 words with hub rows; kernel,
    plain, one-call PyTorch (index_add; none for and_popcount), bound and
    the design's floor, and the kernel over one triangle count's blocks; the
-   bitmap build as models/tc._tc_build_bits runs it (a zero fill and the
-   in-place add, bit for bit against the copying entry and the plain
-   version in place) beside torch.zeros + index_add_, and the count's 16
-   builds in place beside the same builds with the copying entry;
+   bitmap build as models/tc._tc_build_bits runs it (the sorted build,
+   scatter_combine_sorted, after a check that the block's indices never
+   decrease; bit for bit against its plain version, the copying entry and
+   the parent's zero fill + in-place add), timed in turns beside that
+   zero fill + scatter_combine_ and torch.zeros + index_add_, against its
+   bound, and the count's 16 builds (each block's order checked first)
+   beside the same builds by the parent's design and by the copying
+   entry;
 12. slice: on the phase-4 RMAT-18 graph, vgl_forward_backward
    (equal_components 0 against seq_scc; per trim round 2 pull_reduce and 4
    route_gather_finish, per flood hop 1 and 2), vgl_coloring(ec=...)
@@ -113,8 +120,9 @@ result line):
    steps, no step off an edge, every end within reach), reachability
    (Purdom) and vgl_bfs_based_reachability from 2 sources (equal to
    seq_reachability), and vgl_triangle_count (325,150,067, equal to the
-   oriented sparse product on the host; one scatter_combine and one
-   and_popcount per block not skipped, no pull_reduce), plus RMAT-14 with
+   oriented sparse product on the host; one scatter_combine launch, its
+   sorted build, and one and_popcount per block not skipped, no
+   pull_reduce), plus RMAT-14 with
    block_bits 256 against seq_triangle_count; MTEPS by bench.py's formulas
    (coloring |E| / (core s + device s), triangles |E| / (host s + device
    s), SCC and LP |E| / t), medians of 3;
@@ -613,10 +621,13 @@ def phase_pagerank(rg, pl, smi: str):
 
 
 def _median3(label: str, unit: str, values, smi: str) -> float:
+    """The median of an odd number of runs (three, as a rule), printed
+    with their min and max."""
     v = sorted(values)
-    print(f"  {label}: median {v[1]:.4f} {unit} (min {v[0]:.4f}, max "
-          f"{v[2]:.4f}) on {smi}")
-    return v[1]
+    mid = v[len(v) // 2]
+    print(f"  {label}: median {mid:.4f} {unit} (min {v[0]:.4f}, max "
+          f"{v[-1]:.4f}) on {smi}")
+    return mid
 
 
 def _device_events(fn, reps: int = 1) -> list:
@@ -1554,8 +1565,8 @@ def phase_persistence(kernels: dict, fresh: dict, router_s: float,
         if n_ls != 8:
             raise AssertionError(f"load launched lane_shuffle {n_ls} times, "
                                  "expected 8 (two per plan)")
-        idle = ("scatter_combine", "and_popcount", "pull_rows",
-                "segment_reduce")
+        idle = ("scatter_combine", "scatter_combine_sorted", "and_popcount",
+                "pull_rows", "segment_reduce")
         if any(counts[k] for k in idle) or not all(
                 v for k, v in counts.items() if k not in idle):
             raise AssertionError(f"a kernel of this path did not launch, or "
@@ -1645,15 +1656,34 @@ def _popcount_cases(bits, uf, vf, chunk: int, rng) -> list:
     return cases
 
 
+def _check_non_decreasing(label: str, idx: torch.Tensor) -> None:
+    """The sorted build's precondition, read back once: idx never
+    decreases."""
+    if idx.numel() > 1 and not bool((idx[1:] >= idx[:-1]).all()):
+        raise AssertionError(f"{label}: the bitmap indices decrease")
+    print(f"  {label}: {idx.numel()} bitmap indices, non-decreasing")
+
+
+def _zero_fill_in_place_build(scm, u_blk, v_local, n_bits: int, words: int):
+    """The triangle bitmap as the parent commit built it: a zero fill and
+    the general kernel's in-place add (scatter_combine_)."""
+    bits = torch.zeros(n_bits, dtype=torch.int32, device=u_blk.device)
+    idx = u_blk * words + (v_local >> 5)
+    bit = torch.bitwise_left_shift(torch.ones_like(v_local), v_local & 31)
+    return scm.scatter_combine_(bits, idx, bit, "add")
+
+
 def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
     """scatter_combine's int32 add against its plain version, bit for bit,
     into 2^20 from 2^15, 2^16 and 2^17 messages (an eighth dropped), all
     dropped and none, then at the triangle count's shape (one column block
-    of RMAT-18's oriented edges into its [v + 1, 512] bitmap); and_popcount
-    against its plain version, bit for bit, on that block's presence-filtered
-    edges, a ragged last chunk and an empty edge list. Returns both kernels'
-    errors and times and the oriented edges (phase 12 counts triangles with
-    them)."""
+    of RMAT-18's oriented edges into its [v + 1, 512] bitmap), where the
+    sorted build (scatter_combine_sorted, as _tc_build_bits runs it) is
+    held to its plain version, the copying entry and the parent's zero fill
+    + in-place add, and timed beside them; and_popcount against its plain
+    version, bit for bit, on that block's presence-filtered edges, a ragged
+    last chunk and an empty edge list. Returns the kernels' errors and
+    times and the oriented edges (phase 12 counts triangles with them)."""
     from vectorgraphlibrary_tpu_torch.models import tc
     rng = np.random.default_rng(SEED + 6)
     dev = torch.device(DEVICE)
@@ -1766,32 +1796,66 @@ def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
     print(f"  scatter_combine add, triangle bitmap bound "
           f"{build['bound_ms']:.4f} ms")
     add["triangle_bitmap"] = build
-    # the build as models/tc._tc_build_bits runs it: a zero fill and the
-    # in-place add (scatter_combine_), beside torch.zeros + index_add_;
-    # the bound counts the bitmap written once and 8 bytes per edge
+    # the build as models/tc._tc_build_bits runs it: one launch of the
+    # sorted build (scatter_combine_sorted), whose order idx must keep:
+    # checked here once, outside the timed region (the kernel does not)
+    _check_non_decreasing(f"the block at column {c0}", flat_idx)
     built = tc._tc_build_bits(ub, vb, nv, words).view(-1)
     sc_err = max(sc_err, exact(
-        "scatter_combine_", f"_tc_build_bits, {n_build} bits -> "
+        "scatter_combine_sorted", f"_tc_build_bits, {n_build} bits -> "
         f"[{nv + 1}, {words}]", built, bits))
+    sorted_err = exact("scatter_combine_sorted", "plain version",
+                       scm.scatter_combine_sorted(n_bits, flat_idx, bit,
+                                                  "add"),
+                       scm.scatter_combine_sorted_ref(n_bits, flat_idx, bit,
+                                                      "add"))
+    # the parent's design: a zero fill and the in-place add
+    # (scatter_combine_), and its plain version in place
+    parent = _zero_fill_in_place_build(scm, ub, vb, n_bits, words)
+    sc_err = max(sc_err, exact("scatter_combine_", "zero fill + in-place "
+                               "add", parent, built))
     plain_in_place = scm.scatter_combine_ref_(torch.zeros_like(zeros),
                                               flat_idx, bit, "add")
     sc_err = max(sc_err, exact("scatter_combine_", "plain version in place",
-                               built, plain_in_place))
-    del built, plain_in_place
+                               parent, plain_in_place))
+    del built, parent, plain_in_place
     fidx = flat_idx.long()
-    build_in_place = dict(
-        ms=_median3("_tc_build_bits (zero fill + scatter_combine_)", "ms",
-                    [_cuda_ms(lambda: tc._tc_build_bits(ub, vb, nv, words),
-                              reps=3) for _ in range(3)], smi),
-        library_ms=_median3(
-            "triangle bitmap, torch.zeros + index_add_", "ms",
-            [_cuda_ms(lambda: torch.zeros(n_bits, dtype=torch.int32,
-                                          device=dev).index_add_(
-                0, fidx, bit), reps=3) for _ in range(3)], smi),
-        bound_ms=_bound_ms(4 * n_bits + 8 * n_build))
-    print(f"  _tc_build_bits (zero fill + in-place add) bound "
-          f"{build_in_place['bound_ms']:.4f} ms")
+    # in turns: the sorted build as the count runs it, its kernel alone,
+    # the parent's design, torch.zeros + index_add_
+    calls = {
+        "tc_build_bits": lambda: tc._tc_build_bits(ub, vb, nv, words),
+        "kernel": lambda: scm.scatter_combine_sorted(n_bits, flat_idx, bit,
+                                                     "add"),
+        "zero_fill_in_place_add": lambda: _zero_fill_in_place_build(
+            scm, ub, vb, n_bits, words),
+        "zeros_index_add_": lambda: torch.zeros(
+            n_bits, dtype=torch.int32, device=dev).index_add_(0, fidx, bit)}
+    runs = {k: [] for k in calls}
+    for _ in range(3):
+        for k, fn in calls.items():
+            runs[k].append(_cuda_ms(fn, reps=3))
+    label = f"triangle bitmap, {n_build} bits -> [{nv + 1}, {words}]"
+    bms = {k: _median3(f"{label}, {k}", "ms", r, smi)
+           for k, r in runs.items()}
+    # the bound: the bitmap written once, an index and a bit per edge
+    bound = _bound_ms(4 * n_bits + 8 * n_build)
+    build_in_place = dict(ms=bms["zero_fill_in_place_add"],
+                          library_ms=bms["zeros_index_add_"], bound_ms=bound)
     add["triangle_bitmap_in_place"] = build_in_place
+    sorted_build = dict(
+        max_err=sorted_err, ms=bms["kernel"], build_ms=bms["tc_build_bits"],
+        zero_fill_in_place_add_ms=bms["zero_fill_in_place_add"],
+        plain_ms=_median3(f"{label}, plain version", "ms", [_cuda_ms(
+            lambda: scm.scatter_combine_sorted_ref(n_bits, flat_idx, bit,
+                                                   "add"), reps=1)
+            for _ in range(3)], smi),
+        library_ms=bms["zeros_index_add_"], bound_ms=bound, bound_by="bytes",
+        shape=label)
+    print(f"  {label}: the sorted build {bms['kernel']:.4f} ms "
+          f"(_tc_build_bits {bms['tc_build_bits']:.4f}), zero fill + "
+          f"scatter_combine_ {bms['zero_fill_in_place_add']:.4f}, "
+          f"torch.zeros + index_add_ {bms['zeros_index_add_']:.4f}; bound "
+          f"{bound:.4f} ms on {smi}")
     del zeros, fidx
 
     bits = bits.view(nv + 1, words)
@@ -1837,35 +1901,52 @@ def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
     del bits
     # one triangle count's launches: every column block with pairs, its
     # bitmap built as the count builds it
-    per_block, builds, copy_builds = [], [], []
+    per_block, builds, parent_builds, copy_builds = [], [], [], []
     for n_p, cb, _ in sizes:
         if n_p == 0:
             continue
         mb, eb = block(cb)
         ub_c, vb_c = ud[mb], vd[mb] - cb
+        bidx = ub_c * words + (vb_c >> 5)
+        _check_non_decreasing(f"the block at column {cb}", bidx)
         bb = tc._tc_build_bits(ub_c, vb_c, nv, words)
         ua, va = ud[eb], vd[eb]
         per_block.append(_cuda_ms(lambda: ap.and_popcount(bb, ua, va, chunk),
                                   reps=3))
         del bb
-        # the build as the count runs it, and as it ran with the copying
-        # entry (a zero fill, the copy of it, the kernel), in turns
-        bidx = ub_c * words + (vb_c >> 5)
+        # the build as the count runs it (the sorted build), as the parent
+        # ran it (a zero fill and the in-place add) and as it ran with the
+        # copying entry (a zero fill, the copy of it, the kernel), in turns,
+        # three rounds, the median of each
         bbit = torch.bitwise_left_shift(torch.ones_like(vb_c), vb_c & 31)
-        builds.append(_cuda_ms(lambda: tc._tc_build_bits(ub_c, vb_c, nv,
-                                                         words), reps=3))
-        copy_builds.append(_cuda_ms(lambda: scm.scatter_combine(
-            torch.zeros(n_bits, dtype=torch.int32, device=dev), bidx, bbit,
-            "add"), reps=3))
+        turns = [[], [], []]
+        for _ in range(3):
+            turns[0].append(_cuda_ms(lambda: tc._tc_build_bits(
+                ub_c, vb_c, nv, words), reps=3))
+            turns[1].append(_cuda_ms(lambda: _zero_fill_in_place_build(
+                scm, ub_c, vb_c, n_bits, words), reps=3))
+            turns[2].append(_cuda_ms(lambda: scm.scatter_combine(
+                torch.zeros(n_bits, dtype=torch.int32, device=dev), bidx,
+                bbit, "add"), reps=3))
+        for got, t in zip((builds, parent_builds, copy_builds), turns):
+            got.append(statistics.median(t))
     print(f"  and_popcount over one triangle count's {len(per_block)} "
           f"launches: {sum(per_block):.4f} ms (per block: "
           f"{', '.join(f'{t:.4f}' for t in per_block)}) on {smi}")
     print(f"  the count's {len(builds)} bitmap builds: {sum(builds):.4f} ms "
-          f"in place (zero fill + scatter_combine_), {sum(copy_builds):.4f}"
-          f" ms with the copying entry; {sum(copy_builds) - sum(builds):.4f}"
-          f" ms less on {smi}")
+          f"by the sorted build, {sum(parent_builds):.4f} ms by a zero fill "
+          f"+ scatter_combine_, {sum(copy_builds):.4f} ms with the copying "
+          f"entry (per block, sorted / zero fill + scatter_combine_: "
+          + ", ".join(f"{a:.4f} / {b:.4f}"
+                      for a, b in zip(builds, parent_builds))
+          + f") on {smi}")
     add["triangle_count_builds_ms"] = sum(builds)
+    add["triangle_count_builds_zero_fill_in_place_ms"] = sum(parent_builds)
     add["triangle_count_builds_copying_ms"] = sum(copy_builds)
+    sorted_build["per_triangle_count_ms"] = sum(builds)
+    sorted_build["per_triangle_count_zero_fill_in_place_ms"] = sum(
+        parent_builds)
+    sorted_build["launches_per_triangle_count"] = len(builds)
     pc = dict(max_err=pc_err, ms=k_ms, plain_ms=p_ms, library_ms=None,
               bound_ms=max(bytes_ms, ops_ms),
               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -1876,7 +1957,7 @@ def phase_slice6_kernels(scm, ap, ec, smi: str) -> dict:
               per_triangle_count_ms=sum(per_block),
               launches_per_triangle_count=len(per_block))
     return dict(scatter_err=sc_err, add=add, popcount=pc, oriented=(u_e, v_e),
-                host_s=host_s)
+                host_s=host_s, sorted=sorted_build)
 
 
 def phase_slice6(kernels: dict, ec, graph, oriented, host_s: float,
@@ -2032,6 +2113,7 @@ def phase_slice6(kernels: dict, ec, graph, oriented, host_s: float,
             ec, _oriented=oriented, device=DEVICE, trace=ttrace),
         lambda out: dict(
             scatter_combine=sum(t is not None for t in ttrace),
+            scatter_combine_sorted=sum(t is not None for t in ttrace),
             and_popcount=sum(t is not None for t in ttrace)))
     blocks = [t for t in ttrace if t is not None]
     print(f"    {tris} triangles; {len(blocks)} of {len(ttrace)} blocks, "
@@ -2502,9 +2584,33 @@ def _k4_retime(scm, smi: str) -> dict:
     print(f"  {label}: device ms per call by torch.profiler {device}, bound "
           f"{bound:.4f} ms copying, {bound_in_place:.4f} ms in place "
           f"({sectors} sectors of the target touched) on {smi}")
+    steps = _k4_launch_steps(smi)
     return dict(events_ms=ms, device_ms=device, bound_ms=bound,
                 bound_in_place_ms=bound_in_place,
-                sectors_touched=sectors)
+                sectors_touched=sectors, in_place_add_steps=steps)
+
+
+def _k4_launch_steps(smi: str) -> dict:
+    """The in-place int32 add of 2^16 messages into 2^20 step by step, as
+    _launch_cost does for the route (apps/exp_scatter.steps: the wrapper,
+    index_add_ and Monoid.scatter_at_ in turns, then each step of the
+    launch alone), and the wrapper and the route's smallest launch through
+    a ctypes.CDLL and a ctypes.PyDLL handle of the library in turns
+    (apps/exp_scatter.handles). Ms per call by CUDA events; where a step
+    launches nothing, that is host time."""
+    from vectorgraphlibrary_tpu_torch.apps import exp_scatter
+    label = "in-place int32 add 2^16 -> 2^20"
+    ms = exp_scatter.steps()
+    handles = exp_scatter.handles()
+    print(f"  {label}: wrapper {ms['wrapper']:.4f} ms by events, index_add_ "
+          f"{ms['index_add_']:.4f}, Monoid.scatter_at_ "
+          f"{ms['monoid_scatter_at_']:.4f}; the launch without the checks "
+          f"{ms['launcher']:.4f} (medians of 7 rounds of 300 calls in turns) "
+          f"on {smi}")
+    print(f"  {label}, steps by events (ms): {json.dumps(ms)}")
+    print(f"  ctypes handle, ms per call by events in turns (CDLL against "
+          f"PyDLL, 7 rounds of 300 calls): {json.dumps(handles)} on {smi}")
+    return dict(events_ms=ms, handles_ms=handles)
 
 
 def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, pr_ec, oriented, core,
@@ -2623,6 +2729,7 @@ def main() -> int:
                    route_gather_finish=rg.route_gather_finish,
                    pull_reduce=pl.pull_reduce, push_expand=pe.push_expand,
                    scatter_combine=scm.scatter_combine,
+                   scatter_combine_sorted=scm.scatter_combine_sorted,
                    and_popcount=ap.and_popcount, pull_rows=prw.pull_rows,
                    segment_reduce=pl.segment_reduce)
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
@@ -2640,8 +2747,9 @@ def main() -> int:
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[11/14] kernel: scatter_combine int32 add and and_popcount vs "
-          f"plain versions, at the RMAT-{SCALE} triangle count's shapes")
+    print(f"[11/14] kernel: scatter_combine int32 add, its sorted build and "
+          f"and_popcount vs plain versions, at the RMAT-{SCALE} triangle "
+          f"count's shapes")
     k6 = phase_slice6_kernels(scm, ap, prr["ec"], smi)
     push["scatter"]["max_err"] = max(push["scatter"]["max_err"],
                                      wk["scatter"]["max_err"],
@@ -2684,6 +2792,11 @@ def main() -> int:
                    f"sage_rmat{BFS_SCALE}": sage["launches"][kernel],
                    f"mf_rmat{SCALE}": mfr["launches"][kernel]}
         if kernel == "scatter_combine":
+            # scatter_combine.launches counts every entry of the source:
+            # the general entries' row leaves out the sorted build's
+            by_path = {k: c - s6["launches"]["scatter_combine_sorted"]
+                       if k == f"slice6_rmat{SCALE}" else c
+                       for k, c in by_path.items()}
             by_path["exp_push"] = push["scatter"]["launches"]
         return by_path
 
@@ -2722,6 +2835,11 @@ def main() -> int:
             library_device_ms=push["scatter"]["library_device_ms"],
             f32_min={k: v for k, v in wk["scatter"].items()},
             int32_add=k6["add"], int32_retimed_and_in_place=wk["k4"]),
+        row("scatter_combine_sorted", "scatter_combine.cu", REPLACES_SCATTER,
+            k6["sorted"], **{k: v for k, v in k6["sorted"].items()
+                             if k not in ("max_err", "ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by")}),
         row("push_expand", "push_expand.cu", REPLACES_SCATTER, push["push"],
             device_ms=push["push"]["device_ms"]),
         row("lane_shuffle", "lane_shuffle.cu", REPLACES_LANE, lsr),

@@ -1,5 +1,6 @@
 """PyTorch port, primitives: monoids, the fused value-pull advance (with
-edge weights and source masks on weighted RMAT-10 and RU-9), advance_cells,
+edge weights and source masks on weighted RMAT-10 and RU-9), advance_cells
+(with edge values too, on the TILE_CSR and CSR formats),
 reduce, compute and reorder against the JAX package on the same graph (the
 JAX route in Pallas interpret mode on the CPU).
 
@@ -13,6 +14,8 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 
+from vectorgraphlibrary_tpu.config import GraphFormat as JFormat
+from vectorgraphlibrary_tpu.config import VGLConfig as JConfig
 from vectorgraphlibrary_tpu.config import TraversalDirection as JDir
 from vectorgraphlibrary_tpu.graph.device import import_graph as jimport_graph
 from vectorgraphlibrary_tpu.graph.edges import (
@@ -26,6 +29,8 @@ from vectorgraphlibrary_tpu.ops import monoid as jmonoid
 from vectorgraphlibrary_tpu.ops.compute import compute as jcompute
 from vectorgraphlibrary_tpu.ops.reduce import reduce as jreduce
 
+from vectorgraphlibrary_tpu_torch.config import GraphFormat as TFormat
+from vectorgraphlibrary_tpu_torch.config import VGLConfig as TConfig
 from vectorgraphlibrary_tpu_torch.config import TraversalDirection as TDir
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph as timport_graph
 from vectorgraphlibrary_tpu_torch.graph.edges import (
@@ -280,6 +285,77 @@ def test_advance_cells_selfloop_counts(graphs, d):
         tg, lambda s, dd, w: (s == dd).to(torch.int32), "add", direction=td)
     _cmp(got, want, "add")
     assert int(got.sum()) == int((ec.src_ids == ec.dst_ids).sum())
+
+
+@pytest.fixture(scope="module")
+def fgraphs(request):
+    """(graph, format or "chunked") -> (JAX graph, JAX EdgeArray, port
+    graph, port EdgeArray) of a conftest graph with random weights, built
+    once."""
+    cache = {}
+
+    def get(name, key):
+        if (name, key) not in cache:
+            ec = request.getfixturevalue(name).with_random_weights(seed=13)
+            jhost, thost = [], []
+            # "chunked": TILE_CSR with huge rows cut into many chunks
+            kw = dict(huge_degree_threshold=32, huge_row_chunk=16) \
+                if key == "chunked" else {}
+            fmt = "vect_csr" if key == "chunked" else key
+            jg = jimport_graph(ec, JConfig(**kw),
+                               graph_format=JFormat.parse(fmt),
+                               _host_out=jhost)
+            jea = jbuild_edge_array(ec.weights, jg, jhost[0], jhost[1])
+            tg = timport_graph(ec, TConfig(**kw),
+                               graph_format=TFormat.parse(fmt),
+                               device="cpu", _host_out=thost)
+            tea = tbuild_edge_array(ec.weights, tg, thost[0], thost[1])
+            cache[name, key] = (jg, jea, tg, tea)
+        return cache[name, key]
+    return get
+
+
+def _cast(x, kind):
+    if isinstance(x, torch.Tensor):
+        return x.to({"i32": torch.int32, "bool": torch.bool}[kind])
+    return x.astype({"i32": jnp.int32, "bool": jnp.bool_}[kind])
+
+
+# combine -> cell_op(src_ids, dst_ids, w) over weights in [1, 100): f32
+# messages (add at ADD_TOL, min exactly), int32 and bool ones exactly
+CELLS = {
+    "f32-add": ("add", lambda s, d, w: w * (s != d)),
+    "f32-min": ("min", lambda s, d, w: w - s),
+    "i32-max": ("max", lambda s, d, w: _cast(w * 7, "i32") - d),
+    "i32-add": ("add", lambda s, d, w: _cast(w > 50, "i32") + (s == d)),
+    "bool-or": ("or", lambda s, d, w: (w < 10) & (s != d)),
+}
+
+
+@pytest.mark.parametrize("how", ["position", "keyword"])
+@pytest.mark.parametrize("case", list(CELLS))
+@pytest.mark.parametrize("d", ["G", "S"])
+@pytest.mark.parametrize("fmt", ["vect_csr", "csr", "chunked"])
+@pytest.mark.parametrize("graph", ["small_rmat", "small_ru"])
+def test_advance_cells_with_edge_values_matches_jax(fgraphs, graph, fmt, d,
+                                                    case, how):
+    """advance_cells(graph, cell_op, combine, edge_values, direction) in the
+    reference's order: each cell's w is its edge's value, on the tiles of
+    TILE_CSR (also with huge rows of many chunks) and of CSR (the reference
+    runs CSR over its CSR slots); edge values given by position and by
+    keyword."""
+    combine, op = CELLS[case]
+    jg, jea, tg, tea = fgraphs(graph, fmt)
+    jd, td = _dirs(d)
+    if how == "position":
+        want = jadvance.advance_cells(jg, op, combine, jea.direction(jd), jd)
+        got = tadvance.advance_cells(tg, op, combine, tea.direction(td), td)
+    else:
+        want = jadvance.advance_cells(jg, op, combine, direction=jd,
+                                      edge_values=jea.direction(jd))
+        got = tadvance.advance_cells(tg, op, combine, direction=td,
+                                     edge_values=tea.direction(td))
+    _cmp(got, want, combine)
 
 
 @pytest.mark.parametrize("op", ["add", "min", "max"])

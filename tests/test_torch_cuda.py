@@ -1,5 +1,6 @@
 """PyTorch port on the card: the route-gather, CSR pull (with edge weights,
-and its segment-reduce entry), scatter-combine (int32 and f32),
+and its segment-reduce entry), scatter-combine (int32 and f32, in place,
+and the sorted build),
 expand-and-scatter, lane-shuffle, AND-popcount and feature-row pull kernels
 against their plain versions (bit for bit, but f32 sums at rtol 1e-5:
 another order), their launch counts, their argument checks, and the slices
@@ -543,6 +544,181 @@ def test_scatter_at_in_place_on_the_card(cuda):
                                         device=cuda)[::2], idx, 1, "add")
 
 
+# the general entries' argument checks, each (label, call, error): every
+# error the wrappers raise, for both entries (scatter_combine and
+# scatter_combine_)
+def _general_rejects(cuda):
+    out = torch.zeros(8, dtype=torch.int32, device=cuda)
+    idx = torch.arange(8, dtype=torch.int32, device=cuda)
+    f = out.float()
+    return [
+        ("f64 out", lambda e: e(out.double(), idx, 1, "min"), TypeError),
+        ("2-D out", lambda e: e(out.view(2, 4), idx, 1, "min"), TypeError),
+        ("f32 or", lambda e: e(f, idx, 1.0, "or"), TypeError),
+        ("f32 add", lambda e: e(f, idx, 1.0, "add"), TypeError),
+        ("int64 idx", lambda e: e(out, idx.long(), 1, "min"), TypeError),
+        ("2-D idx", lambda e: e(out, idx.view(2, 4), 1, "min"), TypeError),
+        ("unknown op", lambda e: e(out, idx, 1, "xor"), ValueError),
+        ("idx on the CPU", lambda e: e(out, idx.cpu(), 1, "min"), ValueError),
+        ("strided idx", lambda e: e(out, torch.arange(
+            16, dtype=torch.int32, device=cuda)[::2], 1, "min"), ValueError),
+        ("msg of another type", lambda e: e(f, idx, idx, "min"), ValueError),
+        ("msg on the CPU", lambda e: e(out, idx, idx.cpu(), "max"),
+         ValueError),
+        ("msg of another length", lambda e: e(out, idx, idx[:5], "max"),
+         ValueError),
+        ("2-D msg", lambda e: e(out, idx, idx.view(2, 4), "max"),
+         ValueError),
+        ("0-D msg", lambda e: e(out, idx, idx[0], "max"), ValueError),
+        ("strided msg", lambda e: e(out, idx, torch.arange(
+            16, dtype=torch.int32, device=cuda)[::2], "max"), ValueError),
+        ("msg past int32", lambda e: e(out, idx, 2**31, "max"), ValueError),
+    ]
+
+
+@pytest.mark.parametrize("entry", ["scatter_combine", "scatter_combine_"])
+def test_scatter_combine_raises_every_error(cuda, entry):
+    """After the launch path was cut down, each entry still raises every
+    error it raised, and launches nothing where it raises."""
+    fn = getattr(sc, entry)
+    for label, call, err in _general_rejects(cuda):
+        before = sc.scatter_combine.launches
+        with pytest.raises(err):
+            call(fn)
+        assert sc.scatter_combine.launches == before, label
+    with pytest.raises(ValueError):
+        fn(torch.zeros(4, dtype=torch.int32, device="meta"),
+           torch.arange(4, dtype=torch.int32, device="meta"), 1, "min")
+
+
+def _sorted_case(rng, case):
+    """(n_out, non-decreasing int32 idx) of one sorted-build case: spans
+    (the SORTED_SPAN words that one block owns) with no message, one
+    message, every word hit, messages on both sides of every span boundary
+    with an n_out that is a whole number of spans, a bitmap of 512-word rows
+    with hub rows, all messages on one word, dropped indices at both ends,
+    no message."""
+    span = sc.SORTED_SPAN
+    if case == "empty-spans":       # 3 of 7 spans hold a few messages
+        n_out = 7 * span + 17
+        idx = np.concatenate([rng.integers(s * span, (s + 1) * span, 40)
+                              for s in (1, 4, 6)])
+        idx = idx[idx < n_out]
+    elif case == "one-per-span":
+        n_out = 9 * span
+        idx = np.arange(9) * span + rng.integers(0, span, 9)
+    elif case == "span-boundaries":  # k * span - 1 and k * span, twice
+        n_out = 6 * span
+        edges = np.arange(1, 6) * span
+        idx = np.concatenate([[0, 0, n_out - 1], edges - 1, edges, edges - 1,
+                              edges, rng.integers(0, n_out, 500)])
+    elif case == "every-word":
+        n_out = 3 * span + 5
+        idx = np.repeat(np.arange(n_out), rng.integers(1, 4, n_out))
+    elif case == "hub-bitmap":      # rows of 512 words, rows 0-3 dense
+        rows, words = 600, 512
+        n_out = rows * words
+        u = np.concatenate([np.repeat(np.arange(4), 20_000),
+                            rng.integers(4, rows, 30_000)])
+        idx = u * words + rng.integers(0, words, len(u))
+    elif case == "one-word":
+        n_out = 5 * span
+        idx = np.full(50_000, 2 * span + 77)
+    elif case == "dropped-ends":
+        n_out = 4 * span + 3
+        idx = np.concatenate([rng.integers(-2**31, 0, 3000),
+                              rng.integers(0, n_out, 20_000),
+                              rng.integers(n_out, 2**31 - 1, 3000),
+                              [-1, n_out]])
+    else:                           # "empty-idx"
+        n_out = 2 * span + 1
+        idx = np.zeros(0, np.int64)
+    return n_out, torch.from_numpy(np.sort(idx).astype(np.int32)).cuda()
+
+
+SORTED_CASES = ["empty-spans", "one-per-span", "span-boundaries",
+                "every-word", "hub-bitmap",
+                "one-word", "dropped-ends", "empty-idx"]
+
+
+@pytest.mark.parametrize("op", ["add", "or", "min", "max"])
+@pytest.mark.parametrize("case", SORTED_CASES)
+def test_scatter_combine_sorted_equals_plain_version(cuda, case, op):
+    """The sorted build bit for bit against its plain version, with message
+    tensors over the full int32 range and one constant for all, one launch
+    each on both counts; the result is a new int32 tensor on the card."""
+    rng = np.random.default_rng(31)
+    n_out, idx = _sorted_case(rng, case)
+    for msg in (torch.from_numpy(_i32(rng, len(idx))).cuda(), 1, -2**31):
+        before = (sc.scatter_combine.launches,
+                  sc.scatter_combine_sorted.launches)
+        got = sc.scatter_combine_sorted(n_out, idx, msg, op)
+        torch.cuda.synchronize()
+        assert (sc.scatter_combine.launches,
+                sc.scatter_combine_sorted.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+        assert got.dtype == torch.int32 and got.shape == (n_out,)
+        assert got.is_cuda
+        assert torch.equal(got, sc.scatter_combine_sorted_ref(n_out, idx,
+                                                              msg, op))
+
+
+def test_scatter_combine_sorted_rejects_what_it_does_not_take(cuda):
+    idx = torch.arange(8, dtype=torch.int32, device=cuda)
+    calls = [
+        (lambda: sc.scatter_combine_sorted(8, idx.long(), 1, "add"),
+         TypeError),
+        (lambda: sc.scatter_combine_sorted(8, idx.view(2, 4), 1, "add"),
+         TypeError),
+        (lambda: sc.scatter_combine_sorted(8, idx, 1, "xor"), ValueError),
+        (lambda: sc.scatter_combine_sorted(2**31, idx, 1, "add"),
+         ValueError),
+        (lambda: sc.scatter_combine_sorted(-1, idx, 1, "add"), ValueError),
+        (lambda: sc.scatter_combine_sorted(8, torch.arange(
+            16, dtype=torch.int32, device=cuda)[::2], 1, "add"), ValueError),
+        (lambda: sc.scatter_combine_sorted(8, idx, idx.float(), "add"),
+         ValueError),
+        (lambda: sc.scatter_combine_sorted(8, idx, idx[:4], "add"),
+         ValueError),
+        (lambda: sc.scatter_combine_sorted(8, idx, idx.cpu(), "add"),
+         ValueError),
+        (lambda: sc.scatter_combine_sorted(8, idx, 2**31, "add"),
+         ValueError),
+    ]
+    before = sc.scatter_combine_sorted.launches
+    for call, err in calls:
+        with pytest.raises(err):
+            call()
+    assert sc.scatter_combine_sorted.launches == before
+
+
+def test_scatter_new_sorted_on_the_card(cuda):
+    """Monoid.scatter_new_sorted on the card: an int32 add, min or max is
+    one sorted-build launch; an f32 min and an int32 any01 fill and launch
+    the in-place entry; what has no kernel raises as scatter_at does."""
+    idx = torch.tensor([0, 0, 1, 3, 3, 3, 9], dtype=torch.int32, device=cuda)
+    vals = torch.tensor([1, 2, 3, 4, 5, 6, 7], dtype=torch.int32,
+                        device=cuda)
+    for mon, want in ((monoid.ADD, [3, 3, 0, 15, 0]),
+                      (monoid.MIN, [1, 3, 2**31 - 1, 4, 2**31 - 1]),
+                      (monoid.MAX, [2, 3, -2**31, 6, -2**31])):
+        before = sc.scatter_combine_sorted.launches
+        got = mon.scatter_new_sorted(5, idx, vals, torch.int32)
+        assert sc.scatter_combine_sorted.launches == before + 1
+        assert got.cpu().tolist() == want
+    before = (sc.scatter_combine.launches, sc.scatter_combine_sorted.launches)
+    got = monoid.MIN.scatter_new_sorted(5, idx, vals.float(), torch.float32)
+    assert got.cpu().tolist() == [1.0, 3.0, float("inf"), 4.0, float("inf")]
+    got = monoid.ANY01.scatter_new_sorted(5, idx, vals % 2, torch.int32)
+    assert got.cpu().tolist() == [1, 1, 0, 1, 0]
+    assert (sc.scatter_combine.launches,
+            sc.scatter_combine_sorted.launches) == (before[0] + 2, before[1])
+    with pytest.raises(TypeError):
+        monoid.ADD.scatter_new_sorted(5, idx, vals.float(), torch.float32)
+    with pytest.raises(NotImplementedError):
+        monoid.OR.scatter_new_sorted(5, idx, vals, torch.int32)
+
+
 @pytest.fixture(scope="module")
 def weighted_cuda():
     """Weighted RMAT-12 on the card and on the CPU, with both EdgeArrays."""
@@ -1032,12 +1208,14 @@ def test_reachability_on_cuda_matches_cpu(slice6_cuda):
 @pytest.mark.parametrize("block_bits", [256, None])
 def test_triangle_count_on_cuda_matches_cpu(slice6_cuda, block_bits):
     ec, _, _ = slice6_cuda
-    kernels = (pl.pull_reduce, sc.scatter_combine, ap.and_popcount)
+    kernels = (pl.pull_reduce, sc.scatter_combine, sc.scatter_combine_sorted,
+               ap.and_popcount)
     _reset(*kernels)
     trace = []
     got = tc.vgl_triangle_count(ec, block_bits=block_bits, trace=trace)
     blocks = sum(t is not None for t in trace)
     assert sc.scatter_combine.launches == blocks
+    assert sc.scatter_combine_sorted.launches == blocks
     assert ap.and_popcount.launches == blocks
     assert pl.pull_reduce.launches == 0
     assert got == tc.vgl_triangle_count(ec, block_bits=block_bits,

@@ -135,6 +135,27 @@ def test_triangle_count_small_chunks_and_precomputed_orientation(graphs):
                                   _oriented=oriented, device="cpu") == want
 
 
+@pytest.mark.parametrize("fault", ["swapped", "reversed", "repeat"])
+def test_triangle_count_refuses_unsorted_orientation(graphs, fault):
+    """A precomputed orientation out of (u, v) order, or with an edge twice,
+    is refused on the host before anything reaches the device: the card's
+    sorted bitmap build does not check the order."""
+    ec, _, _ = graphs("small_rmat")
+    u_e, v_e = ttc._oriented_simple_edges(ec)
+    if fault == "swapped":
+        i = len(u_e) // 2
+        order = np.arange(len(u_e))
+        order[[i, i + 1]] = order[[i + 1, i]]
+        u_e, v_e = u_e[order], v_e[order]
+    elif fault == "reversed":
+        u_e, v_e = u_e[::-1], v_e[::-1]
+    else:
+        u_e, v_e = np.insert(u_e, 5, u_e[5]), np.insert(v_e, 5, v_e[5])
+    with pytest.raises(ValueError, match="sorted by u, then v"):
+        ttc.vgl_triangle_count(ec, block_bits=256, _oriented=(u_e, v_e),
+                               device="cpu")
+
+
 def test_triangle_count_without_edges():
     ec = EdgesContainer(np.array([3, 4], np.int32), np.array([3, 4], np.int32),
                         8)

@@ -11,13 +11,15 @@ level on the card).
 Triangle counting (count = trace(A·A·A)/6 of the undirected simple graph):
 each degree-oriented edge (u, v) adds |N+(u) ∩ N+(v)|, computed by column
 block: per block the out-neighbourhoods become an int32 [v + 1, words]
-bitmap, built by one int32 add scatter (one scatter_combine launch on the
-card), and the edges whose two rows both touch the block (the presence
-filter, torch ops on the same device) are intersected by the AND-popcount
-kernel, which returns one int32 sum per chunk of edges. Chunk sums are
-added as Python ints, so the total never wraps. The oriented edges go to
-the device once, and the filter keeps their order (sorted by u, then v,
-which the kernel's runs of equal u rely on for speed).
+bitmap, built by one int32 add scatter of sorted indices (one launch of
+scatter_combine's sorted build on the card), and the edges whose two rows
+both touch the block (the presence filter, torch ops on the same device)
+are intersected by the AND-popcount kernel, which returns one int32 sum
+per chunk of edges. Chunk sums are added as Python ints, so the total never
+wraps. The oriented edges go to
+the device once, and the filter keeps their order (sorted by u, then v:
+the sorted build needs it, and the AND-popcount kernel's runs of equal u
+rely on it for speed).
 """
 from __future__ import annotations
 
@@ -116,17 +118,20 @@ def _tc_build_bits(u_blk: torch.Tensor, v_local: torch.Tensor, v_rows: int,
     bitmap (the last row stays zero): one add of bit v_local & 31 into word
     v_local >> 5 of row u_blk per edge, flattened to index row · words +
     word. The edges are deduplicated, so every (row, word, bit) is added
-    once and the add is an or (bit 31 adds -2^31 in int32). The bitmap is
-    made here and the add goes into it in place (Monoid.scatter_at_): one
-    zero fill and one scatter_combine launch, no copy of the bitmap."""
+    once and the add is an or (bit 31 adds -2^31 in int32). The edges come
+    sorted by u, then v (vgl_triangle_count keeps their order), so the
+    index never decreases, and the bitmap is built by
+    Monoid.scatter_new_sorted: on the card one launch of scatter_combine's
+    sorted build, which writes every word once (no zero fill, no atomic
+    into device memory)."""
     n_bits = (v_rows + 1) * words
     if n_bits >= 2**31:
         raise ValueError(f"triangle count: a [{v_rows + 1}, {words}] bitmap "
                          f"exceeds int32 indices; lower block_bits")
-    bits = torch.zeros(n_bits, dtype=torch.int32, device=u_blk.device)
-    idx = u_blk * words + (v_local >> 5)
-    bit = torch.bitwise_left_shift(torch.ones_like(v_local), v_local & 31)
-    return M.ADD.scatter_at_(bits, idx, bit).view(v_rows + 1, words)
+    idx = torch.add(v_local >> 5, u_blk, alpha=words)
+    bit = torch.bitwise_left_shift(1, v_local & 31)
+    return M.ADD.scatter_new_sorted(n_bits, idx, bit, torch.int32).view(
+        v_rows + 1, words)
 
 
 def _tc_block_count(bits: torch.Tensor, u_e: torch.Tensor, v_e: torch.Tensor,
@@ -144,14 +149,23 @@ def vgl_triangle_count(ec: EdgesContainer, block_bits: Optional[int] = None,
     reference, so that the [v, block_bits / 32] int32 bitmap stays near
     0.5 GB), the presence-filtered edges' chunk sums. _oriented: a
     precomputed _oriented_simple_edges(ec), so that a benchmark times the
-    host pass apart. `trace`, a list, receives per block (first column,
+    host pass apart; its edges must be sorted by u, then v, with no repeat
+    (the bitmap build on the card relies on the order and does not check
+    it), and one pass on the host checks that here: ValueError otherwise.
+    `trace`, a list, receives per block (first column,
     edges built, edges counted, filter seconds, count seconds) and None for
     a skipped block: the filter (on `device`, ending in the reads of its
     sizes) and the bitmap build with the AND-popcount (ending in the read of
     its chunk sums), each on the host's clock."""
     v = ec.vertices_count
-    u_e, v_e = (_oriented if _oriented is not None
-                else _oriented_simple_edges(ec))
+    if _oriented is None:
+        u_e, v_e = _oriented_simple_edges(ec)
+    else:
+        u_e, v_e = _oriented
+        key = np.asarray(u_e, np.int64) * v + v_e
+        if (key[1:] <= key[:-1]).any():
+            raise ValueError("triangle count: the oriented edges must be "
+                             "sorted by u, then v, with no repeat")
     if len(u_e) == 0:
         return 0
     if block_bits is None:

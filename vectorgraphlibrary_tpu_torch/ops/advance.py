@@ -232,17 +232,36 @@ def advance_pull_routed(graph: VGLGraph,
         out_dtype=out_dtype)
 
 
+def _cell_values(dg: DeviceDirectedGraph, flat: torch.Tensor, adj: torch.Tensor,
+                 rows: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """The edge value of every tile slot, from ``flat`` (CSR slot order):
+    slot j of a tile row that starts at CSR slot ``first`` of its vertex row
+    holds flat[row_ptr[row] + first + j]; the tile's padding slots (adj at
+    v_pad) take 0, the JAX package's default pad value for its tile copies.
+    rows, first: int64 [tile rows]."""
+    ext = torch.cat([flat, flat.new_zeros(1)])
+    pos = (dg.row_ptr.long()[rows] + first)[:, None] + torch.arange(
+        adj.shape[1], device=adj.device)
+    return ext[torch.where(adj < dg.v_pad, pos, flat.shape[0])]
+
+
 def advance_cells(graph: VGLGraph,
                   cell_op,
                   combine,
+                  edge_values: Optional[DirectedEdgeValues] = None,
                   direction: TraversalDirection = TraversalDirection.GATHER,
                   out_dtype=None) -> torch.Tensor:
     """Per-destination reduction over adjacency cells WITHOUT source values:
-    msg = cell_op(src_ids, dst_ids, None). One pass over the tiles — for
-    structural quantities (self-loop counts, filtered degrees)."""
+    msg = cell_op(src_ids, dst_ids, w), w the slot's value from
+    ``edge_values`` (the direction's, in CSR slot order) or None. One pass
+    over the tiles, for every format (the reference takes its CSR and
+    edge-list formats over the CSR slots: the same cells) — for structural
+    quantities (self-loop counts, filtered degrees)."""
     mon = M.get(combine)
     dg = graph.direction(direction)
-    probe = cell_op(dg.col_idx[:1, None], dg.col_idx[:1, None], None)
+    flat = None if edge_values is None else edge_values.flat
+    probe = cell_op(dg.col_idx[:1, None], dg.col_idx[:1, None],
+                    None if flat is None else flat[:1, None])
     dtype = out_dtype or probe.dtype
     ident = mon.identity(dtype)
     dev = dg.col_idx.device
@@ -251,14 +270,26 @@ def advance_cells(graph: VGLGraph,
     if dg.huge is not None:
         h = dg.huge
         dst_ids = h.seg_ids[:, None].expand(-1, h.chunk_w)
-        msg = cell_op(h.adj, dst_ids, None).to(dtype)
+        w = None
+        if flat is not None:
+            # chunk c is chunk c - (first chunk of its row) of that row;
+            # padding chunks (past the last row) are all padding slots
+            rows = h.seg_ids.long().clamp(max=h.n_rows - 1)
+            first_chunk = torch.cumsum(h.seg_lengths, 0) - h.seg_lengths
+            k = torch.arange(h.n_chunks_pad, device=dev) - first_chunk[rows]
+            w = _cell_values(dg, flat, h.adj, rows, k * h.chunk_w)
+        msg = cell_op(h.adj, dst_ids, w).to(dtype)
         msg = torch.where(h.adj < dg.v_pad, msg, ident.to(dev))
         chunk_red = mon.reduce_axis(msg, 1)
         parts.append(mon.segment_reduce(chunk_red, h.seg_lengths)[:h.n_rows])
         covered = h.n_rows
     for b in dg.buckets:
         dst_ids = T.row_ids(b.row_start, b.rows_pad, b.width, dev)
-        msg = cell_op(b.adj, dst_ids, None).to(dtype)
+        w = None
+        if flat is not None:
+            rows = dst_ids[:, 0].long().clamp(max=dg.v_pad - 1)
+            w = _cell_values(dg, flat, b.adj, rows, torch.zeros_like(rows))
+        msg = cell_op(b.adj, dst_ids, w).to(dtype)
         msg = torch.where(b.adj < dg.v_pad, msg, ident.to(dev))
         parts.append(mon.reduce_axis(msg, 1)[:b.rows])
         covered = b.row_start + b.rows

@@ -3,8 +3,10 @@ vectorgraphlibrary_tpu/ops/monoid.py).
 
 Each monoid has an identity, an elementwise combine, a reduction along one
 axis, a reduction over sorted segments and a scatter (scatter_at, the sparse
-push's combine, and scatter_at_, the same combine in place). Segments are
-given by their lengths, which are static graph structure
+push's combine, scatter_at_, the same combine in place, and
+scatter_new_sorted, the combine of sorted indices into a new target of the
+identity: the triangle count's bitmaps). Segments are given by their
+lengths, which are static graph structure
 (graph.device.HugeTile.seg_lengths), so no reduction has to read a device value back to the host. Float sums over
 segments use torch.segment_reduce, which reduces each segment in one pass in a
 fixed order: the result does not change from run to run.
@@ -17,6 +19,7 @@ from typing import Callable
 import torch
 
 from .cuda.scatter_combine import (scatter_combine, scatter_combine_,
+                                   scatter_combine_sorted,
                                    scatter_reduce_drop)
 
 
@@ -97,27 +100,28 @@ class Monoid:
         segment gets the identity."""
         return self._segment_reduce(self, data, lengths)
 
-    def _scatter_op(self, target: torch.Tensor, vals: torch.Tensor,
+    def _scatter_op(self, dtype, vals_dtype, on: torch.Tensor,
                     mode: str) -> tuple[str, bool]:
         """(the scatter's op, whether the card has a kernel for it on
-        target's dtype); raises where scatter_at does."""
+        `dtype`); raises where scatter_at does. `on`: a tensor on the
+        scatter's device."""
         if mode != "drop":
             raise ValueError(f"scatter_at: mode {mode!r} (only 'drop')")
         op = self.name
         if op == "any01":
             op = "max"
         if op == "or":
-            if target.dtype != torch.bool and vals.dtype != torch.bool:
+            if dtype != torch.bool and vals_dtype != torch.bool:
                 raise NotImplementedError(
                     "int bitwise-or scatter: use a pull/segment formulation "
                     "(max only equals OR for {0,1} values)")
             op = "max"
-        kernel = (op in ("min", "max") and target.dtype in (torch.int32,
-                                                            torch.float32)) \
-            or (op == "add" and target.dtype == torch.int32)
-        if not kernel and target.device.type != "cpu":
+        kernel = (op in ("min", "max") and dtype in (torch.int32,
+                                                     torch.float32)) \
+            or (op == "add" and dtype == torch.int32)
+        if not kernel and not on.is_cpu:
             raise TypeError(f"scatter_at: no kernel for {self.name} over "
-                            f"{target.dtype} on {target.device}")
+                            f"{dtype} on {on.device}")
         return op, kernel
 
     def scatter_at(self, target: torch.Tensor, idx: torch.Tensor,
@@ -134,10 +138,11 @@ class Monoid:
         raises (an f32 add by atomics would not give the same bits twice);
         on the CPU every case runs in plain PyTorch (those five through the
         kernel's plain version)."""
-        op, kernel = self._scatter_op(target, vals, mode)
+        dtype = target.dtype
+        op, kernel = self._scatter_op(dtype, vals.dtype, target, mode)
         if kernel:
-            return scatter_combine(target, idx.contiguous(),
-                                   vals.to(target.dtype).contiguous(), op)
+            return scatter_combine(target, _contiguous(idx),
+                                   _contiguous(_as(vals, dtype)), op)
         return scatter_reduce_drop(target, idx, vals, op)
 
     def scatter_at_(self, target: torch.Tensor, idx: torch.Tensor,
@@ -149,11 +154,49 @@ class Monoid:
         here to save the target's copy. The same cases and errors as
         scatter_at; on the card the kernel cases are one scatter_combine_
         launch into a contiguous target."""
-        op, kernel = self._scatter_op(target, vals, mode)
+        dtype = target.dtype
+        op, kernel = self._scatter_op(dtype, vals.dtype, target, mode)
         if kernel:
-            return scatter_combine_(target, idx.contiguous(),
-                                    vals.to(target.dtype).contiguous(), op)
+            return scatter_combine_(target, _contiguous(idx),
+                                    _contiguous(_as(vals, dtype)), op)
         return target.copy_(scatter_reduce_drop(target, idx, vals, op))
+
+    def scatter_new_sorted(self, n_out: int, idx: torch.Tensor,
+                           vals: torch.Tensor, dtype,
+                           mode: str = "drop") -> torch.Tensor:
+        """New [n_out] tensor of `dtype`: the monoid's identity with vals[i]
+        combined into element idx[i], for indices that NEVER DECREASE (the
+        reference's `jnp.full(n_out, identity).at[idx].<op>(vals,
+        mode="drop")`; an add into zeros is `jnp.zeros(...).at[idx].add`).
+        The same cases and errors as scatter_at_. On the card an int32 min,
+        max or add is one launch of scatter_combine's sorted build, which
+        makes the target itself and writes each element once (the order is
+        the caller's promise: scatter_combine_sorted says who checks it); an
+        f32 min or max and an int32 any01 are the identity fill and one
+        scatter_combine_ launch; any other case raises. On the CPU every
+        case runs in plain PyTorch, and the int32 add, min and max raise
+        ValueError on a decreasing idx."""
+        op, kernel = self._scatter_op(dtype, vals.dtype, idx, mode)
+        # the sorted build fills with its op's identity: any01's (0) is not
+        # max's
+        if kernel and dtype == torch.int32 and self.name == op:
+            return scatter_combine_sorted(n_out, _contiguous(idx),
+                                          _contiguous(_as(vals, dtype)), op)
+        target = torch.full((n_out,), self.identity(dtype).item(),
+                            dtype=dtype, device=idx.device)
+        if kernel:
+            return scatter_combine_(target, _contiguous(idx),
+                                    _contiguous(_as(vals, dtype)), op)
+        return scatter_reduce_drop(target, idx, vals, op)
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t if t.dtype is dtype else t.to(dtype)
+
 
 def _sum(a, dim):
     # integer sums keep their dtype (torch.sum would widen int32 to int64)

@@ -3,12 +3,15 @@ vectorgraphlibrary_tpu/runtime/cli.py that the ported apps use).
 
 Reference flag surface `vgl_runtime/helpers/cmd_parser/cmd_parser.hpp:58-228`:
 graph source (-load a binary .el_container, -import a KONECT text file, or a
-synthetic graph: -s/-e with -rmat/-ru, -seed), -check, -it, -dev, the
-variant flags -td/-bu/-do (BFS), -sv/-bfs-based (CC) and -purdoms/-bfs-based
-(TC) (cfg.algorithm_variant), SSSP's -all-active/-partial-active and
--push/-pull (cfg.all_active, cfg.push_mode), and -format (el, csr, csr_vg,
-vect_csr: cfg.graph_format; only vect_csr builds the advance route, and every
-format runs the same CSR kernels here).
+synthetic graph: -gen, the default, with -s/-e, -rmat/-ru and -seed), -check,
+-it, -dev, the variant flags -td/-bu/-do (BFS), -sv/-bfs-based (CC) and
+-purdoms/-bfs-based (TC) (cfg.algorithm_variant), SSSP's
+-all-active/-partial-active and -push/-pull (cfg.all_active,
+cfg.push_mode), -format (el, csr, csr_vg, vect_csr: cfg.graph_format; only
+vect_csr builds the advance route, and every format runs the same CSR
+kernels here; auto: vect_csr with cfg.autotune_format, and
+runtime.prepare_graph lets utils/autotuner pick) and -no-prim-stats
+(cfg.prim_stats).
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
                    help="load binary .el_container graph")
     p.add_argument("-import", dest="import_path", default=None,
                    help="import KONECT text graph")
+    p.add_argument("-gen", dest="gen", action="store_true",
+                   help="generate synthetic graph (default)")
     p.add_argument("-s", "-scale", dest="scale", type=int, default=14,
                    help="log2 |V| for synthetic graphs")
     p.add_argument("-e", "-edges", dest="avg_degree", type=int, default=16,
@@ -33,7 +38,9 @@ def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
     p.add_argument("-format", dest="graph_format", default="vect_csr",
                    help="el, csr, csr_vg or vect_csr (the default); only "
                         "vect_csr builds the advance route, and every format "
-                        "runs the same CSR kernels")
+                        "runs the same CSR kernels. auto: vect_csr, with the "
+                        "huge-row tile parameters and the format picked by "
+                        "utils/autotuner from samples measured on a TPU")
     p.add_argument("-check", dest="check", action="store_true")
     p.add_argument("-it", "-iterations", dest="iterations", type=int, default=10)
     p.add_argument("-push", dest="push", action="store_true",
@@ -55,6 +62,10 @@ def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
                    help="torch device; 'cuda' (default) needs a card, 'cpu' "
                         "runs the kernels' plain PyTorch versions")
     p.add_argument("-seed", dest="seed", type=int, default=42)
+    p.add_argument("-no-prim-stats", dest="prim_stats", action="store_false",
+                   help="skip the per-primitive profiling pass after the "
+                        "run: accepted as in the reference CLI; it does "
+                        "nothing until that pass is ported")
     return p
 
 
@@ -64,12 +75,15 @@ def parse_args(argv=None, app: str = "vgl") -> VGLConfig:
     for name in ("td", "bu", "do", "sv", "bfs_based", "purdoms"):
         if getattr(ns, f"variant_{name}"):
             variant = name
+    autotune = ns.graph_format.lower() == "auto"
     return VGLConfig(
         scale=ns.scale,
         avg_degree=ns.avg_degree,
         synthetic_type=(SyntheticGraphType.RANDOM_UNIFORM if ns.ru
                         else SyntheticGraphType.RMAT),
-        graph_format=GraphFormat.parse(ns.graph_format),
+        graph_format=(GraphFormat.TILE_CSR if autotune
+                      else GraphFormat.parse(ns.graph_format)),
+        autotune_format=autotune,
         load_path=ns.load_path,
         import_path=ns.import_path,
         check=ns.check,
@@ -79,4 +93,5 @@ def parse_args(argv=None, app: str = "vgl") -> VGLConfig:
         algorithm_variant=variant,
         device=ns.device,
         seed=ns.seed,
+        prim_stats=ns.prim_stats,
     )

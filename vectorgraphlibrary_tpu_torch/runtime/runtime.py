@@ -32,10 +32,17 @@ def prepare_graph(cfg: VGLConfig, need_weights: bool = False, device="cuda"
     need_weights, bind the edge weights (the reference's
     VGL_RUNTIME::prepare_graph, vgl_runtime.hpp:27-80). Edges that carry no
     weights get random ones from cfg.seed + 1, the JAX package's for the
-    same flags."""
+    same flags. With cfg.autotune_format (-format auto) utils/autotuner
+    picks the format and the huge-row tile parameters first, as in the JAX
+    package, and says what it picked."""
     ec = load_edges(cfg)
     if need_weights and ec.weights is None:
         ec = ec.with_random_weights(cfg.seed + 1)
+    if cfg.autotune_format:
+        from ..utils.autotuner import default_tuner
+        cfg = default_tuner().apply(ec, cfg)
+        print(f"autotuner: format={cfg.graph_format.value} "
+              f"huge_threshold={cfg.huge_degree_threshold}")
     host = []
     graph = import_graph(ec, cfg, cfg.graph_format, device=device,
                          _host_out=host)
