@@ -151,14 +151,27 @@ result line):
    times; the general advance_pull (min, max,
    add, with and without a source mask) and segment_reduce (i32 min, f32
    add and max, int8 any01) against their plain versions on the residual
-   graph, and segment_reduce's times beside a scatter_reduce by row id.
+   graph, and segment_reduce's times beside a scatter_reduce by row id;
+15. slice: the measurement runtime: runtime/prim_profile's per-primitive
+   pass on the RMAT-18 graph of phase 4 and, with its weights, on the
+   RMAT-20 graph of phase 9 (the five rows of each table printed, every
+   row at or under the card's 3,350 GB/s, and per pass reps + 1 launches of
+   route_gather_finish and twice that of pull_reduce and scatter_combine);
+   the PageRank app through apps/app_common.run_app as `apps.pr -s 18 -e
+   32 -it 3 -check` runs it (error count 0 per round, AVG_PERF, the table
+   within the bound, the launches of its rounds, checks and pass);
+   apps/ubench_prims at K = 5 (its JSON line); the autotuner's
+   collect_samples on RMAT-12 and uniform-12 graphs of degree 8 (the card's
+   picks).
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
 version's time, the one-call PyTorch time (library_ms, null where there is
 none) and its bound (bound_ms: the bytes it must move at the H100's 3.35
 TB/s, or for and_popcount the larger of that and its operations at 67
-TOP/s) at the main path's shapes, and "rates", phase 12's and 14's MTEPS. The last line is {"ok": true, "device":
+TOP/s) at the main path's shapes, "rates", phase 12's and 14's MTEPS,
+"prim_tables", phase 15's per-primitive tables, and "autotuner_picks".
+The last line is {"ok": true, "device":
 {...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
 PageRank run, one DO-BFS root, one all-active SSSP run and one HITS call to
 DIR (not part of the default run), and of one call each of SCC, coloring
@@ -2666,6 +2679,132 @@ def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, pr_ec, oriented, core,
         print("\n".join(lines[:13]))
 
 
+PRIM_REPS = 3        # profile_graph_primitives' default
+UBENCH_K = 5
+
+
+def _prim_rows(stats) -> dict:
+    """The per-primitive table's numbers (print_timers_stats' columns)."""
+    rows = {}
+    for name, st in stats.stats.items():
+        gbps = st.bytes_requested / st.wall_s / 1e9
+        rows[name] = dict(ms=st.wall_s * 1e3, gbps=gbps,
+                          roof_pct=100 * gbps / stats.hbm_roofline_gbps,
+                          mteps=st.edges_visited / st.wall_s / 1e6,
+                          bytes=st.bytes_requested, calls=st.calls)
+    return rows
+
+
+def _check_rows(label: str, rows: dict, want_rows: set) -> None:
+    from vectorgraphlibrary_tpu_torch.runtime.perf_stats import H100_HBM_GBPS
+    if set(rows) != want_rows:
+        raise AssertionError(f"{label}: rows {sorted(rows)}, expected "
+                             f"{sorted(want_rows)}")
+    over = {n: r["gbps"] for n, r in rows.items()
+            if not 0 < r["gbps"] <= H100_HBM_GBPS}
+    if over:
+        raise AssertionError(f"{label}: rows above the card's "
+                             f"{H100_HBM_GBPS} GB/s (a wrong bytes model or "
+                             f"a wrong subtraction): {over}")
+
+
+def phase_measurement(kernels: dict, pr_graph, bfs_graph, bfs_ea,
+                      smi: str) -> dict:
+    """The measurement runtime on the card: profile_graph_primitives on the
+    RMAT-18 graph and on the weighted RMAT-20 graph (each row at or under
+    3,350 GB/s, reps + 1 launches of route_gather_finish and twice that of
+    pull_reduce and scatter_combine), the PageRank app end to end through
+    run_app (-s 18 -e 32 -it 3 -check: error count 0 per round, AVG_PERF,
+    the table), ubench_prims with a small K (its JSON line) and the
+    autotuner's samples on the card (its picks)."""
+    from vectorgraphlibrary_tpu_torch.apps import pr as pr_app
+    from vectorgraphlibrary_tpu_torch.apps import ubench_prims
+    from vectorgraphlibrary_tpu_torch.apps.app_common import run_app
+    from vectorgraphlibrary_tpu_torch.runtime import prim_profile
+    from vectorgraphlibrary_tpu_torch.runtime.perf_stats import (
+        PerformanceStats, performance_stats)
+    from vectorgraphlibrary_tpu_torch.utils import autotuner
+    base_rows = {"reorder (vertex route)", "advance (pull add)",
+                 "advance (push sparse)", "generate_new_frontier"}
+    per_pass = dict(route_gather_finish=PRIM_REPS + 1,
+                    pull_reduce=2 * (PRIM_REPS + 1),
+                    scatter_combine=2 * (PRIM_REPS + 1))
+    launches, tables = {}, {}
+    for label, graph, w, min_row in (
+            (f"prim_rmat{SCALE}", pr_graph, None, "advance (pull min)"),
+            (f"prim_rmat{BFS_SCALE}_weighted", bfs_graph, bfs_ea,
+             "advance (pull min+w)")):
+        totals = dict.fromkeys(kernels, 0)
+        stats = PerformanceStats()
+        _counted(kernels, totals, label,
+                 lambda: prim_profile.profile_graph_primitives(
+                     graph, w, stats=stats, reps=PRIM_REPS), per_pass)
+        print(f"  {label}: the per-primitive table on {smi}:")
+        stats.print_timers_stats()
+        rows = _prim_rows(stats)
+        _check_rows(label, rows, base_rows | {min_row})
+        launches[label], tables[label] = totals, rows
+
+    # the slice's path end to end: the app as a user runs it
+    argv = ["-s", str(SCALE), "-e", str(DEGREE), "-it", "3", "-check",
+            "-dev", DEVICE]
+    label = f"app_pr_rmat{SCALE}"
+    totals = dict.fromkeys(kernels, 0)
+    buf = []
+
+    def app():
+        import io
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = run_app("pr", pr_app.run_round, pr_app.check_round,
+                             needs_source=False, argv=argv)
+        finally:
+            buf.append(out.getvalue())
+            print(buf[0], end="")
+        return rc
+    # per round (warmup + 3) one PageRank of ITERS pulls and one vertex
+    # route, per checked round one route back to the original order; the
+    # profiling pass as above
+    rc = _counted(kernels, totals, f"{label} (pr {' '.join(argv)})", app,
+                  dict(pull_reduce=4 * pr_app._PR_ITERS
+                       + per_pass["pull_reduce"],
+                       route_gather_finish=4 + 3
+                       + per_pass["route_gather_finish"],
+                       scatter_combine=per_pass["scatter_combine"]))
+    out = buf[0]
+    errors = [int(ln.split("error count:")[1]) for ln in out.splitlines()
+              if "error count:" in ln]
+    if rc != 0 or errors != [0, 0, 0]:
+        raise AssertionError(f"{label}: rc {rc}, error counts {errors}")
+    if not any(ln.startswith("AVG_PERF:") for ln in out.splitlines()):
+        raise AssertionError(f"{label}: no AVG_PERF line")
+    app_rows = _prim_rows(performance_stats)
+    _check_rows(label, app_rows, base_rows | {"advance (pull min)"})
+    launches[label], tables[label] = totals, app_rows
+    for name in ("route_gather_finish", "pull_reduce", "scatter_combine"):
+        if not all(launches[p][name] for p in launches):
+            raise AssertionError(f"{name} was not launched on every path "
+                                 f"of this phase: {launches}")
+
+    t0 = time.perf_counter()
+    bench = ubench_prims.run(k=UBENCH_K, device=DEVICE)
+    print(f"  ubench_prims (K = {UBENCH_K}, {time.perf_counter() - t0:.1f} "
+          f"s) on {smi}:")
+    print(json.dumps(bench))
+
+    t0 = time.perf_counter()
+    tuner = autotuner.collect_samples(scales=(12,), edge_factors=(8,),
+                                      device=DEVICE)
+    picks = [dict(graph=f"{kind}-12-8", **best)
+             for kind, (_, best) in zip(("rmat", "ru"), tuner.samples)]
+    print(f"  autotuner samples on the card "
+          f"({time.perf_counter() - t0:.1f} s), picks: {json.dumps(picks)} "
+          f"on {smi}")
+    return dict(launches=launches, tables=tables, ubench=bench,
+                autotuner_picks=picks)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2684,7 +2823,7 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/14] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/15] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -2692,38 +2831,38 @@ def main() -> int:
     build.load_library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/14] build: {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[2/15] build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
           f"ptxas: " + " | ".join(ptxas))
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print("[3/14] kernel: route_gather_finish vs plain version, n = 2^24")
+    print("[3/15] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[4/14] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+    print(f"[4/15] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
           f"version on its graph")
     prr = phase_pagerank(rg, pl, smi)
     prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[5/14] kernel: scatter_combine vs plain version, V = 2^20, and "
+    print(f"[5/15] kernel: scatter_combine vs plain version, V = 2^20, and "
           f"push_expand vs plain version on RMAT-{BFS_SCALE}")
     bfs_ec, bfs_graph, bfs_ea = make_bfs_graph()
     push = phase_scatter(scm, pe, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[6/14] slice: BFS on RMAT-{BFS_SCALE}")
+    print(f"[6/15] slice: BFS on RMAT-{BFS_SCALE}")
     bfs_root, bfs_launches, pull20 = phase_bfs(rg, pl, pe, scm, bfs_ec,
                                                bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[7/14] kernel: lane_shuffle vs plain version, "
+    print(f"[7/15] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
     lsr = phase_lane_shuffle(ls, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[8/14] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+    print(f"[8/15] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
     kernels = dict(lane_shuffle=ls.lane_shuffle,
                    route_gather_finish=rg.route_gather_finish,
@@ -2735,19 +2874,19 @@ def main() -> int:
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[9/14] kernel: pull_reduce with edge weights and scatter_combine "
+    print(f"[9/15] kernel: pull_reduce with edge weights and scatter_combine "
           f"f32 vs plain versions on weighted RMAT-{BFS_SCALE}, and the "
           f"host's cost of one launch")
     wk = phase_weighted_kernels(rg, pl, scm, bfs_ec, bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[10/14] slice: SSSP, SSWP, CC and HITS on weighted "
+    print(f"[10/15] slice: SSSP, SSWP, CC and HITS on weighted "
           f"RMAT-{BFS_SCALE}")
     fix = phase_fixpoint(kernels, bfs_ec, bfs_graph, bfs_ea, smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[11/14] kernel: scatter_combine int32 add, its sorted build and "
+    print(f"[11/15] kernel: scatter_combine int32 add, its sorted build and "
           f"and_popcount vs plain versions, at the RMAT-{SCALE} triangle "
           f"count's shapes")
     k6 = phase_slice6_kernels(scm, ap, prr["ec"], smi)
@@ -2756,24 +2895,30 @@ def main() -> int:
                                      k6["scatter_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[12/14] slice: SCC, coloring, label propagation, random walks, "
+    print(f"[12/15] slice: SCC, coloring, label propagation, random walks, "
           f"reachability and triangle count on RMAT-{SCALE}")
     s6 = phase_slice6(kernels, prr["ec"], prr["graph"], k6["oriented"],
                       k6["host_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[13/14] slice: GraphSAGE at ogbn-products' widths (in "
+    print(f"[13/15] slice: GraphSAGE at ogbn-products' widths (in "
           f"{SAGE_IN}, hidden {SAGE_HIDDEN}, classes {SAGE_CLASSES}) on "
           f"RMAT-{BFS_SCALE}, sampled on RMAT-{SCALE}, and pull_rows vs plain "
           f"version")
     sage = phase_sage(kernels, prw, bfs_ec, bfs_graph, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[14/14] slice: max-flow on RMAT-{SCALE}, and the general advance "
+    print(f"[14/15] slice: max-flow on RMAT-{SCALE}, and the general advance "
           f"and segment_reduce vs plain versions")
     mfr = phase_mf(kernels, pl, prr["ec"], smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"],
                                  mfr["pull"]["max_err"])
+
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[15/15] slice: the measurement runtime: the per-primitive pass "
+          f"on RMAT-{SCALE} and weighted RMAT-{BFS_SCALE}, the PageRank app "
+          f"with it, ubench_prims and the autotuner's samples")
+    meas = phase_measurement(kernels, prr["graph"], bfs_graph, bfs_ea, smi)
 
     if "--profile" in sys.argv:
         profile(pl, prr["graph"], bfs_graph, bfs_root, bfs_ec, bfs_ea,
@@ -2790,7 +2935,8 @@ def main() -> int:
                    f"fixpoint_rmat{BFS_SCALE}": fix["launches"][kernel],
                    f"slice6_rmat{SCALE}": s6["launches"][kernel],
                    f"sage_rmat{BFS_SCALE}": sage["launches"][kernel],
-                   f"mf_rmat{SCALE}": mfr["launches"][kernel]}
+                   f"mf_rmat{SCALE}": mfr["launches"][kernel],
+                   **{p: c[kernel] for p, c in meas["launches"].items()}}
         if kernel == "scatter_combine":
             # scatter_combine.launches counts every entry of the source:
             # the general entries' row leaves out the sorted build's
@@ -2860,7 +3006,9 @@ def main() -> int:
             shape=f"i32 min over the RMAT-{SCALE} residual CSR",
             f32_add_ms=mfr["f32_add_ms"],
             f32_add_library_ms=mfr["f32_add_library_ms"])],
-        "rates": dict(s6["rates"], mf_mteps=mfr["rates"])}))
+        "rates": dict(s6["rates"], mf_mteps=mfr["rates"]),
+        "prim_tables": meas["tables"],
+        "autotuner_picks": meas["autotuner_picks"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

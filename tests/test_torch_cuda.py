@@ -7,7 +7,9 @@ another order), their launch counts, their argument checks, and the slices
 (PageRank, BFS, loading a saved graph, SSSP, SSWP, HITS, CC, SCC, coloring,
 label propagation, random walks, reachability, triangle count, GraphSAGE,
 the general advance, max-flow) on CUDA against the same slices on the
-CPU. Every test
+CPU, and the measurement runtime (DeviceTimer against an event pair, the
+per-primitive pass within the card's bandwidth, the memory profile). Every
+test
 here needs an NVIDIA GPU and skips
 without one. The file needs no JAX (the card's host has none), so on the card
 run it without tests/conftest.py, which imports jax:
@@ -1462,3 +1464,70 @@ def test_max_flow_on_cuda(cuda):
     np.testing.assert_array_equal(
         lv, mf.vgl_mf_bfs_levels(ec2, None, ec2.weights * 0, src,
                                  device="cpu"))
+
+
+def test_device_timer_against_event_pair(cuda):
+    """DeviceTimer on the card times the work on the current stream as a
+    manual CUDA event pair around the same work does."""
+    from vectorgraphlibrary_tpu_torch.runtime.timer import DeviceTimer, block
+    x = torch.rand(1 << 24, device=cuda)
+    x.sum()
+    torch.cuda.synchronize()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    got, want = [], []
+    for _ in range(5):
+        t = DeviceTimer(cuda).start()
+        y = torch.cumsum(x, 0)
+        got.append(t.stop(y))
+        begin.record()
+        y = torch.cumsum(x, 0)
+        end.record()
+        end.synchronize()
+        want.append(begin.elapsed_time(end) / 1e3)
+    assert block({"y": [y, (x,)]})["y"][0] is y
+    g, w = min(got), min(want)
+    assert g > 0 and abs(g - w) <= 0.25 * w + 2e-5, (got, want)
+
+
+def test_prim_profile_on_cuda(cuda):
+    """profile_graph_primitives on a scale-14 graph: the five rows, every
+    one at or under the card's 3,350 GB/s, and reps + 1 launches of the
+    route, pull and scatter kernels per row that runs them."""
+    from vectorgraphlibrary_tpu_torch.config import VGLConfig
+    from vectorgraphlibrary_tpu_torch.runtime import prim_profile, runtime
+    from vectorgraphlibrary_tpu_torch.runtime.perf_stats import (
+        H100_HBM_GBPS, PerformanceStats)
+    _, graph, weights = runtime.prepare_graph(
+        VGLConfig(scale=14, avg_degree=16, seed=42), need_weights=True,
+        device=cuda)
+    reps = 3
+    for w, min_row in ((weights, "advance (pull min+w)"),
+                       (None, "advance (pull min)")):
+        stats = PerformanceStats()
+        before = (rg.route_gather_finish.launches, pl.pull_reduce.launches,
+                  sc.scatter_combine.launches)
+        prim_profile.profile_graph_primitives(graph, w, stats=stats,
+                                              reps=reps)
+        after = (rg.route_gather_finish.launches, pl.pull_reduce.launches,
+                 sc.scatter_combine.launches)
+        assert [a - b for a, b in zip(after, before)] == \
+            [reps + 1, 2 * (reps + 1), 2 * (reps + 1)]
+        assert set(stats.stats) == {
+            "reorder (vertex route)", "advance (pull add)", min_row,
+            "advance (push sparse)", "generate_new_frontier"}
+        for name, st in stats.stats.items():
+            gbps = st.bytes_requested / st.wall_s / 1e9
+            assert st.calls == 1 and 0 < gbps <= H100_HBM_GBPS, (name, gbps)
+
+
+def test_device_memory_profile_on_cuda(cuda, tmp_path):
+    import pickle
+    from vectorgraphlibrary_tpu_torch.runtime import profiling
+    keep = torch.ones(1 << 20, device=cuda)
+    path = tmp_path / "mem.pickle"
+    profiling.device_memory_profile(str(path))
+    segments = pickle.loads(path.read_bytes())
+    assert path.stat().st_size > 0 and keep.is_cuda
+    assert segments and all(s["device"] == torch.cuda.current_device()
+                            for s in segments)

@@ -5,8 +5,9 @@ graph, SCC, coloring, label propagation, random walks, reachability and the
 triangle count, GraphSAGE's full and sampled training steps, the general
 advance in every graph format, compute and reduce with a frontier,
 max-flow and its app's input, saving a graph, which runs the port's own
-Beneš router, and loading it) neither loads the JAX package's native library
-nor launches a kernel."""
+Beneš router, and loading it, the per-primitive profiling pass on a scale-10
+graph with and without weights, and the PageRank app with that pass)
+neither loads the JAX package's native library nor launches a kernel."""
 import os
 import subprocess
 import sys
@@ -102,6 +103,16 @@ with tempfile.TemporaryDirectory() as d:
     g2 = persistence.load_graph_from_binary_file(os.path.join(d, "g.npz"),
                                                  device="cpu")
 pr.vgl_page_rank(g2, max_iterations=2, use_convergence=False)
+from vectorgraphlibrary_tpu_torch.runtime import prim_profile
+from vectorgraphlibrary_tpu_torch.runtime.perf_stats import PerformanceStats
+from vectorgraphlibrary_tpu_torch.apps import pr as pr_app
+from vectorgraphlibrary_tpu_torch.apps.app_common import run_app
+pg = import_graph(generation.rmat(10, 8, seed=2, weighted=False), device="cpu")
+prim_profile.profile_graph_primitives(pg, None, stats=PerformanceStats())
+prim_profile.profile_graph_primitives(wg, ea, stats=PerformanceStats())
+assert run_app("pr", pr_app.run_round, pr_app.check_round, needs_source=False,
+               argv=["-s", "10", "-e", "8", "-it", "1", "-check", "-dev",
+                     "cpu"]) == 0
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "vectorgraphlibrary_tpu" or m.startswith("vectorgraphlibrary_tpu.")]

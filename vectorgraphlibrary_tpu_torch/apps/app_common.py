@@ -1,9 +1,12 @@
 """Shared benchmark-app skeleton (port of apps/app_common.py).
 
 Every app follows the reference main shape (`apps/bfs/bfs.cpp:15-62`):
-parse → load or generate the edges, import them and bind edge weights where
-the app needs them (runtime.prepare_graph) → one untimed warmup round → measured rounds, each checked against the
-sequential oracle with -check → AVG_PERF.
+parse → init (runtime.init_library) → load or generate the edges, import
+them and bind edge weights where the app needs them (runtime.prepare_graph)
+→ one untimed warmup round → measured rounds, each checked against the
+sequential oracle with -check (traced when VGL_TRACE_DIR is set) → the
+per-primitive profiling pass (runtime/prim_profile.py; -no-prim-stats skips
+it) → the per-primitive table → AVG_PERF.
 
     python -m vectorgraphlibrary_tpu_torch.apps.<app> -s 14 -e 16 -it 3 -check
 
@@ -18,8 +21,8 @@ import time
 import torch
 
 from ..models import common
-from ..runtime import cli, runtime
-from ..runtime.perf_stats import PerformanceStats
+from ..runtime import cli, prim_profile, profiling, runtime
+from ..runtime.perf_stats import performance_stats
 
 
 def _sync(device: torch.device) -> None:
@@ -33,17 +36,10 @@ def run_app(app_name: str, run_round, check_round=None,
     """run_round(ec, graph, weights, source, cfg) -> result;
     check_round(ec, graph, weights, source, result, cfg) -> error count.
     The warmup round's source is select_random_source(seed=cfg.seed), round
-    it's seed=cfg.seed + it (None for apps without a source)."""
+    it's seed=cfg.seed + it (None for apps without a source). The rounds'
+    MTEPS go to the global runtime.perf_stats.performance_stats."""
     cfg = cli.parse_args(argv, app_name)
-    device = torch.device(cfg.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("-dev cuda: no CUDA device is available "
-                               "(-dev cpu runs the plain PyTorch versions)")
-        print(f"VGL (PyTorch) init: {torch.cuda.device_count()} device(s): "
-              f"{torch.cuda.get_device_name(device)}")
-    else:
-        print(f"VGL (PyTorch) init: device {device}")
+    device = runtime.init_library(cfg)
     ec, graph, weights = runtime.prepare_graph(cfg, need_weights=need_weights,
                                                device=device)
     print(f"graph: |V|={graph.v} |E|={graph.e}")
@@ -57,17 +53,24 @@ def run_app(app_name: str, run_round, check_round=None,
     run_round(ec, graph, weights, source(cfg.seed), cfg)
     _sync(device)
 
-    stats = PerformanceStats()
+    runtime.start_measuring_stats()
     total_errors = 0
-    for it in range(cfg.iterations):
-        src = source(cfg.seed + it)
-        t0 = time.perf_counter()
-        result = run_round(ec, graph, weights, src, cfg)
-        _sync(device)
-        stats.save_algorithm_performance_stats(app_name,
-                                               time.perf_counter() - t0,
-                                               graph.e)
-        if cfg.check and check_round is not None:
-            total_errors += check_round(ec, graph, weights, src, result, cfg)
-    stats.report_performance(app_name)
+    with profiling.trace(profiling.trace_dir_from_env()):
+        for it in range(cfg.iterations):
+            src = source(cfg.seed + it)
+            t0 = time.perf_counter()
+            with profiling.step_annotate(app_name, it):
+                result = run_round(ec, graph, weights, src, cfg)
+                _sync(device)
+            performance_stats.save_algorithm_performance_stats(
+                app_name, time.perf_counter() - t0, graph.e)
+            if cfg.check and check_round is not None:
+                total_errors += check_round(ec, graph, weights, src, result,
+                                            cfg)
+    performance_stats.stop_measuring_stats()   # the rounds' wall time
+    if cfg.prim_stats:
+        prim_profile.profile_graph_primitives(graph, weights)
+    performance_stats.print_timers_stats()
+    runtime.report_performance(app_name)
+    runtime.finalize_library()
     return 1 if (cfg.check and total_errors > 0) else 0

@@ -55,10 +55,13 @@ def build_edge_array_from_host(coo_values: np.ndarray, graph: VGLGraph,
 
 
 def edge_array_from_flat(graph: VGLGraph, flat_out: torch.Tensor,
-                         flat_in: torch.Tensor) -> EdgeArray:
+                         flat_in: torch.Tensor, pad_value=0) -> EdgeArray:
     """EdgeArray from flat CSR-order values that are already on the device
     (e.g. updated residual capacities); there are no tile copies to
-    rebuild."""
+    rebuild. pad_value is taken for the reference's signature: there it
+    fills the padding slots of the tile copies, which the port does not
+    keep, so it changes nothing here."""
+    del pad_value
     for flat, dg in ((flat_out, graph.outgoing), (flat_in, graph.incoming)):
         if flat.shape != (dg.e_pad,):
             raise ValueError(f"flat values of shape {tuple(flat.shape)} for "

@@ -21,7 +21,9 @@ save/load_main_content_to_binary_file, vect_csr_graph.h:90-92):
   port's gather indices; a file saved on a TPU carries only the words, which
   are unpacked first.
 - per-slot CSR edge indices (`eidx`, in files of weighted graphs) are not
-  read: the port carries no edge weights yet, and they only lay those out.
+  read: they map tile slots to CSR slots, to lay out the JAX package's tile
+  copies of edge values, and the port keeps edge values only in CSR slot
+  order (graph/edges.EdgeArray.flat), where that mapping has no use.
 """
 from __future__ import annotations
 

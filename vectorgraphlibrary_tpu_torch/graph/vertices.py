@@ -21,8 +21,19 @@ from .device import VGLGraph
 
 @dataclasses.dataclass(frozen=True)
 class VertexArray:
-    values: torch.Tensor     # [v_pad]
+    values: torch.Tensor     # [v_pad] or [v_pad, k]
     direction: TraversalDirection = TraversalDirection.ORIGINAL
+
+
+def vertex_array(graph: VGLGraph, fill_value, dtype=None,
+                 direction: TraversalDirection = TraversalDirection.ORIGINAL,
+                 extra_dims: tuple = ()) -> VertexArray:
+    """A [v_pad, *extra_dims] array of `fill_value` on the graph's device,
+    tagged with `direction` (dtype a torch dtype; None takes torch.full's
+    from the value)."""
+    vals = torch.full((graph.v_pad,) + tuple(extra_dims), fill_value,
+                      dtype=dtype, device=graph.device)
+    return VertexArray(values=vals, direction=direction)
 
 
 def _route_for(graph: VGLGraph, src: TraversalDirection,

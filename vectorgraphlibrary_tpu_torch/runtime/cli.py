@@ -63,9 +63,9 @@ def build_parser(app: str = "vgl") -> argparse.ArgumentParser:
                         "runs the kernels' plain PyTorch versions")
     p.add_argument("-seed", dest="seed", type=int, default=42)
     p.add_argument("-no-prim-stats", dest="prim_stats", action="store_false",
-                   help="skip the per-primitive profiling pass after the "
-                        "run: accepted as in the reference CLI; it does "
-                        "nothing until that pass is ported")
+                   help="skip the per-primitive profiling pass "
+                        "(runtime/prim_profile.py) after the measured "
+                        "rounds, and with it the table's rows")
     return p
 
 

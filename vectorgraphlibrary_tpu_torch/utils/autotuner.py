@@ -13,14 +13,16 @@ PageRank ran fastest there. On the card the choice changes less. Every
 format runs the same CSR kernels (ops/advance.py), so what differs is only
 `huge_degree_threshold` and `huge_row_chunk` (which rows the tiles cut into
 chunks: the tile pass of advance_cells reads them) and whether the advance
-route is built (TILE_CSR only; no hot path of the port reads it). Sampling
-the card itself (the reference's collect_samples and
-generate_learning_data, which time the device) is not ported.
+route is built (TILE_CSR only; no hot path of the port reads it).
+`collect_samples` measures such samples on the card (PageRank under each
+candidate threshold, timed by CUDA events); the bundled file stays the
+JAX package's, so that `-format auto` picks what the JAX package picks.
 """
 from __future__ import annotations
 
 import json
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -110,3 +112,67 @@ def default_tuner() -> FormatAutotuner:
     if os.path.exists(BUNDLED_SAMPLES):
         return FormatAutotuner.load(BUNDLED_SAMPLES)
     return FormatAutotuner()
+
+
+def collect_samples(scales=(12, 14), edge_factors=(8, 32), seeds=(0,),
+                    thresholds=(128, 256, 1024), pr_iters: int = 20,
+                    out_path: Optional[str] = None, verbose: bool = True,
+                    device="cuda") -> FormatAutotuner:
+    """Benchmark-driven label collection (the reference deep_learning
+    pipeline's generate_learning_data + training step, measured rather than
+    learned): for each synthetic graph (RMAT and uniform, scales x edge
+    factors x seeds), time one `pr_iters`-iteration PageRank on `device`
+    under each candidate huge-row threshold by DeviceTimer (CUDA events on
+    the card; after one untimed run) and record the fastest. Returns the
+    tuner, saved to out_path when given."""
+    from ..graph.device import import_graph
+    from ..io import generation
+    from ..models import pr
+    from ..runtime.timer import DeviceTimer
+    tuner = FormatAutotuner()
+    for kind in ("rmat", "ru"):
+        for s in scales:
+            for ef in edge_factors:
+                for seed in seeds:
+                    ec = generation.generate(kind, s, ef, seed)
+                    best, best_dt = None, float("inf")
+                    for thr in thresholds:
+                        cfg = VGLConfig(huge_degree_threshold=thr)
+                        g = import_graph(ec, cfg, device=device)
+
+                        def run():
+                            return pr.vgl_page_rank(
+                                g, max_iterations=pr_iters,
+                                use_convergence=False)[0].values
+                        run()
+                        t = DeviceTimer(device).start()
+                        dt = t.stop(run())
+                        if dt < best_dt:
+                            best_dt = dt
+                            best = {"graph_format": GraphFormat.TILE_CSR.value,
+                                    "huge_degree_threshold": thr,
+                                    "huge_row_chunk": 512}
+                        if verbose:
+                            print(f"{kind}-{s}-{ef} thr={thr}: "
+                                  f"{dt*1e3:.1f} ms", flush=True)
+                    tuner.add_sample(ec, best)
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        tuner.save(out_path)
+    return tuner
+
+
+def generate_learning_data(scales=(12, 14), edge_factors=(8, 32),
+                           seeds=(0,)) -> list:
+    """Synthetic sweep (reference prepare_all_data.py:11-34 analog): feature
+    vectors for RMAT + uniform graphs over scale x edge-factor grids."""
+    from ..io import generation
+    rows = []
+    for kind in ("rmat", "ru"):
+        for s in scales:
+            for ef in edge_factors:
+                for seed in seeds:
+                    ec = generation.generate(kind, s, ef, seed, weighted=False)
+                    rows.append({"kind": kind, "scale": s, "edge_factor": ef,
+                                 "features": extract_features(ec).tolist()})
+    return rows
