@@ -162,7 +162,27 @@ result line):
    within the bound, the launches of its rounds, checks and pass);
    apps/ubench_prims at K = 5 (its JSON line); the autotuner's
    collect_samples on RMAT-12 and uniform-12 graphs of degree 8 (the card's
-   picks).
+   picks);
+16. slice: distribution on one card. (a) parallel/shard_build.import_sharded
+   of the weighted RMAT-20 graph in 4 destination shards, and the one-card
+   runners pagerank_sharded_scan (100 iterations), bfs_sharded_scan (the
+   phase-6 root), sssp_sharded_scan (phase 10's first source, partial),
+   cc_sharded_scan and hits_sharded_scan (20 iterations), each equal to
+   the unsharded entry points' results (phases 6 and 10; PageRank: this
+   phase's vgl_page_rank, error count 0 against seq_page_rank): BFS levels,
+   CC labels and SSSP distances exactly, PageRank at rtol 1e-5, HITS at
+   rtol 1e-5 and atol 1e-6 of the maximum; per call exactly S pull_reduce
+   and 2S route_gather_finish per PageRank iteration and BFS level (3S
+   routes per partial SSSP sweep, 2S and 4S per CC and HITS iteration), ms
+   (median of 3 by DeviceTimer), MTEPS by bench.py's formulas, peak memory,
+   and the sharded graph's device bytes beside the unsharded one's. (b)
+   make_pr_sharded and make_bfs_sharded on 2 gloo ranks that share the card
+   (CUDA tensors), each building only its own shard from a COO file, and
+   at the same time make_pr_sharded on a one-rank NCCL group, equal to the
+   same results, with every rank's launches; a rank that fails fails the
+   phase. (c) save_sharded_graph of the RMAT-18 graph in 4 shards and
+   load_sharded_graph on the card (8 lane_shuffle launches per shard), every
+   shard equal to the fresh one and pagerank_sharded_scan on it bit-equal.
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
@@ -170,7 +190,8 @@ version's time, the one-call PyTorch time (library_ms, null where there is
 none) and its bound (bound_ms: the bytes it must move at the H100's 3.35
 TB/s, or for and_popcount the larger of that and its operations at 67
 TOP/s) at the main path's shapes, "rates", phase 12's and 14's MTEPS,
-"prim_tables", phase 15's per-primitive tables, and "autotuner_picks".
+"prim_tables", phase 15's per-primitive tables, "autotuner_picks", and
+"sharded", phase 16's numbers.
 The last line is {"ok": true, "device":
 {...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
 PageRank run, one DO-BFS root, one all-active SSSP run and one HITS call to
@@ -873,9 +894,10 @@ def make_bfs_graph():
 
 
 def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
-    """BFS on RMAT-20 through the port's entry points; returns the kernels'
-    launch counts over the 8 vgl_bfs_device calls and the pull's check and
-    times at the bottom-up shape (int8 any01 over GATHER)."""
+    """BFS on RMAT-20 through the port's entry points; returns the first
+    root, the kernels' launch counts over the 8 vgl_bfs_device calls, the
+    pull's check and times at the bottom-up shape (int8 any01 over
+    GATHER), and the first root's checked levels (ORIGINAL)."""
     from vectorgraphlibrary_tpu_torch.graph.vertices import (VertexArray,
                                                              as_original_numpy)
     from vectorgraphlibrary_tpu_torch.models import bfs, common
@@ -928,6 +950,9 @@ def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
         for name in totals:
             totals[name] += n[name]
         check("vgl_bfs_device", lv.values, src)
+        if src == roots[0]:
+            root_levels = as_original_numpy(
+                VertexArray(values=lv.values, direction=bfs.S), graph)
     if not (totals["push_expand"] and totals["pull_reduce"]):
         raise AssertionError("the DO-BFS run did not launch both kernels")
     for k in kernels.values():
@@ -995,7 +1020,7 @@ def phase_bfs(rg, pl, pe, scm, ec, graph, smi: str):
              [edges / t / 1e9 for t in times], smi)
     print(f"  BFS peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB on {smi}")
-    return roots[0], totals, pull
+    return roots[0], totals, pull, root_levels
 
 
 def _sssp_sources(ec) -> list:
@@ -1304,7 +1329,9 @@ def phase_fixpoint(kernels: dict, ec, graph, ea, smi: str) -> dict:
     """SSSP (all-active and partial), SSWP, CC (Shiloach-Vishkin and the
     flood hybrid) and HITS on the weighted RMAT-20 graph through the port's
     entry points, each checked against its oracle and its launch counts;
-    returns the kernels' launch counts over those calls."""
+    returns the kernels' launch counts over those calls, the rates, and
+    the checked results phase 16 holds the sharded runners to (ORIGINAL
+    ordering)."""
     from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
     from vectorgraphlibrary_tpu_torch.models import cc, hits, sssp, sswp
     from vectorgraphlibrary_tpu_torch.utils.verify import (
@@ -1358,8 +1385,10 @@ def phase_fixpoint(kernels: dict, ec, graph, ea, smi: str) -> dict:
                 or dist.values.dtype != torch.float32:
             raise AssertionError("distances are not f32 [v_pad]")
         print(f"    {iters} sweeps")
-        check(f"SSSP source {src}", verify_results(
-            as_original_numpy(dist, graph), want_dist[src]))
+        dist_o = as_original_numpy(dist, graph)
+        check(f"SSSP source {src}", verify_results(dist_o, want_dist[src]))
+        if src == sources[0]:
+            sssp_o = dist_o
         trace = []
         part, p_iters = counted(
             f"vgl_dijkstra_partial_device source {src}",
@@ -1446,7 +1475,11 @@ def phase_fixpoint(kernels: dict, ec, graph, ea, smi: str) -> dict:
     rates["hits"] = mteps("HITS", lambda: hits.vgl_hits(graph, n_it), e * n_it)
     print(f"  fixpoint family peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB on {smi}")
-    return dict(launches=totals, rates=rates)
+    return dict(launches=totals, rates=rates, results=dict(
+        sssp_source=sources[0], sssp=sssp_o,
+        cc=labels.values[:graph.v].cpu().numpy(),
+        hits_auth=auth.values.cpu().numpy(),
+        hits_hub=hub.values.cpu().numpy()))
 
 
 def phase_lane_shuffle(ls, graph, smi: str) -> dict:
@@ -2679,6 +2712,333 @@ def profile(pl, pr_graph, bfs_graph, bfs_root, ec, ea, pr_ec, oriented, core,
         print("\n".join(lines[:13]))
 
 
+SHARDS = 4                  # phase 16 (a) and (c): one card, shards in turn
+RANK_SHARDS = 2             # phase 16 (b): ranks that share the card
+HITS_ITERS = 20
+PATHS16 = (f"sharded_scan_rmat{BFS_SCALE}", f"sharded_ranks_rmat{BFS_SCALE}",
+           f"sharded_loaded_rmat{SCALE}")
+
+
+def _kernels() -> dict:
+    """The port's kernel wrappers by name, each counting its launches."""
+    from vectorgraphlibrary_tpu_torch.ops.cuda import and_popcount as ap
+    from vectorgraphlibrary_tpu_torch.ops.cuda import lane_shuffle as ls
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_reduce as pl
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
+    from vectorgraphlibrary_tpu_torch.ops.cuda import push_expand as pe
+    from vectorgraphlibrary_tpu_torch.ops.cuda import route_gather as rg
+    from vectorgraphlibrary_tpu_torch.ops.cuda import scatter_combine as scm
+    return dict(lane_shuffle=ls.lane_shuffle,
+                route_gather_finish=rg.route_gather_finish,
+                pull_reduce=pl.pull_reduce, push_expand=pe.push_expand,
+                scatter_combine=scm.scatter_combine,
+                scatter_combine_sorted=scm.scatter_combine_sorted,
+                and_popcount=ap.and_popcount, pull_rows=prw.pull_rows,
+                segment_reduce=pl.segment_reduce)
+
+
+def _nbytes(obj) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in _graph_tensors(obj).values()
+               if isinstance(t, torch.Tensor))
+
+
+def _sharded_rank(rank: int, world: int, device, coo: str, root: int,
+                  iterations: int) -> dict:
+    """One rank of phase 16 (b), spawned by parallel/launch.run_ranks: its
+    own shard (import_shard) of the COO graph in `coo`, then
+    make_pr_sharded (`iterations`) and, for root >= 0, make_bfs_sharded
+    from root; each call with the launches of every kernel set to 0 just
+    before it and read just after, and its time by DeviceTimer (the first
+    call of each: it makes the shard's pull plans)."""
+    from vectorgraphlibrary_tpu_torch.io.edges_container import (
+        EdgesContainer)
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    from vectorgraphlibrary_tpu_torch.parallel.mesh import make_mesh
+    from vectorgraphlibrary_tpu_torch.parallel.shard_build import import_shard
+    from vectorgraphlibrary_tpu_torch.runtime.timer import DeviceTimer
+    kernels = _kernels()
+    with np.load(coo) as z:
+        ec = EdgesContainer(z["src"], z["dst"], int(z["v"]))
+    t0 = time.perf_counter()
+    g = import_shard(ec, world, rank, device=device)
+    out = dict(import_s=time.perf_counter() - t0, shard_mib=_nbytes(g) / 2**20)
+    mesh = make_mesh(world, 1, device)
+    runs = [("pr", sharded.make_pr_sharded(g, mesh, ec,
+                                           max_iterations=iterations), ())]
+    if root >= 0:
+        runs.append(("bfs", sharded.make_bfs_sharded(g, mesh), (root,)))
+    for name, fn, args in runs:
+        for k in kernels.values():
+            k.launches = 0
+        timer = DeviceTimer(device).start()
+        res = fn(*args)
+        out[f"{name}_ms"] = timer.stop(res) * 1e3
+        out[f"{name}_launches"] = np.asarray([k.launches
+                                              for k in kernels.values()])
+        out[name] = res.cpu().numpy()
+    out["kernel_names"] = np.asarray(list(kernels))
+    return out
+
+
+def phase_sharded(kernels: dict, ec, graph, ea, bfs_root: int, root_levels,
+                  fixed: dict, ec18, smi: str) -> dict:
+    """Distribution on one card. (a) import_sharded of the weighted
+    RMAT-20 graph in SHARDS shards and the one-card runners (PageRank,
+    BFS, SSSP, CC, HITS), each equal to the unsharded entry points'
+    results of phases 6 and 10 (PageRank: this phase's vgl_page_rank on
+    the same graph, held to seq_page_rank), with its launches per call,
+    times (median of 3 by DeviceTimer), MTEPS and peak memory; (b) the
+    rank-parallel runners: RANK_SHARDS gloo ranks on CUDA tensors sharing
+    the card, each building its own shard from a COO file, and at the
+    same time a one-rank NCCL group with one shard, equal to the same
+    results; (c) sharded save and load of the RMAT-18 graph in SHARDS
+    shards, PageRank on the loaded graph bit-equal to the fresh one's. The
+    reference PageRank, (a)'s import and (c) run on this process while
+    (b)'s ranks run; (a)'s calls are counted and timed after they end.
+    Returns the launches on each path and the numbers printed."""
+    from concurrent.futures import ThreadPoolExecutor
+    from vectorgraphlibrary_tpu_torch.graph.persistence import (
+        load_sharded_graph, save_sharded_graph)
+    from vectorgraphlibrary_tpu_torch.graph.vertices import as_original_numpy
+    from vectorgraphlibrary_tpu_torch.models import pr
+    from vectorgraphlibrary_tpu_torch.parallel import shard_build, sharded
+    from vectorgraphlibrary_tpu_torch.parallel.launch import run_ranks
+    from vectorgraphlibrary_tpu_torch.runtime.timer import DeviceTimer
+    from vectorgraphlibrary_tpu_torch.utils.verify import (
+        verify_ranking_results)
+    launches = {p: dict.fromkeys(kernels, 0) for p in PATHS16}
+    v, e = graph.v, graph.e
+    numbers = {}
+
+    def close(label, got, want, hits=False):
+        atol = 1e-6 * float(np.abs(want).max()) if hits else 0.0
+        if got.shape != want.shape or not np.allclose(got, want, rtol=1e-5,
+                                                      atol=atol):
+            raise AssertionError(f"{label}: differs from the unsharded "
+                                 f"result beyond rtol 1e-5")
+
+    def equal(label, got, want):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{label}: differs from the unsharded result")
+
+    def reference_pagerank():
+        """The unsharded vgl_page_rank on the same graph, held to
+        seq_page_rank (no earlier phase runs PageRank on RMAT-20)."""
+        t0 = time.perf_counter()
+        want_pr = as_original_numpy(pr.vgl_page_rank(
+            graph, max_iterations=ITERS, use_convergence=False)[0], graph)
+        errors = verify_ranking_results(want_pr, pr.seq_page_rank(
+            ec, max_iterations=ITERS, use_convergence=False))
+        if errors:
+            raise AssertionError(f"unsharded PageRank on RMAT-{BFS_SCALE}: "
+                                 f"error count {errors}")
+        print(f"  unsharded vgl_page_rank on RMAT-{BFS_SCALE} ({ITERS} "
+              f"iterations): error count 0 against seq_page_rank "
+              f"({time.perf_counter() - t0:.2f} s with the oracle)")
+        return want_pr
+
+    def import_scan():
+        """(a) one card, the shards in turn: the import."""
+        t0 = time.perf_counter()
+        hosts = []
+        sg = shard_build.import_sharded(ec, SHARDS, device=DEVICE,
+                                        _host_out=hosts)
+        weights = shard_build.shard_edge_values(ec.weights, sg, ec, hosts)
+        torch.cuda.synchronize()
+        numbers["import_sharded_s"] = time.perf_counter() - t0
+        numbers["sharded_graph_mib"] = _nbytes(sg.shards) / 2**20
+        numbers["graph_mib"] = _nbytes(graph) / 2**20
+        numbers["sharded_weights_mib"] = _nbytes(weights) / 2**20
+        numbers["weights_mib"] = _nbytes(ea) / 2**20
+        print(f"  import_sharded({SHARDS}) + shard_edge_values: "
+              f"{numbers['import_sharded_s']:.2f} s; edges per shard "
+              f"{list(sg.edges_per_shard)}, v_pad {sg.v_pad}; device bytes: "
+              f"shards {numbers['sharded_graph_mib']:.1f} MiB against "
+              f"{numbers['graph_mib']:.1f} MiB unsharded, weights "
+              f"{numbers['sharded_weights_mib']:.1f} against "
+              f"{numbers['weights_mib']:.1f} MiB")
+        return sg, weights
+
+    # (c) sharded save and load of RMAT-18
+    def save_and_load():
+        """(c), run while the ranks of (b) run."""
+        ls = kernels["lane_shuffle"]
+        sg18 = shard_build.import_sharded(ec18, SHARDS, device=DEVICE)
+        fresh = sharded.pagerank_sharded_scan(sg18, ec18, ITERS)
+        with tempfile.TemporaryDirectory() as d:
+            prefix = os.path.join(d, f"rmat{SCALE}")
+            t0 = time.perf_counter()
+            save_sharded_graph(sg18, prefix)
+            numbers["save_s"] = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(d, f))
+                       for f in os.listdir(d))
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            loaded = load_sharded_graph(prefix, device=DEVICE)
+            torch.cuda.synchronize()
+            numbers["load_s"] = time.perf_counter() - t0
+            n_ls = ls.launches
+            ranks = sharded.pagerank_sharded_scan(loaded, ec18, ITERS)
+            torch.cuda.synchronize()
+        n = {name: k.launches for name, k in kernels.items()}
+        launches[PATHS16[2]] = n
+        print(f"  save_sharded_graph RMAT-{SCALE} in {SHARDS} shards: "
+              f"{numbers['save_s']:.2f} s, {size / 2**20:.1f} MiB; "
+              f"load_sharded_graph on {DEVICE}: {numbers['load_s']:.2f} s, "
+              f"lane_shuffle {n_ls} launches; launches of load + PageRank {n}")
+        if n_ls != 8 * SHARDS:
+            raise AssertionError(f"load launched lane_shuffle {n_ls} times, "
+                                 f"expected {8 * SHARDS} (two per plan)")
+        want = dict.fromkeys(kernels, 0)
+        want.update(lane_shuffle=8 * SHARDS, pull_reduce=SHARDS * ITERS,
+                    route_gather_finish=2 * SHARDS * ITERS)
+        if n != want:
+            raise AssertionError(f"load + PageRank: launches {n}, "
+                                 f"expected {want}")
+        for s in range(SHARDS):
+            _assert_same_graph(f"loaded shard {s}", loaded.shard(s),
+                               sg18.shard(s))
+        if not torch.equal(ranks, fresh):
+            raise AssertionError("PageRank on the loaded sharded graph "
+                                 "differs")
+        print("  pagerank_sharded_scan on the loaded graph: bit-identical to "
+              "the fresh sharded graph's")
+        numbers["lane_shuffle_launches"] = n_ls
+
+    # (b) one shard per rank, the ranks sharing the card
+    with tempfile.TemporaryDirectory() as d:
+        coo = os.path.join(d, "coo.npz")
+        np.savez(coo, src=ec.src_ids, dst=ec.dst_ids, v=np.int64(v))
+        t0 = time.perf_counter()
+        fn = "chip_smoke:_sharded_rank"
+        with ThreadPoolExecutor(2) as pool:
+            gloo = pool.submit(run_ranks, fn, RANK_SHARDS, device=DEVICE,
+                               backend="gloo", timeout=600, kwargs=dict(
+                                   coo=coo, root=bfs_root, iterations=ITERS))
+            nccl = pool.submit(run_ranks, fn, 1, device=DEVICE, timeout=600,
+                               kwargs=dict(coo=coo, root=-1,
+                                           iterations=ITERS))
+            # the parent's host work runs while the ranks run; the scans
+            # are timed after they end
+            want_pr = reference_pagerank()
+            sg, weights = import_scan()
+            save_and_load()
+            gloo, nccl = gloo.result(), nccl.result()
+    numbers["ranks_wall_s"] = time.perf_counter() - t0
+    # (a) timed, the ranks done
+    res = fixed
+
+    def bfs_check(out):
+        equal("bfs_sharded_scan", out[:v].cpu().numpy(), root_levels)
+        return int(out.max())
+
+    def sssp_check(out):
+        equal("sssp_sharded_scan", out[0][:v].cpu().numpy(), res["sssp"])
+        return out[1]
+
+    def cc_check(out):
+        equal("cc_sharded_scan", out[0][:v].cpu().numpy(), res["cc"])
+        return out[1]
+
+    def pr_check(out):
+        close("pagerank_sharded_scan", out[:v].cpu().numpy(), want_pr)
+        return ITERS
+
+    def hits_check(out):
+        close("hits_sharded_scan auth", out[0].cpu().numpy(),
+              res["hits_auth"], hits=True)
+        close("hits_sharded_scan hub", out[1].cpu().numpy(), res["hits_hub"],
+              hits=True)
+        return HITS_ITERS
+
+    S = SHARDS
+    cases = [  # label, call, check -> loop count, (pulls, routes) per loop,
+               # edges per call for MTEPS (bench.py's formulas)
+        ("pagerank", lambda: sharded.pagerank_sharded_scan(sg, ec, ITERS),
+         pr_check, (S, 2 * S), e * ITERS),
+        ("bfs", lambda: sharded.bfs_sharded_scan(sg, bfs_root), bfs_check,
+         (S, 2 * S), e),
+        ("sssp", lambda: sharded.sssp_sharded_scan(
+            sg, weights, res["sssp_source"]), sssp_check, (S, 3 * S), e),
+        ("cc", lambda: sharded.cc_sharded_scan(sg), cc_check,
+         (2 * S, 4 * S), e),
+        ("hits", lambda: sharded.hits_sharded_scan(sg, HITS_ITERS),
+         hits_check, (2 * S, 4 * S), e * HITS_ITERS)]
+    for label, call, check, (pulls, routes), work in cases:
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        n = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        loops = check(out)
+        want = dict.fromkeys(kernels, 0)
+        want.update(pull_reduce=pulls * loops, route_gather_finish=routes
+                    * loops)
+        if n != want:
+            raise AssertionError(f"{label}_sharded_scan: launches {n}, "
+                                 f"expected {want}")
+        for name in n:
+            launches[PATHS16[0]][name] += n[name]
+        ts = []
+        for _ in range(3):
+            timer = DeviceTimer(DEVICE).start()
+            ts.append(timer.stop(call()))
+        ms = statistics.median(ts) * 1e3
+        numbers[label] = dict(ms=ms, mteps=work / (ms / 1e3) / 1e6,
+                              loops=loops, pull_reduce=n["pull_reduce"],
+                              route_gather_finish=n["route_gather_finish"],
+                              peak_mib=peak)
+        print(f"  {label}_sharded_scan: equal to the unsharded result; "
+              f"{loops} loops, launches per call pull_reduce "
+              f"{n['pull_reduce']}, route_gather_finish "
+              f"{n['route_gather_finish']}; {ms:.3f} ms (median of "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in ts)}), "
+              f"{numbers[label]['mteps']:.1f} MTEPS, peak {peak:.1f} MiB "
+              f"on {smi}")
+    del sg, weights
+
+    names = [str(x) for x in gloo[0]["kernel_names"]]
+    max_level = int(root_levels.max())
+    for label, ranks, world in (("gloo", gloo, RANK_SHARDS),
+                                ("nccl", nccl, 1)):
+        for r, out in enumerate(ranks):
+            close(f"make_pr_sharded, {label} rank {r}", out["pr"][:v],
+                  want_pr)
+            runs = [("pr", ITERS)]
+            if "bfs" in out:
+                equal(f"make_bfs_sharded, {label} rank {r}", out["bfs"][:v],
+                      root_levels)
+                runs.append(("bfs", max_level))
+            for run, loops in runs:
+                n = dict(zip(names, out[f"{run}_launches"].tolist()))
+                want = dict.fromkeys(names, 0)
+                want.update(pull_reduce=loops, route_gather_finish=2 * loops)
+                if n != want:
+                    raise AssertionError(f"{label} rank {r} {run}: launches "
+                                         f"{n}, expected {want}")
+                for name in n:
+                    launches[PATHS16[1]][name] += n[name]
+            numbers[f"{label}_rank{r}"] = {
+                k: float(out[k]) for k in ("import_s", "shard_mib", "pr_ms",
+                                           "bfs_ms") if k in out}
+            print(f"  {label} rank {r} of {world}: equal to the unsharded "
+                  f"results; import_shard {float(out['import_s']):.2f} s, "
+                  f"shard {float(out['shard_mib']):.1f} MiB, first "
+                  f"make_pr_sharded call {float(out['pr_ms']):.1f} ms"
+                  + (f", first make_bfs_sharded call "
+                     f"{float(out['bfs_ms']):.1f} ms" if "bfs" in out else "")
+                  + f" (correctness run: ranks share the card) on {smi}")
+    print(f"  the ranks (both groups at once: each process started, imported "
+          f"and built its shard) beside this process's reference PageRank, "
+          f"import and save and load: {numbers['ranks_wall_s']:.2f} s")
+
+    return dict(launches=launches, numbers=numbers)
+
+
 PRIM_REPS = 3        # profile_graph_primitives' default
 UBENCH_K = 5
 
@@ -2823,7 +3183,7 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/15] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/16] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -2831,62 +3191,56 @@ def main() -> int:
     build.load_library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/15] build: {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[2/16] build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
           f"ptxas: " + " | ".join(ptxas))
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print("[3/15] kernel: route_gather_finish vs plain version, n = 2^24")
+    print("[3/16] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[4/15] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+    print(f"[4/16] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
           f"version on its graph")
     prr = phase_pagerank(rg, pl, smi)
     prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[5/15] kernel: scatter_combine vs plain version, V = 2^20, and "
+    print(f"[5/16] kernel: scatter_combine vs plain version, V = 2^20, and "
           f"push_expand vs plain version on RMAT-{BFS_SCALE}")
     bfs_ec, bfs_graph, bfs_ea = make_bfs_graph()
     push = phase_scatter(scm, pe, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[6/15] slice: BFS on RMAT-{BFS_SCALE}")
-    bfs_root, bfs_launches, pull20 = phase_bfs(rg, pl, pe, scm, bfs_ec,
-                                               bfs_graph, smi)
+    print(f"[6/16] slice: BFS on RMAT-{BFS_SCALE}")
+    bfs_root, bfs_launches, pull20, root_levels = phase_bfs(
+        rg, pl, pe, scm, bfs_ec, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[7/15] kernel: lane_shuffle vs plain version, "
+    print(f"[7/16] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
     lsr = phase_lane_shuffle(ls, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[8/15] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+    print(f"[8/16] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
-    kernels = dict(lane_shuffle=ls.lane_shuffle,
-                   route_gather_finish=rg.route_gather_finish,
-                   pull_reduce=pl.pull_reduce, push_expand=pe.push_expand,
-                   scatter_combine=scm.scatter_combine,
-                   scatter_combine_sorted=scm.scatter_combine_sorted,
-                   and_popcount=ap.and_popcount, pull_rows=prw.pull_rows,
-                   segment_reduce=pl.segment_reduce)
+    kernels = _kernels()
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[9/15] kernel: pull_reduce with edge weights and scatter_combine "
+    print(f"[9/16] kernel: pull_reduce with edge weights and scatter_combine "
           f"f32 vs plain versions on weighted RMAT-{BFS_SCALE}, and the "
           f"host's cost of one launch")
     wk = phase_weighted_kernels(rg, pl, scm, bfs_ec, bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[10/15] slice: SSSP, SSWP, CC and HITS on weighted "
+    print(f"[10/16] slice: SSSP, SSWP, CC and HITS on weighted "
           f"RMAT-{BFS_SCALE}")
     fix = phase_fixpoint(kernels, bfs_ec, bfs_graph, bfs_ea, smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[11/15] kernel: scatter_combine int32 add, its sorted build and "
+    print(f"[11/16] kernel: scatter_combine int32 add, its sorted build and "
           f"and_popcount vs plain versions, at the RMAT-{SCALE} triangle "
           f"count's shapes")
     k6 = phase_slice6_kernels(scm, ap, prr["ec"], smi)
@@ -2895,30 +3249,42 @@ def main() -> int:
                                      k6["scatter_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[12/15] slice: SCC, coloring, label propagation, random walks, "
+    print(f"[12/16] slice: SCC, coloring, label propagation, random walks, "
           f"reachability and triangle count on RMAT-{SCALE}")
     s6 = phase_slice6(kernels, prr["ec"], prr["graph"], k6["oriented"],
                       k6["host_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[13/15] slice: GraphSAGE at ogbn-products' widths (in "
+    print(f"[13/16] slice: GraphSAGE at ogbn-products' widths (in "
           f"{SAGE_IN}, hidden {SAGE_HIDDEN}, classes {SAGE_CLASSES}) on "
           f"RMAT-{BFS_SCALE}, sampled on RMAT-{SCALE}, and pull_rows vs plain "
           f"version")
     sage = phase_sage(kernels, prw, bfs_ec, bfs_graph, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[14/15] slice: max-flow on RMAT-{SCALE}, and the general advance "
+    print(f"[14/16] slice: max-flow on RMAT-{SCALE}, and the general advance "
           f"and segment_reduce vs plain versions")
     mfr = phase_mf(kernels, pl, prr["ec"], smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"],
                                  mfr["pull"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[15/15] slice: the measurement runtime: the per-primitive pass "
+    print(f"[15/16] slice: the measurement runtime: the per-primitive pass "
           f"on RMAT-{SCALE} and weighted RMAT-{BFS_SCALE}, the PageRank app "
           f"with it, ubench_prims and the autotuner's samples")
     meas = phase_measurement(kernels, prr["graph"], bfs_graph, bfs_ea, smi)
+
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[16/16] slice: distribution on one card: the sharded container "
+          f"and its one-card runners on weighted RMAT-{BFS_SCALE} in "
+          f"{SHARDS} shards, the rank-parallel runners ({RANK_SHARDS} gloo "
+          f"ranks sharing the card, one NCCL rank), sharded save and load "
+          f"of RMAT-{SCALE}")
+    t16 = time.perf_counter()
+    sh = phase_sharded(kernels, bfs_ec, bfs_graph, bfs_ea, bfs_root,
+                       root_levels, fix["results"], prr["ec"], smi)
+    sh["numbers"]["phase_s"] = time.perf_counter() - t16
+    print(f"  phase 16: {sh['numbers']['phase_s']:.1f} s")
 
     if "--profile" in sys.argv:
         profile(pl, prr["graph"], bfs_graph, bfs_root, bfs_ec, bfs_ea,
@@ -2936,7 +3302,8 @@ def main() -> int:
                    f"slice6_rmat{SCALE}": s6["launches"][kernel],
                    f"sage_rmat{BFS_SCALE}": sage["launches"][kernel],
                    f"mf_rmat{SCALE}": mfr["launches"][kernel],
-                   **{p: c[kernel] for p, c in meas["launches"].items()}}
+                   **{p: c[kernel] for p, c in meas["launches"].items()},
+                   **{p: c[kernel] for p, c in sh["launches"].items()}}
         if kernel == "scatter_combine":
             # scatter_combine.launches counts every entry of the source:
             # the general entries' row leaves out the sorted build's
@@ -3008,7 +3375,8 @@ def main() -> int:
             f32_add_library_ms=mfr["f32_add_library_ms"])],
         "rates": dict(s6["rates"], mf_mteps=mfr["rates"]),
         "prim_tables": meas["tables"],
-        "autotuner_picks": meas["autotuner_picks"]}))
+        "autotuner_picks": meas["autotuner_picks"],
+        "sharded": sh["numbers"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

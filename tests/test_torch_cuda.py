@@ -1531,3 +1531,118 @@ def test_device_memory_profile_on_cuda(cuda, tmp_path):
     assert path.stat().st_size > 0 and keep.is_cuda
     assert segments and all(s["device"] == torch.cuda.current_device()
                             for s in segments)
+
+
+# ---------------------------------------------------------------------------
+# distribution, part 1: the sharded container and its runners on the card
+# ---------------------------------------------------------------------------
+
+SHARD_CASES = ["pr", "bfs", "sssp", "cc", "hits"]
+
+
+@pytest.fixture(scope="module")
+def sharded12():
+    """RMAT-12 (degree 8, seed 5, weighted) in 4 shards on the CPU and on
+    the card, with each shard's weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU mode)")
+    from vectorgraphlibrary_tpu_torch.parallel import shard_build
+    ec = generation.rmat(12, 8, seed=5, weighted=True)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        hosts = []
+        sg = shard_build.import_sharded(ec, 4, device=dev, _host_out=hosts)
+        out[dev] = (sg, shard_build.shard_edge_values(ec.weights, sg, ec,
+                                                      hosts))
+    return ec, out
+
+
+def _sharded_run(case, ec, sg, weights):
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    if case == "pr":
+        return (sharded.pagerank_sharded_scan(sg, ec, 20),)
+    if case == "bfs":
+        return (sharded.bfs_sharded_scan(sg, common.select_random_source(
+            ec, seed=1)),)
+    if case == "sssp":
+        return sharded.sssp_sharded_scan(sg, weights,
+                                         common.select_random_source(ec))[:1]
+    if case == "cc":
+        return sharded.cc_sharded_scan(sg)[:1]
+    return sharded.hits_sharded_scan(sg, 10)
+
+
+@pytest.mark.parametrize("case", SHARD_CASES)
+def test_sharded_scan_on_cuda_matches_cpu(sharded12, case):
+    """The one-card runners on the card equal their CPU run (PageRank and
+    HITS within rtol 1e-5: the pull's f32 sums run in another order), with
+    only pull_reduce and route_gather_finish launched, 2 routes per pull
+    (3 with SSSP's source mask)."""
+    ec, by_dev = sharded12
+    pl.pull_reduce.launches = rg.route_gather_finish.launches = 0
+    got = _sharded_run(case, ec, *by_dev["cuda"])
+    torch.cuda.synchronize()
+    pulls, routes = pl.pull_reduce.launches, rg.route_gather_finish.launches
+    assert pulls > 0 and pulls % 4 == 0
+    assert routes == (3 if case == "sssp" else 2) * pulls
+    want = _sharded_run(case, ec, *by_dev["cpu"])
+    for g, w in zip(got, want):
+        if case in ("pr", "hits"):
+            np.testing.assert_allclose(
+                g.cpu().numpy(), w.numpy(), rtol=1e-5,
+                atol=1e-6 * float(w.abs().max()) if case == "hits" else 0)
+        else:
+            assert torch.equal(g.cpu(), w)
+
+
+def test_sharded_load_on_cuda(sharded12, tmp_path):
+    """A sharded graph saved from the CPU loads on the card with 8
+    lane_shuffle launches per shard, and its PageRank is bit-equal to the
+    card's fresh sharded graph's."""
+    from vectorgraphlibrary_tpu_torch.graph.persistence import (
+        load_sharded_graph, save_sharded_graph)
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    ec, by_dev = sharded12
+    prefix = str(tmp_path / "g")
+    save_sharded_graph(by_dev["cpu"][0], prefix)
+    ls.lane_shuffle.launches = 0
+    loaded = load_sharded_graph(prefix, device="cuda")
+    assert ls.lane_shuffle.launches == 8 * 4
+    assert torch.equal(sharded.pagerank_sharded_scan(loaded, ec, 20),
+                       sharded.pagerank_sharded_scan(by_dev["cuda"][0], ec,
+                                                     20))
+
+
+def test_rank_runners_on_the_card(sharded12):
+    """The dry run's rank function on one NCCL rank and on 2 gloo ranks
+    that share the card: the rank-parallel runners equal the card's scan
+    runners. Needs no second card."""
+    from vectorgraphlibrary_tpu_torch.parallel.launch import run_ranks
+    ec, by_dev = sharded12
+    kw = dict(scale=12, degree=8, seed=5, source=0, pr_iterations=20,
+              hits_iterations=10, coo_steps=2)
+    runs = (run_ranks("vectorgraphlibrary_tpu_torch.parallel.dryrun:"
+                      "sharded_rank", 1, device="cuda", kwargs=kw,
+                      timeout=300)
+            + run_ranks("vectorgraphlibrary_tpu_torch.parallel.dryrun:"
+                        "sharded_rank", 2, device="cuda", backend="gloo",
+                        kwargs=kw, timeout=300))
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    sg = by_dev["cuda"][0]
+    want_pr = sharded.pagerank_sharded_scan(sg, ec, 20).cpu().numpy()
+    want_bfs = sharded.bfs_sharded_scan(sg, 0).cpu().numpy()
+    for r in runs:
+        np.testing.assert_allclose(r["pr"], want_pr, rtol=1e-5)
+        np.testing.assert_array_equal(r["bfs"], want_bfs)
+
+
+def test_scaling_app_on_the_card(cuda, capsys):
+    """apps/scaling.py without --cpu: gloo ranks on CUDA tensors sharing
+    the card; its JSON line names the card."""
+    import json
+    from vectorgraphlibrary_tpu_torch.apps import scaling
+    assert scaling.main(["--devices", "1,2", "-s", "12", "--iters", "3"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["device"] == torch.cuda.get_device_name(0)
+    assert [r["devices"] for r in res["results"]] == [1, 2]
+    assert all(r["mteps"] > 0 for r in res["results"])

@@ -277,14 +277,31 @@ def test_run_tests_verify_on_cpu(tmp_path):
                               "coloring", "scc", "lp", "rw", "tc", "mf"]
 
 
-def test_run_tests_benchmark_on_cpu():
+def test_run_tests_benchmark_on_cpu(monkeypatch):
     """--benchmark's rows (on one scale-10 graph: the tiers' graphs are
-    what --verify runs above)."""
+    what --verify runs above): the row exists and its AVG_PERF line was
+    parsed. The app prints MTEPS with two decimals (the JAX package's
+    format), so a slow host can print 0.00: the contract is a parsed
+    number, not the host's speed. The app runs on one thread, so that
+    parallel test workers do not oversubscribe the cores."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     rows = run_tests.do_benchmark(["pr"], [("ru", 10, 8)], 300, 1,
                                   ["-dev", "cpu"])
     assert [(r["mode"], r["app"], r["graph"]) for r in rows] == [
         ("benchmark", "pr", "ru-10")]
-    assert rows[0]["mteps"] > 0
+    assert isinstance(rows[0]["mteps"], float)
+    assert rows[0]["mteps"] >= 0
+    assert rows[0]["wall_s"] > 0
+
+
+@pytest.mark.parametrize("out, want", [
+    ("AVG_PERF: 0.10 MTEPS", 0.10),
+    ("inner wall  77.72\nAVG_PERF: 0.00 MTEPS\n", 0.0),
+    ("AVG_PERF: 1234.56 MTEPS\nerror count: 0", 1234.56),
+    ("error count: 0\nno perf line", None),
+    ("", None)])
+def test_parse_avg_perf(out, want):
+    assert run_tests.parse_avg_perf(out) == want
 
 
 def test_run_tests_real_tier_lists_the_corpus(tmp_path, monkeypatch):
@@ -298,9 +315,45 @@ def test_run_tests_real_tier_lists_the_corpus(tmp_path, monkeypatch):
     assert run_tests._label(*rows[0]) == "pydeps"
 
 
-def test_run_tests_scaling_waits_for_distribution(tmp_path):
-    with pytest.raises(SystemExit, match="waits for the port of distribution"):
-        run_tests.main(["--scaling", "--out", str(tmp_path / "r")])
+def test_run_tests_scaling_on_cpu(tmp_path, monkeypatch):
+    """--scaling --cpu: apps/scaling.py's sweep over 1 and 2 gloo ranks at
+    scale 9, one exported row per rank count."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = str(tmp_path / "s" / "res")
+    rc = run_tests.main(["--scaling", "--cpu", "--devices", "1,2",
+                         "--scale", "9", "--it", "2", "--out", out])
+    assert rc == 0
+    with open(out + ".json") as f:
+        rows = json.load(f)
+    assert [(r["mode"], r["status"], r["devices"], r["scale"])
+            for r in rows] == [("scaling", "PASS", 1, 9),
+                               ("scaling", "PASS", 2, 9)]
+    assert all(r["device"] == "cpu" and r["edges"] == 2**9 * 16
+               and r["s_per_iter"] > 0 and r["efficiency"] > 0
+               for r in rows)
+    assert rows[0]["efficiency"] == 1.0
+    with open(out + ".csv") as f:
+        assert "efficiency" in f.readline()
+
+
+def test_scaling_app_json_line():
+    """apps/scaling.py --cpu --devices 1,2: its last line is the reference's
+    JSON object, with the ranks' device."""
+    r = subprocess.run([sys.executable, "-m",
+                        "vectorgraphlibrary_tpu_torch.apps.scaling", "--cpu",
+                        "--devices", "1,2", "-s", "9", "--iters", "2",
+                        "--weak"],
+                       capture_output=True, text=True, timeout=300, cwd=REPO,
+                       env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert r.returncode == 0, r.stdout + r.stderr
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert res["mode"] == "weak" and res["virtual_mesh"] is True
+    assert res["device"] == "cpu"
+    assert [(x["devices"], x["scale"], x["edges_per_device"])
+            for x in res["results"]] == [(1, 9, 2**9 * 16),
+                                         (2, 10, 2**10 * 16 // 2)]
+    assert res["results"][0]["efficiency"] == 1.0
+    assert all(x["mteps"] > 0 for x in res["results"])
 
 
 def test_ubench_prims_rows_on_cpu():

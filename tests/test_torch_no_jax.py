@@ -5,8 +5,10 @@ graph, SCC, coloring, label propagation, random walks, reachability and the
 triangle count, GraphSAGE's full and sampled training steps, the general
 advance in every graph format, compute and reduce with a frontier,
 max-flow and its app's input, saving a graph, which runs the port's own
-Beneš router, and loading it, the per-primitive profiling pass on a scale-10
-graph with and without weights, and the PageRank app with that pass)
+Beneš router, and loading it, the sharded container with its one-card
+drivers (PageRank, HITS, BFS, CC, SSSP) and its sharded save and load, the
+per-primitive profiling pass on a scale-10 graph with and without weights,
+and the PageRank app with that pass)
 neither loads the JAX package's native library nor launches a kernel."""
 import os
 import subprocess
@@ -103,6 +105,18 @@ with tempfile.TemporaryDirectory() as d:
     g2 = persistence.load_graph_from_binary_file(os.path.join(d, "g.npz"),
                                                  device="cpu")
 pr.vgl_page_rank(g2, max_iterations=2, use_convergence=False)
+from vectorgraphlibrary_tpu_torch.parallel import shard_build, sharded
+hs = []
+sg = shard_build.import_sharded(ec, 2, device="cpu", _host_out=hs)
+shard_build.estimated_shard_slots(ec, 2)
+sharded.pagerank_sharded_scan(sg, ec, 2), sharded.hits_sharded_scan(sg, 2)
+sharded.bfs_sharded_scan(sg, 0), sharded.cc_sharded_scan(sg)
+sharded.sssp_sharded_scan(sg, shard_build.shard_edge_values(ec.weights, sg,
+                                                            ec, hs), 0)
+with tempfile.TemporaryDirectory() as d:
+    persistence.save_sharded_graph(sg, os.path.join(d, "s"))
+    sg2 = persistence.load_sharded_graph(os.path.join(d, "s"), device="cpu")
+sharded.pagerank_sharded_scan(sg2, ec, 2)
 from vectorgraphlibrary_tpu_torch.runtime import prim_profile
 from vectorgraphlibrary_tpu_torch.runtime.perf_stats import PerformanceStats
 from vectorgraphlibrary_tpu_torch.apps import pr as pr_app

@@ -5,6 +5,8 @@ apps/run_tests.py; reference `apps/run_tests.py:10-177` +
   --verify     run each app with -check -it 1 over a tier of graphs, parse
                the "error count:" contract, enforce per-run wall timeouts
   --benchmark  run each app with -it N, parse "AVG_PERF: X MTEPS"
+  --scaling    the strong-scaling sweep (apps/scaling.py) over --devices
+               rank counts at scale --scale, one row per rank count
 
 Each app runs as `python -m vectorgraphlibrary_tpu_torch.apps.<app>` in its
 own process, on the card, or with --cpu on the CPU (-dev cpu). Tiers: tiny
@@ -13,9 +15,6 @@ bundled ones included; io/corpus.py). Results go to <out>.json and
 <out>.csv, by default under .cache/torch_harness/ (gitignored).
 
     python -m vectorgraphlibrary_tpu_torch.apps.run_tests --verify --cpu
-
---scaling (the JAX harness's strong-scaling sweep) needs the port of
-distribution, which is not done yet, and exits with that message.
 """
 from __future__ import annotations
 
@@ -137,6 +136,28 @@ def do_benchmark(apps, graphs, timeout, iters, extra):
     return rows
 
 
+def do_scaling(devices: str, scale: int, iters: int, cpu: bool,
+               timeout: int):
+    """apps/scaling.py's sweep (reference run_tests.py:197-203): its JSON
+    line's rows, or one row that says why there are none."""
+    out, wall, to = run_app(
+        "scaling", ["--devices", devices, "-s", str(scale), "--iters",
+                    str(iters)] + (["--cpu"] if cpu else []), timeout)
+    res = None
+    if not to and out.strip():
+        try:
+            res = json.loads(out.strip().splitlines()[-1])
+        except json.JSONDecodeError:
+            res = None
+    status = "TIMED OUT" if to else "ERROR" if res is None else "PASS"
+    print(f"scaling {devices} at scale {scale}: {status} ({wall:.1f}s)")
+    if res is None:
+        print(out[-2000:])
+        return [dict(mode="scaling", status=status, wall_s=round(wall, 1))]
+    return [dict(mode="scaling", status=status, device=res["device"],
+                 wall_s=round(wall, 1), **r) for r in res["results"]]
+
+
 def export(rows, path_base):
     os.makedirs(os.path.dirname(os.path.abspath(path_base)), exist_ok=True)
     with open(path_base + ".json", "w") as f:
@@ -153,7 +174,10 @@ def main(argv=None) -> int:
     p.add_argument("--verify", action="store_true")
     p.add_argument("--benchmark", action="store_true")
     p.add_argument("--scaling", action="store_true",
-                   help="not available: needs the port of distribution")
+                   help="strong-scaling sweep over --devices rank counts")
+    p.add_argument("--devices", default="1,2,4,8",
+                   help="--scaling's rank counts")
+    p.add_argument("--scale", type=int, default=14, help="--scaling's scale")
     p.add_argument("--tier", default="tiny", choices=list(TIERS) + ["real"])
     p.add_argument("--apps", default=None, help="comma-separated subset")
     p.add_argument("--timeout", type=int, default=DEFAULT_TIMEOUT)
@@ -165,10 +189,6 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=DEFAULT_OUT,
                    help="results go to OUT.json and OUT.csv")
     args = p.parse_args(argv)
-    if args.scaling:
-        raise SystemExit("run_tests --scaling: the strong-scaling sweep "
-                         "waits for the port of distribution (parallel/), "
-                         "which is not done yet")
     apps = args.apps.split(",") if args.apps else APPS
     graphs = (real_graph_corpus(args.real.split(",") if args.real else None)
               if args.tier == "real" else TIERS[args.tier])
@@ -180,6 +200,11 @@ def main(argv=None) -> int:
         rows += r
     if args.benchmark:
         rows += do_benchmark(apps, graphs, args.timeout, args.it, extra)
+    if args.scaling:
+        r = do_scaling(args.devices, args.scale, args.it, args.cpu,
+                       args.timeout)
+        ok &= all(row["status"] == "PASS" for row in r)
+        rows += r
     export(rows, args.out)
     print(f"results written to {args.out}.json/.csv")
     return 0 if ok else 1

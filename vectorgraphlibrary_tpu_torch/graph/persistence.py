@@ -1,6 +1,6 @@
 """Binary persistence for preprocessed graphs (port of
-vectorgraphlibrary_tpu/graph/persistence.py:1-158, without the sharded
-save/load, which comes with distribution).
+vectorgraphlibrary_tpu/graph/persistence.py: one graph per .npz file, and a
+sharded graph as one file per shard beside a meta file).
 
 The expensive import pipeline (degree sort, tiling, routes) runs once, then
 the whole device graph round-trips through one .npz file in the JAX
@@ -27,6 +27,8 @@ save/load_main_content_to_binary_file, vect_csr_graph.h:90-92):
 """
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import torch
 
@@ -37,8 +39,8 @@ from ..ops.route_words import (build_word_masks, split_levels,
                                unpack_word_masks, word_flags)
 from .device import DeviceDirectedGraph, TileBucket, VGLGraph, huge_tile
 
-# the value of the "format" key: the only format the port builds
-FORMAT = GraphFormat.TILE_CSR.value
+# the values of the "format" key that the port builds: a graph, a shard
+FORMATS = (GraphFormat.TILE_CSR.value, GraphFormat.SHARDED_CSR.value)
 _VROUTES = (("vroute", "vertex_route_s_from_g"),
             ("vroute_so", "vertex_route_s_from_o"),
             ("vroute_go", "vertex_route_g_from_o"))
@@ -52,13 +54,19 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _pack_directed(prefix: str, dg: DeviceDirectedGraph, out: dict) -> None:
+def _pack_directed(prefix: str, dg: DeviceDirectedGraph, out: dict,
+                   sharded: bool) -> None:
+    """A shard's meta holds e_pad as its edge count, as the JAX package's
+    does (its shards stack only with one count); the CSR's own count is
+    row_ptr[-1]."""
     out[f"{prefix}.row_ptr"] = _np(dg.row_ptr)
     out[f"{prefix}.col_idx"] = _np(dg.col_idx)
     out[f"{prefix}.degrees"] = _np(dg.degrees)
     out[f"{prefix}.sorted_to_orig"] = _np(dg.sorted_to_orig)
     out[f"{prefix}.orig_to_sorted"] = _np(dg.orig_to_sorted)
-    out[f"{prefix}.meta"] = np.asarray([dg.v, dg.v_pad, dg.e, dg.e_pad,
+    out[f"{prefix}.meta"] = np.asarray([dg.v, dg.v_pad,
+                                        dg.e_pad if sharded else dg.e,
+                                        dg.e_pad,
                                         len(dg.buckets),
                                         1 if dg.huge is not None else 0])
     for i, b in enumerate(dg.buckets):
@@ -85,6 +93,10 @@ def _i32(z, key: str, device) -> torch.Tensor:
 
 def _unpack_directed(prefix: str, z, device) -> DeviceDirectedGraph:
     v, v_pad, e, e_pad, nb, has_huge = z[f"{prefix}.meta"].tolist()
+    # the port's e is the CSR's edge count (a shard's meta holds e_pad)
+    e_csr = int(z[f"{prefix}.row_ptr"][-1])
+    if e not in (e_csr, e_pad):
+        raise ValueError(f"{prefix}.meta: {e} edges; its CSR holds {e_csr}")
     buckets = []
     for i in range(nb):
         w, rs, r, rp = z[f"{prefix}.b{i}.meta"].tolist()
@@ -105,7 +117,8 @@ def _unpack_directed(prefix: str, z, device) -> DeviceDirectedGraph:
         degrees=_i32(z, f"{prefix}.degrees", device),
         sorted_to_orig=_i32(z, f"{prefix}.sorted_to_orig", device),
         orig_to_sorted=_i32(z, f"{prefix}.orig_to_sorted", device),
-        buckets=tuple(buckets), huge=huge, v=v, v_pad=v_pad, e=e, e_pad=e_pad)
+        buckets=tuple(buckets), huge=huge, v=v, v_pad=v_pad, e=e_csr,
+        e_pad=e_pad)
 
 
 def _pack_route(prefix: str, plan: RoutePlan, out: dict) -> None:
@@ -175,19 +188,25 @@ def _unpack_route(prefix: str, z, device, needs_flags: bool) -> RoutePlan:
 
 def save_graph_to_binary_file(graph: VGLGraph, path: str,
                               compressed: bool = True) -> None:
-    """Write `graph` to `path` (.npz) in the JAX package's format. Raises
-    ValueError, before anything is written, for a graph imported with
-    build_route=False: the format holds the advance route."""
+    """Write `graph` (a TILE_CSR graph or a shard) to `path` (.npz) in the
+    JAX package's format. Raises ValueError, before anything is written,
+    for another format, which the loader would refuse, and for a graph
+    imported with build_route=False: the format holds the advance route."""
+    if graph.graph_format.value not in FORMATS:
+        raise ValueError(f"save_graph_to_binary_file: a graph of format "
+                         f"{graph.graph_format.value!r}; the port writes "
+                         f"{FORMATS}")
     if graph.advance_route is None:
         raise ValueError("save_graph_to_binary_file: the graph has no "
                          "advance route (imported with build_route=False); "
                          "import it with build_route=True to save it")
     out = {}
-    _pack_directed("out", graph.outgoing, out)
-    _pack_directed("in", graph.incoming, out)
+    sharded = graph.graph_format == GraphFormat.SHARDED_CSR
+    _pack_directed("out", graph.outgoing, out, sharded)
+    _pack_directed("in", graph.incoming, out, sharded)
     out["meta"] = np.asarray([graph.v, graph.v_pad, graph.e, graph.out_slots,
                               graph.in_slots])
-    out["format"] = np.asarray([FORMAT], dtype="U16")
+    out["format"] = np.asarray([graph.graph_format.value], dtype="U16")
     _pack_route("route", graph.advance_route, out)
     for prefix, attr in _VROUTES:
         _pack_route(prefix, getattr(graph, attr), out)
@@ -195,13 +214,15 @@ def save_graph_to_binary_file(graph: VGLGraph, path: str,
 
 
 def load_graph_from_binary_file(path: str, device="cuda") -> VGLGraph:
-    """Read a graph saved by either package onto `device`."""
+    """Read a graph (or one shard of a sharded graph) saved by either
+    package onto `device`. device="cpu" keeps every tensor in host memory:
+    the counterpart of the reference's as_numpy=True."""
     device = torch.device(device)
     with np.load(path) as z:
         fmt = str(z["format"][0])
-        if fmt != FORMAT:
+        if fmt not in FORMATS:
             raise ValueError(f"{path}: graph format {fmt!r}; the port reads "
-                             f"{FORMAT!r} graphs only")
+                             f"{FORMATS} graphs only")
         v, v_pad, e, out_slots, in_slots = z["meta"].tolist()
         for prefix in ("route",) + tuple(p for p, _ in _VROUTES):
             if f"{prefix}.meta" not in z:
@@ -212,4 +233,41 @@ def load_graph_from_binary_file(path: str, device="cuda") -> VGLGraph:
             advance_route=_unpack_route("route", z, device, needs_flags=True),
             **{attr: _unpack_route(prefix, z, device, needs_flags=False)
                for prefix, attr in _VROUTES},
-            v=v, v_pad=v_pad, e=e, out_slots=out_slots, in_slots=in_slots)
+            v=v, v_pad=v_pad, e=e, out_slots=out_slots, in_slots=in_slots,
+            graph_format=GraphFormat.parse(fmt))
+
+
+def save_sharded_graph(sg, path_prefix: str, compressed: bool = False) -> None:
+    """Write a ShardedTileGraph as `{prefix}.shard{s}.npz`, one
+    save_graph_to_binary_file file per shard, and `{prefix}.meta.json`
+    (n_shards, v, v_pad, e, edges_per_shard), as the JAX package does
+    (reference ShardedCSRGraph saves per-shard binaries,
+    sharded_csr_graph/*.hpp). Uncompressed by default, as there."""
+    for s in range(sg.n_shards):
+        save_graph_to_binary_file(sg.shard(s), f"{path_prefix}.shard{s}.npz",
+                                  compressed=compressed)
+    with open(f"{path_prefix}.meta.json", "w") as f:
+        json.dump({"n_shards": sg.n_shards, "v": sg.v, "v_pad": sg.v_pad,
+                   "e": sg.e,
+                   "edges_per_shard": [int(c) for c in sg.edges_per_shard]},
+                  f)
+
+
+def load_sharded_graph(path_prefix: str, device="cuda"):
+    """Read a sharded graph saved by either package onto `device`."""
+    from ..parallel.shard_build import ShardedTileGraph
+    with open(f"{path_prefix}.meta.json") as f:
+        meta = json.load(f)
+    shards = tuple(load_graph_from_binary_file(f"{path_prefix}.shard{s}.npz",
+                                               device=device)
+                   for s in range(meta["n_shards"]))
+    for s, g in enumerate(shards):
+        if (g.v, g.v_pad) != (meta["v"], meta["v_pad"]):
+            raise ValueError(f"{path_prefix}.shard{s}.npz: v, v_pad = "
+                             f"{g.v}, {g.v_pad}; the meta file says "
+                             f"{meta['v']}, {meta['v_pad']}")
+    return ShardedTileGraph(
+        shards=shards,
+        edges_per_shard=tuple(int(c) for c in meta["edges_per_shard"]),
+        n_shards=meta["n_shards"], v=meta["v"], v_pad=meta["v_pad"],
+        e=meta["e"])

@@ -1,0 +1,257 @@
+"""Sharded flagship container: destination-partitioned TILE_CSR (port of
+vectorgraphlibrary_tpu/parallel/shard_build.py).
+
+Each shard owns the destinations d with d % S == s and holds their in-edges
+as a full tiled and routed subgraph over the whole vertex space, so the
+single-card advance runs on every shard unchanged. Every shard is built
+against the unified TileLayout (graph/build.layout_of, unify_layouts): the
+elementwise max of the shards' natural layouts. The reference needs that to
+stack the shards into one pytree; here the shards stay a list, and the
+unified layout gives every shard file the reference's shapes, so the two
+packages read each other's sharded graphs (graph/persistence.py). A
+shard's VGLGraph.e is e_pad, as in the reference, and each direction's e
+stays its CSR's edge count, as the port's general advance reads it; the
+reference stores e_pad there too, and the shard files do (persistence).
+
+Execution chooses between one rank per shard (sharded.make_*_sharded,
+merged by an all-reduce) and a loop over the shards on one card
+(sharded.*_sharded_scan), whose peak working set is one shard's pull.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import VGLConfig, DEFAULT_CONFIG, GraphFormat
+from ..graph.build import (HostDirectedCSR, build_directed_csr, layout_of,
+                           unify_layouts)
+from ..graph.device import VGLGraph, _to_device_directed
+from ..graph.edges import EdgeArray, build_edge_array_from_host
+from ..graph.route_build import build_advance_route
+from ..io.edges_container import EdgesContainer
+from ..ops.route import make_route_plan
+
+
+def _next_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << int(np.ceil(np.log2(x)))
+
+
+def _complete_perm(partial: np.ndarray) -> np.ndarray:
+    """Fill the -1 entries of a partial permutation bijectively with the
+    unused values."""
+    n = len(partial)
+    used = np.zeros(n, bool)
+    used[partial[partial >= 0]] = True
+    out = partial.copy()
+    holes = np.flatnonzero(partial < 0)
+    out[holes] = np.flatnonzero(~used)[:len(holes)]
+    return out
+
+
+def _vertex_perm(h_left: HostDirectedCSR, h_right: HostDirectedCSR,
+                 v: int, v_pad: int) -> np.ndarray:
+    """perm with left_vals[i] = right_vals[perm[i]] for real vertices; gaps
+    completed bijectively (their values are never read: masked rows)."""
+    p = np.full(v_pad, -1, np.int64)
+    real = h_left.sorted_to_orig < v
+    p[real] = h_right.orig_to_sorted[h_left.sorted_to_orig[real]]
+    return _complete_perm(p)
+
+
+def _from_orig_perm(h: HostDirectedCSR, v: int) -> np.ndarray:
+    """sorted_vals[i] = orig_vals[perm[i]]; gap rows completed bijectively."""
+    return _complete_perm(np.where(h.sorted_to_orig < v, h.sorted_to_orig,
+                                   -1).astype(np.int64))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedTileGraph:
+    """S TILE_CSR shards with one layout, and the edges of each shard."""
+
+    shards: Tuple[VGLGraph, ...]
+    edges_per_shard: Tuple[int, ...]
+    n_shards: int = 1
+    v: int = 0
+    v_pad: int = 0
+    e: int = 0
+
+    def shard(self, s: int) -> VGLGraph:
+        """Shard s. (The reference's take_shard strips the leading axis of
+        a stacked pytree inside shard_map; the shards here are not stacked,
+        so it has no counterpart.)"""
+        return self.shards[s]
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    def derived(self, key, build):
+        """A device structure derived from this graph (such as PageRank's
+        degree constants), made by build() at the first call with `key`
+        and kept with the graph. It is no field: graphs compare, save and
+        load without it."""
+        cache = self.__dict__.setdefault("_derived", {})
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class _ShardPlan:
+    """What every shard's build shares: the partition and the unified
+    layouts and paddings (reference shard_build.py:102-117)."""
+
+    n_shards: int
+    shard_id: np.ndarray          # int [e]: dst % n_shards
+    edges_per_shard: Tuple[int, ...]
+    layout_out: object
+    layout_in: object
+    v_pad: int
+    e_pad: int
+
+
+def _plan_shards(ec: EdgesContainer, n_shards: int,
+                 cfg: VGLConfig = DEFAULT_CONFIG) -> _ShardPlan:
+    """Partition by destination modulo S (a contiguous range would put the
+    power-law hubs of low ids in shard 0, and the unified layout would then
+    size every shard like shard 0) and unify the shards' natural layouts.
+    Host only: one degree count per shard and direction."""
+    v = ec.vertices_count
+    shard_id = ec.dst_ids % n_shards
+    louts, lins, counts = [], [], []
+    for s in range(n_shards):
+        m = shard_id == s
+        louts.append(layout_of(np.bincount(ec.src_ids[m], minlength=v), cfg))
+        lins.append(layout_of(np.bincount(ec.dst_ids[m], minlength=v), cfg))
+        counts.append(int(np.count_nonzero(m)))
+    l_out, l_in = unify_layouts(louts), unify_layouts(lins)
+    v_pad = max(_next_pow2(max(l_out.total_rows, l_in.total_rows, v)), 1024)
+    e_pad = max(8 * ((max(counts) + 7) // 8), 8)
+    return _ShardPlan(n_shards=n_shards, shard_id=shard_id,
+                     edges_per_shard=tuple(counts), layout_out=l_out,
+                     layout_in=l_in, v_pad=v_pad, e_pad=e_pad)
+
+
+def _pad_edges(h: HostDirectedCSR, e_pad: int) -> None:
+    """Grow a shard's edge arrays to the unified e_pad."""
+    if h.edges_pad == e_pad:
+        return
+    assert e_pad > h.edges_pad
+    grow = e_pad - h.edges_pad
+    h.col_idx = np.concatenate(
+        [h.col_idx, np.full(grow, h.vertices_pad, np.int32)])
+    h.edge_perm = np.concatenate(
+        [h.edge_perm, np.full(grow, e_pad, np.int64)])
+    h.edges_pad = e_pad
+
+
+def _build_shard(ec: EdgesContainer, plan: _ShardPlan, s: int,
+                 cfg: VGLConfig, device) -> Tuple[VGLGraph, tuple]:
+    """Shard s on `device` and its two host CSRs."""
+    v = ec.vertices_count
+    m = plan.shard_id == s
+    src, dst = ec.src_ids[m], ec.dst_ids[m]
+    h_out = build_directed_csr(src, dst, v, cfg, layout=plan.layout_out,
+                               v_pad=plan.v_pad)
+    h_in = build_directed_csr(dst, src, v, cfg, layout=plan.layout_in,
+                              v_pad=plan.v_pad)
+    _pad_edges(h_out, plan.e_pad)
+    _pad_edges(h_in, plan.e_pad)
+    route, out_slots, in_slots = build_advance_route(
+        h_out, h_in, selfloop_edges=src == dst, device=device)
+    g = VGLGraph(
+        outgoing=_to_device_directed(h_out, device),
+        incoming=_to_device_directed(h_in, device),
+        advance_route=route,
+        vertex_route_s_from_g=make_route_plan(
+            _vertex_perm(h_out, h_in, v, plan.v_pad), device=device),
+        vertex_route_s_from_o=make_route_plan(_from_orig_perm(h_out, v),
+                                              device=device),
+        vertex_route_g_from_o=make_route_plan(_from_orig_perm(h_in, v),
+                                              device=device),
+        v=v, v_pad=plan.v_pad, e=plan.e_pad, out_slots=out_slots,
+        in_slots=in_slots, graph_format=GraphFormat.SHARDED_CSR)
+    return g, (h_out, h_in)
+
+
+def import_shard(ec: EdgesContainer, n_shards: int, s: int,
+                 cfg: VGLConfig = DEFAULT_CONFIG, device="cuda",
+                 _host_out: Optional[list] = None,
+                 keep_edge_slots: Optional[bool] = None) -> VGLGraph:
+    """Shard s of import_sharded(ec, n_shards) alone, built against the
+    same unified layouts, so that each rank builds only its own. _host_out
+    receives (h_out, h_in). keep_edge_slots is taken for the reference's
+    signature and stores nothing (graph/device.import_graph says why)."""
+    del keep_edge_slots
+    g, hosts = _build_shard(ec, _plan_shards(ec, n_shards, cfg), s, cfg,
+                            torch.device(device))
+    if _host_out is not None:
+        _host_out.append(hosts)
+    return g
+
+
+def import_sharded(ec: EdgesContainer, n_shards: int,
+                   cfg: VGLConfig = DEFAULT_CONFIG, device="cuda",
+                   _host_out: Optional[list] = None,
+                   keep_edge_slots: Optional[bool] = None
+                   ) -> ShardedTileGraph:
+    """Partition COO by destination, build every shard against the unified
+    layouts. _host_out receives [(h_out, h_in), ...] per shard, which
+    shard_edge_values needs to lay out edge values. keep_edge_slots as in
+    import_shard."""
+    del keep_edge_slots
+    device = torch.device(device)
+    plan = _plan_shards(ec, n_shards, cfg)
+    shards = []
+    for s in range(n_shards):
+        g, hosts = _build_shard(ec, plan, s, cfg, device)
+        shards.append(g)
+        if _host_out is not None:
+            _host_out.append(hosts)
+    return ShardedTileGraph(shards=tuple(shards),
+                            edges_per_shard=plan.edges_per_shard,
+                            n_shards=n_shards, v=ec.vertices_count,
+                            v_pad=plan.v_pad, e=ec.edges_count)
+
+
+def estimated_shard_slots(ec: EdgesContainer, n_shards: int,
+                          cfg: VGLConfig = DEFAULT_CONFIG) -> int:
+    """Max per-shard route size n (pow2 slot count) WITHOUT building anything:
+    pick n_shards so this stays within the card's memory before paying the
+    route build (the reference keeps it at or under 2^28)."""
+    v = ec.vertices_count
+    shard_id = ec.dst_ids % n_shards
+    worst = 0
+    for s in range(n_shards):
+        m = shard_id == s
+        for deg in (np.bincount(ec.src_ids[m], minlength=v),
+                    np.bincount(ec.dst_ids[m], minlength=v)):
+            lay = layout_of(deg, cfg)
+            slots = (lay.huge_chunks_pad * lay.huge_chunk_w
+                     + sum(w * rp for w, rp in lay.buckets))
+            worst = max(worst, _next_pow2(max(slots, 256)))
+    return worst
+
+
+def shard_edge_values(coo_values: np.ndarray, sg: ShardedTileGraph,
+                      ec: EdgesContainer, hosts: List[Tuple],
+                      pad_value=0) -> List[EdgeArray]:
+    """Per-shard EdgeArrays for COO-ordered edge values, in each shard's
+    CSR slot order (graph/edges.EdgeArray.flat), laid out from the host
+    CSRs import_sharded(_host_out=hosts) gave."""
+    return [edge_values_of_shard(coo_values, ec, sg.n_shards, s,
+                                 sg.shard(s), hosts[s], pad_value)
+            for s in range(sg.n_shards)]
+
+
+def edge_values_of_shard(coo_values: np.ndarray, ec: EdgesContainer,
+                         n_shards: int, s: int, graph: VGLGraph, hosts,
+                         pad_value=0) -> EdgeArray:
+    """Shard s's EdgeArray (one rank's part of shard_edge_values); hosts:
+    the shard's (h_out, h_in)."""
+    m = ec.dst_ids % n_shards == s
+    return build_edge_array_from_host(np.asarray(coo_values)[m], graph,
+                                      hosts[0], hosts[1], pad_value=pad_value)
