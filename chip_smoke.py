@@ -183,6 +183,30 @@ result line):
    phase. (c) save_sharded_graph of the RMAT-18 graph in 4 shards and
    load_sharded_graph on the card (8 lane_shuffle launches per shard), every
    shard equal to the fresh one and pagerank_sharded_scan on it bit-equal.
+17. slice: distribution part 2 on one card. (a) On phase 16's RMAT-20
+   shards: msbfs_sharded_scan from 32 roots equal to vgl_msbfs,
+   cc_hybrid_sharded_scan from the largest out-degree vertex in phase 10's
+   partition; the shards slim (slim_value_pull): their device bytes beside
+   the full shards', PageRank, BFS and CC on them bit-equal to the full
+   shards'; sssp_sharded_scan_hash partial and all-active bit-equal to each
+   other and error count 0 against a host Dijkstra on the hashed weights;
+   each call's launches equal to the code's counts (S pulls and 2S routes
+   per MS-BFS, BFS level and PageRank iteration, 2S and 4S per CC hybrid
+   flood level or hook and CC iteration, S and 3S per partial sweep), ms
+   (median of 3 by DeviceTimer), MTEPS and peak memory. (b) coloring,
+   partial SSSP, DO-BFS, MS-BFS and CC hybrid on 2 gloo ranks sharing the
+   card (RMAT-16) and on a one-rank NCCL group (RMAT-20), equal to the
+   one-card results, the colorings valid, every run's launches as the code
+   counts them; the sharded GraphSAGE at (100, 256, 47): loss within rtol
+   1e-4 and gradients within rtol 1e-4 and atol 1e-6 of the largest entry
+   of the unsharded step's, 2 pull_rows launches in the forward and 3 in
+   each of 3 Adam steps, whose loss falls, with their ms. (c) phase 16's
+   RMAT-18 files and their hashed weights (save_sharded_weights) streamed
+   from pinned host memory (load_streamed): PageRank, HITS, MS-BFS, CC
+   hybrid and SSSP equal to the resident scans (PageRank and HITS within
+   rtol 1e-5), S pulls and 2S routes per sweep (2S and 4S for CC), at most
+   two shards resident and the peak memory under two shards with weights
+   plus the resident scan's state; the copy's GB/s and each sweep's ms.
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
@@ -191,7 +215,7 @@ none) and its bound (bound_ms: the bytes it must move at the H100's 3.35
 TB/s, or for and_popcount the larger of that and its operations at 67
 TOP/s) at the main path's shapes, "rates", phase 12's and 14's MTEPS,
 "prim_tables", phase 15's per-primitive tables, "autotuner_picks", and
-"sharded", phase 16's numbers.
+"sharded", phase 16's numbers, and "part2", phase 17's.
 The last line is {"ok": true, "device":
 {...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
 PageRank run, one DO-BFS root, one all-active SSSP run and one HITS call to
@@ -2782,7 +2806,7 @@ def _sharded_rank(rank: int, world: int, device, coo: str, root: int,
 
 
 def phase_sharded(kernels: dict, ec, graph, ea, bfs_root: int, root_levels,
-                  fixed: dict, ec18, smi: str) -> dict:
+                  fixed: dict, ec18, smi: str, keep_dir: str) -> dict:
     """Distribution on one card. (a) import_sharded of the weighted
     RMAT-20 graph in SHARDS shards and the one-card runners (PageRank,
     BFS, SSSP, CC, HITS), each equal to the unsharded entry points'
@@ -2796,7 +2820,9 @@ def phase_sharded(kernels: dict, ec, graph, ea, bfs_root: int, root_levels,
     shards, PageRank on the loaded graph bit-equal to the fresh one's. The
     reference PageRank, (a)'s import and (c) run on this process while
     (b)'s ranks run; (a)'s calls are counted and timed after they end.
-    Returns the launches on each path and the numbers printed."""
+    Returns the launches on each path, the numbers printed and, for phase
+    17, (a)'s sharded graph, weights and host CSRs, and (c)'s loaded graph
+    and its files' prefix (under keep_dir)."""
     from concurrent.futures import ThreadPoolExecutor
     from vectorgraphlibrary_tpu_torch.graph.persistence import (
         load_sharded_graph, save_sharded_graph)
@@ -2810,6 +2836,7 @@ def phase_sharded(kernels: dict, ec, graph, ea, bfs_root: int, root_levels,
     launches = {p: dict.fromkeys(kernels, 0) for p in PATHS16}
     v, e = graph.v, graph.e
     numbers = {}
+    kept = {}
 
     def close(label, got, want, hits=False):
         atol = 1e-6 * float(np.abs(want).max()) if hits else 0.0
@@ -2845,6 +2872,7 @@ def phase_sharded(kernels: dict, ec, graph, ea, bfs_root: int, root_levels,
         sg = shard_build.import_sharded(ec, SHARDS, device=DEVICE,
                                         _host_out=hosts)
         weights = shard_build.shard_edge_values(ec.weights, sg, ec, hosts)
+        kept.update(hosts=hosts)
         torch.cuda.synchronize()
         numbers["import_sharded_s"] = time.perf_counter() - t0
         numbers["sharded_graph_mib"] = _nbytes(sg.shards) / 2**20
@@ -2866,22 +2894,23 @@ def phase_sharded(kernels: dict, ec, graph, ea, bfs_root: int, root_levels,
         ls = kernels["lane_shuffle"]
         sg18 = shard_build.import_sharded(ec18, SHARDS, device=DEVICE)
         fresh = sharded.pagerank_sharded_scan(sg18, ec18, ITERS)
-        with tempfile.TemporaryDirectory() as d:
-            prefix = os.path.join(d, f"rmat{SCALE}")
-            t0 = time.perf_counter()
-            save_sharded_graph(sg18, prefix)
-            numbers["save_s"] = time.perf_counter() - t0
-            size = sum(os.path.getsize(os.path.join(d, f))
-                       for f in os.listdir(d))
-            for k in kernels.values():
-                k.launches = 0
-            t0 = time.perf_counter()
-            loaded = load_sharded_graph(prefix, device=DEVICE)
-            torch.cuda.synchronize()
-            numbers["load_s"] = time.perf_counter() - t0
-            n_ls = ls.launches
-            ranks = sharded.pagerank_sharded_scan(loaded, ec18, ITERS)
-            torch.cuda.synchronize()
+        prefix = os.path.join(keep_dir, f"rmat{SCALE}")
+        t0 = time.perf_counter()
+        save_sharded_graph(sg18, prefix)
+        numbers["save_s"] = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(keep_dir, f))
+                   for f in os.listdir(keep_dir) if f.startswith(
+                       f"rmat{SCALE}."))
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        loaded = load_sharded_graph(prefix, device=DEVICE)
+        torch.cuda.synchronize()
+        numbers["load_s"] = time.perf_counter() - t0
+        n_ls = ls.launches
+        ranks = sharded.pagerank_sharded_scan(loaded, ec18, ITERS)
+        torch.cuda.synchronize()
+        kept.update(loaded18=loaded, prefix18=prefix)
         n = {name: k.launches for name, k in kernels.items()}
         launches[PATHS16[2]] = n
         print(f"  save_sharded_graph RMAT-{SCALE} in {SHARDS} shards: "
@@ -2999,7 +3028,7 @@ def phase_sharded(kernels: dict, ec, graph, ea, bfs_root: int, root_levels,
               f"{', '.join(f'{t * 1e3:.3f}' for t in ts)}), "
               f"{numbers[label]['mteps']:.1f} MTEPS, peak {peak:.1f} MiB "
               f"on {smi}")
-    del sg, weights
+    kept.update(sg=sg, weights=weights)
 
     names = [str(x) for x in gloo[0]["kernel_names"]]
     max_level = int(root_levels.max())
@@ -3036,6 +3065,644 @@ def phase_sharded(kernels: dict, ec, graph, ea, bfs_root: int, root_levels,
           f"and built its shard) beside this process's reference PageRank, "
           f"import and save and load: {numbers['ranks_wall_s']:.2f} s")
 
+    return dict(launches=launches, numbers=numbers, kept=kept)
+
+
+PATHS17 = (f"part2_scan_rmat{BFS_SCALE}", f"part2_ranks_rmat{BFS_SCALE}",
+           f"streamed_rmat{SCALE}")
+GLOO_SCALE = 16            # phase 17 (b): the gloo ranks' graph
+STREAM_ITERS = 20          # phase 17 (c): PageRank iterations (HITS: half)
+SAGE_PARAMS = ("w_self1", "w_nbr1", "b1", "w_self2", "w_nbr2", "b2")
+
+
+def _sage_setup(v_pad: int, v: int, device) -> tuple:
+    """GraphSAGE's parameters at (SAGE_IN, SAGE_HIDDEN, SAGE_CLASSES) and
+    its inputs in ORIGINAL order (features, labels, a mask of half the real
+    vertices; zeros on the padding), from a generator seeded with SEED on
+    `device`: the same numbers in every process on the card."""
+    from vectorgraphlibrary_tpu_torch.models import gnn
+    gen = torch.Generator(device).manual_seed(SEED)
+    params = gnn.init_sage(gen, SAGE_IN, SAGE_HIDDEN, SAGE_CLASSES)
+    pad = v_pad - v         # drawn for the v real vertices: any v_pad
+    feats = torch.nn.functional.pad(torch.randn(
+        (v, SAGE_IN), generator=gen, device=device), (0, 0, 0, pad))
+    labels = torch.nn.functional.pad(torch.randint(
+        0, SAGE_CLASSES, (v,), generator=gen, device=device,
+        dtype=torch.int32), (0, pad))
+    mask = torch.nn.functional.pad(
+        torch.rand(v, generator=gen, device=device) < 0.5, (0, pad))
+    return params, feats, labels, mask
+
+
+def _sage_unsharded(graph) -> tuple:
+    """The unsharded models/gnn loss and gradients on _sage_setup's
+    inputs, brought into the graph's GATHER ordering."""
+    from vectorgraphlibrary_tpu_torch.models import gnn
+    params, feats, labels, mask = _sage_setup(graph.v_pad, graph.v,
+                                              graph.device)
+    idx = graph.vertex_route_g_from_o.fwd_idx.long()
+    loss = gnn.sage_loss(params, graph, feats[idx], labels[idx], mask[idx])
+    loss.backward()
+    return float(loss.detach()), {k: getattr(params, k).grad.cpu().numpy()
+                                  for k in SAGE_PARAMS}
+
+
+def _part2_rank(rank: int, world: int, device, coo: str, source: int,
+                root: int, hub: int, roots: list, sage: bool) -> dict:
+    """One rank of phase 17 (b), spawned by parallel/launch.run_ranks: its
+    own shard of the weighted COO graph in `coo`, then the rank drivers of
+    distribution part 2 (coloring, partial SSSP from `source`, DO-BFS from
+    `root`, MS-BFS from `roots`, CC hybrid from `hub`), each with the
+    launches of every kernel set to 0 just before it and read just after,
+    and its time by DeviceTimer (the first call). With `sage`, the sharded
+    GraphSAGE loss and gradients on _sage_setup's inputs, then 3 Adam steps
+    (SAGE_LR), each counted and timed."""
+    from vectorgraphlibrary_tpu_torch.io.edges_container import (
+        EdgesContainer)
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    from vectorgraphlibrary_tpu_torch.parallel.mesh import make_mesh
+    from vectorgraphlibrary_tpu_torch.parallel.shard_build import (
+        edge_values_of_shard, import_shard)
+    from vectorgraphlibrary_tpu_torch.runtime.timer import DeviceTimer
+    kernels = _kernels()
+    with np.load(coo) as z:
+        ec = EdgesContainer(z["src"], z["dst"], int(z["v"]), z["w"])
+    t0 = time.perf_counter()
+    hosts = []
+    g = import_shard(ec, world, rank, device=device, _host_out=hosts)
+    w = edge_values_of_shard(ec.weights, ec, world, rank, g, hosts[0])
+    out = dict(import_s=time.perf_counter() - t0)
+    mesh = make_mesh(world, 1, device)
+
+    def counted(name, fn):
+        for k in kernels.values():
+            k.launches = 0
+        timer = DeviceTimer(device).start()
+        res = fn()
+        out[f"{name}_ms"] = timer.stop(res) * 1e3
+        out[f"{name}_launches"] = np.asarray([k.launches
+                                              for k in kernels.values()])
+        return res
+    # each driver made first (make_bfs_do_sharded routes and all-reduces
+    # the out-degrees there), then its call counted
+    run = sharded.make_coloring_sharded(g, mesh)
+    out["coloring"] = counted("coloring", run).cpu().numpy()
+    run = sharded.make_sssp_sharded_partial(g, mesh, w)
+    out["sssp_partial"] = counted("sssp_partial",
+                                  lambda: run(source)).cpu().numpy()
+    run = sharded.make_bfs_do_sharded(g, mesh)
+    out["bfs_do"] = counted("bfs_do", lambda: run(root)).cpu().numpy()
+    run = sharded.make_msbfs_sharded(g, mesh)
+    out["msbfs"] = counted("msbfs", lambda: run(roots)).cpu().numpy()
+    run = sharded.make_cc_hybrid_sharded(g, mesh)
+    labels, flood, hooks = counted("cc_hybrid", lambda: run(hub))
+    out.update(cc_hybrid=labels.cpu().numpy(),
+               cc_hybrid_counts=np.asarray([flood, hooks]))
+    if sage:
+        params, feats, cls, mask = _sage_setup(g.v_pad, g.v, device)
+        loss_fn = sharded.make_sage_loss_sharded(g, mesh)
+        loss = counted("sage_grad", lambda: loss_fn(params, feats, cls, mask))
+        loss.backward()
+        out["sage_loss"] = float(loss.detach())
+        out.update({f"grad_{k}": getattr(params, k).grad.cpu().numpy()
+                    for k in SAGE_PARAMS})
+        step = sharded.make_sage_train_step_sharded(
+            g, mesh, torch.optim.Adam(params.parameters(), lr=SAGE_LR))
+        losses = []
+        for i in range(3):
+            losses.append(float(counted(f"sage_step{i}", lambda: step(
+                params, feats, cls, mask))))
+        out["sage_losses"] = np.asarray(losses)
+    out["kernel_names"] = np.asarray(list(kernels))
+    return out
+
+
+def _do_bfs_top_down(levels: np.ndarray, ec, alpha: float = 15.0,
+                     beta: float = 18.0, id_cap: int = 1 << 12,
+                     edge_cap: int = 1 << 16) -> int:
+    """The levels that make_bfs_do_sharded (at its defaults) sends
+    top-down, replayed on the host: its Beamer test, level by level, on
+    the global out-degrees and edge count of ec, with each level's
+    frontier read from `levels` ([v_pad] ORIGINAL, source 1, -1 unvisited;
+    held elsewhere to the unsharded BFS's)."""
+    f32 = np.float32
+    v = ec.vertices_count
+    id_cap = min(id_cap, len(levels))
+    lv = np.asarray(levels[:v])
+    outdeg = np.bincount(ec.src_ids, minlength=v).astype(np.int64)
+    size, nbrs = 1, int(outdeg[lv == 1].sum())
+    cur, unexplored, td = 1, min(len(ec.src_ids), 2**31 - 1), 0
+    while size > 0:
+        td += bool(((f32(nbrs) < f32(unexplored) / f32(alpha))
+                    or (f32(size) * f32(beta) < f32(v)))
+                   and size < id_cap and nbrs < edge_cap)
+        newly = lv == cur + 1
+        size, nbrs = int(newly.sum()), int(outdeg[newly].sum())
+        cur, unexplored = cur + 1, max(unexplored - nbrs, 0)
+    return td
+
+
+def _coloring_valid(ec, colors: np.ndarray) -> bool:
+    nonloop = ec.src_ids != ec.dst_ids
+    return bool((colors >= 0).all() and (colors[ec.src_ids[nonloop]]
+                                         != colors[ec.dst_ids[nonloop]]).all())
+
+
+def _msbfs_edges(ec, levels: np.ndarray) -> int:
+    """Edges the roots of an MS-BFS traversed: the out-degrees of the
+    vertices each reached."""
+    outdeg = np.bincount(ec.src_ids, minlength=ec.vertices_count)
+    return int(((levels[:, :ec.vertices_count] > 0) * outdeg).sum())
+
+
+def phase_part2(kernels: dict, ec, graph, bfs_root: int, root_levels,
+                fixed: dict, ec18, p16: dict, smi: str) -> dict:
+    """Distribution part 2 on one card. (a) On phase 16's weighted RMAT-20
+    shards: msbfs_sharded_scan from 32 roots equal to vgl_msbfs,
+    cc_hybrid_sharded_scan from the largest out-degree vertex in phase
+    10's partition; the same shards slim (slim_value_pull): their device
+    bytes against the full shards', PageRank, BFS and CC on them bit-equal
+    to the full shards'; sssp_sharded_scan_hash partial and all-active on
+    them, equal to each other and to a host Dijkstra on the hashed
+    weights; each with its launches against the counts the code predicts,
+    its time (median of 3 by DeviceTimer) and MTEPS. (b) The five rank
+    drivers on 2 gloo ranks sharing the card (RMAT-GLOO_SCALE) and on a
+    one-rank NCCL group (RMAT-20), equal to the one-card results, the
+    coloring valid; the sharded GraphSAGE at ogbn-products' widths: on
+    the NCCL rank its loss and gradients equal the unsharded step's, with
+    3 pull_rows launches and the ms of each Adam step; on the gloo ranks
+    its gradients equal the unsharded ones. (c) Streaming phase 16's saved
+    RMAT-18 shards and their hashed weights (save_sharded_weights) from
+    pinned host memory: the five streamed algorithms equal the resident
+    scans; host-to-device GB/s, each sweep's ms and the peak device memory
+    against two shards and the state. Returns the launches on each path
+    and the numbers printed."""
+    from concurrent.futures import ThreadPoolExecutor
+    from vectorgraphlibrary_tpu_torch.config import TraversalDirection
+    from vectorgraphlibrary_tpu_torch.graph.device import import_graph
+    from vectorgraphlibrary_tpu_torch.graph.persistence import (
+        load_sharded_weights, save_sharded_weights)
+    from vectorgraphlibrary_tpu_torch.io import generation
+    from vectorgraphlibrary_tpu_torch.models import bfs, cc, common, sssp
+    from vectorgraphlibrary_tpu_torch.parallel import shard_build, sharded
+    from vectorgraphlibrary_tpu_torch.parallel import streaming
+    from vectorgraphlibrary_tpu_torch.parallel.launch import run_ranks
+    from vectorgraphlibrary_tpu_torch.runtime.timer import DeviceTimer
+    from vectorgraphlibrary_tpu_torch.utils.verify import (
+        equal_components, verify_results)
+    launches = {p: dict.fromkeys(kernels, 0) for p in PATHS17}
+    numbers = {}
+    kept = p16["kept"]
+    sg, hosts = kept["sg"], kept["hosts"]
+    v, e, S = graph.v, graph.e, SHARDS
+    res = fixed
+    outdeg = np.bincount(ec.src_ids, minlength=v)
+    hub = int(np.argmax(outdeg))
+    rng = np.random.default_rng(SEED)
+    roots = [int(r) for r in rng.choice(np.flatnonzero(outdeg), 32,
+                                        replace=False)]
+
+    def equal(label, got, want):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{label}: differs from the one-card result")
+
+    def count_check(label, n, want_counts):
+        want = dict.fromkeys(kernels, 0)
+        want.update(want_counts)
+        if n != want:
+            raise AssertionError(f"{label}: launches {n}, expected {want}")
+
+    def coloring_rounds(g):
+        """coloring_sharded_scan's colors and its round count: each round
+        pulls (2 + 4 words) values over both directions of every shard."""
+        kernels["pull_reduce"].launches = 0
+        colors = sharded.coloring_sharded_scan(g).cpu().numpy()
+        return colors, kernels["pull_reduce"].launches // (12 * g.n_shards)
+
+    # (b) starts first: the ranks build their shards while this process
+    # works; (a)'s and (c)'s calls are timed after they end
+    ec16 = generation.rmat(GLOO_SCALE, BFS_DEGREE, seed=SEED, weighted=True)
+    out16 = np.bincount(ec16.src_ids, minlength=ec16.vertices_count)
+    gloo_kw = dict(source=common.select_random_source(ec16, seed=1),
+                   root=common.select_random_source(ec16, seed=2),
+                   hub=int(np.argmax(out16)),
+                   roots=[common.select_random_source(ec16, seed=s)
+                          for s in range(32)], sage=True)
+    nccl_kw = dict(source=int(res["sssp_source"]), root=int(bfs_root),
+                   hub=hub, roots=roots, sage=True)
+    with tempfile.TemporaryDirectory() as d:
+        coo20, coo16 = os.path.join(d, "coo20.npz"), os.path.join(d,
+                                                                  "coo16.npz")
+        for path, c in ((coo20, ec), (coo16, ec16)):
+            np.savez(path, src=c.src_ids, dst=c.dst_ids,
+                     v=np.int64(c.vertices_count), w=c.weights)
+        t0 = time.perf_counter()
+        fn = "chip_smoke:_part2_rank"
+        with ThreadPoolExecutor(2) as pool:
+            gloo = pool.submit(run_ranks, fn, RANK_SHARDS, device=DEVICE,
+                               backend="gloo", timeout=600,
+                               kwargs=dict(coo=coo16, **gloo_kw))
+            nccl = pool.submit(run_ranks, fn, 1, device=DEVICE, timeout=600,
+                               kwargs=dict(coo=coo20, **nccl_kw))
+            # the one-card references while the ranks run
+            hs16 = []
+            sg16 = shard_build.import_sharded(ec16, RANK_SHARDS,
+                                              device=DEVICE, _host_out=hs16)
+            w16 = shard_build.shard_edge_values(ec16.weights, sg16, ec16,
+                                                hs16)
+            lab16, fl16, hk16 = sharded.cc_hybrid_sharded_scan(
+                sg16, gloo_kw["hub"])
+            color16, rounds16 = coloring_rounds(sg16)
+            dist16, sweeps16 = sharded.sssp_sharded_scan(
+                sg16, w16, gloo_kw["source"])
+            want16 = dict(
+                coloring=color16, sssp_partial=dist16.cpu().numpy(),
+                bfs_do=sharded.bfs_sharded_scan(
+                    sg16, gloo_kw["root"]).cpu().numpy(),
+                msbfs=sharded.msbfs_sharded_scan(
+                    sg16, gloo_kw["roots"]).cpu().numpy(),
+                cc_hybrid=lab16.cpu().numpy(),
+                cc_hybrid_counts=np.asarray([fl16, hk16]))
+            sage16 = _sage_unsharded(import_graph(ec16, device=DEVICE))
+            del sg16, w16
+            want_color20, rounds20 = coloring_rounds(sg)
+            sweeps20 = sharded.sssp_sharded_scan(sg, kept["weights"],
+                                                 int(res["sssp_source"]))[1]
+            sage20 = _sage_unsharded(graph)
+            slim = shard_build.ShardedTileGraph(
+                shards=tuple(shard_build.slim_value_pull(g)
+                             for g in sg.shards),
+                edges_per_shard=sg.edges_per_shard, n_shards=S, v=sg.v,
+                v_pad=sg.v_pad, e=sg.e)
+            # the hashed weights of every COO edge, for the host Dijkstra
+            w_coo = np.zeros(ec.edges_count, np.float32)
+            fn_w = sharded.slot_hash_weight_fn(
+                sharded.route_slot_count(slim.shard(0)))
+            shard_id = ec.dst_ids % S
+            for s, g in enumerate(slim.shards):
+                h_in = hosts[s][1]
+                n_e = h_in.edges_count
+                part = np.zeros(n_e, np.float32)
+                part[h_in.edge_perm[:n_e]] = \
+                    fn_w(s, g).flat[:n_e].cpu().numpy()
+                w_coo[shard_id == s] = part
+            t1 = time.perf_counter()
+            ssrc = int(res["sssp_source"])
+            want_hash = sssp.seq_dijkstra(dataclasses.replace(
+                ec, weights=w_coo), ssrc)
+            print(f"  host Dijkstra on the hashed weights: "
+                  f"{time.perf_counter() - t1:.2f} s")
+            # (c)'s host side: the hashed weights of the RMAT-18 shards
+            # saved, then the files loaded into pinned host memory
+            loaded18, prefix18 = kept["loaded18"], kept["prefix18"]
+            fn18 = sharded.slot_hash_weight_fn(
+                sharded.route_slot_count(loaded18.shard(0)))
+            from vectorgraphlibrary_tpu_torch.graph.edges import EdgeArray
+            hashed18 = [EdgeArray(outgoing=None, incoming=fn18(s, g))
+                        for s, g in enumerate(loaded18.shards)]
+            save_sharded_weights(sharded.route_slot_weights(loaded18,
+                                                            hashed18),
+                                 prefix18)
+            t1 = time.perf_counter()
+            ssg = streaming.load_streamed(prefix18, weights=True,
+                                          device=DEVICE)
+            numbers["load_streamed_s"] = time.perf_counter() - t1
+            # a slim import uploads only what a slim shard keeps: its peak
+            # device memory against the slim shards' bytes (a full shard
+            # built and then stripped would add the largest full shard)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            slim18 = shard_build.import_sharded(ec18, S, device=DEVICE,
+                                                slim=True)
+            torch.cuda.synchronize()
+            numbers["import_slim18_s"] = time.perf_counter() - t1
+            peak18 = torch.cuda.max_memory_allocated() - before
+            slim18_b = _nbytes(slim18.shards)
+            stripped_b = _nbytes([shard_build.slim_value_pull(g)
+                                  for g in loaded18.shards])
+            numbers.update(import_slim18_peak_mib=peak18 / 2**20,
+                           slim18_mib=slim18_b / 2**20)
+            if slim18_b != stripped_b or peak18 > 2 * slim18_b:
+                raise AssertionError(
+                    f"import_sharded(slim=True) of RMAT-{SCALE}: "
+                    f"{slim18_b} B against slim_value_pull's {stripped_b}, "
+                    f"peak {peak18} B")
+            print(f"  import_sharded(RMAT-{SCALE}, {S}, slim=True): "
+                  f"{numbers['import_slim18_s']:.2f} s, "
+                  f"{slim18_b / 2**20:.1f} MiB (as slim_value_pull of the "
+                  f"loaded full shards), peak {peak18 / 2**20:.1f} MiB "
+                  f"above the start on {smi}")
+            del slim18
+            gloo, nccl = gloo.result(), nccl.result()
+    numbers["ranks_wall_s"] = time.perf_counter() - t0
+    print(f"  the ranks (2 gloo on RMAT-{GLOO_SCALE}, 1 NCCL on "
+          f"RMAT-{BFS_SCALE}) beside this process's references and loads: "
+          f"{numbers['ranks_wall_s']:.2f} s; load_streamed RMAT-{SCALE} "
+          f"{numbers['load_streamed_s']:.2f} s")
+
+    # (a) one card, the shards in turn, counted and timed
+    full_bytes, slim_bytes = _nbytes(sg.shards), _nbytes(slim.shards)
+    numbers.update(full_shards_mib=full_bytes / 2**20,
+                   slim_shards_mib=slim_bytes / 2**20)
+    print(f"  slim shards of RMAT-{BFS_SCALE} in {S}: "
+          f"{slim_bytes / 2**20:.1f} MiB on the card against the full "
+          f"shards' {full_bytes / 2**20:.1f} MiB ({slim_bytes / full_bytes:.3f}"
+          f" of it) on {smi}")
+    g_ms = bfs.vgl_msbfs(graph, roots).values
+    want_ms = torch.stack([common.to_direction(
+        graph, g_ms[i], TraversalDirection.SCATTER,
+        TraversalDirection.ORIGINAL) for i in range(32)])[:, :v].cpu().numpy()
+    full_pr = sharded.pagerank_sharded_scan(sg, ec, ITERS)
+    full_bfs = sharded.bfs_sharded_scan(sg, bfs_root)
+    full_cc = sharded.cc_sharded_scan(sg)
+
+    def msbfs_check(out):
+        equal("msbfs_sharded_scan", out[:, :v].cpu().numpy().astype(
+            np.int32), want_ms)
+        return int(out.max())
+
+    def hybrid_check(out):
+        labels, fl, hk = out
+        if equal_components(labels[:v].cpu().numpy(), res["cc"]):
+            raise AssertionError("cc_hybrid_sharded_scan: another partition "
+                                 "than phase 10's CC")
+        return fl + hk
+
+    def same(label, want):
+        def check(out):
+            got = out[0] if isinstance(out, tuple) else out
+            if not torch.equal(got, want[0] if isinstance(want, tuple)
+                               else want):
+                raise AssertionError(f"{label} on slim shards differs from "
+                                     f"the full shards'")
+            if label == "pagerank":
+                return ITERS
+            if label == "bfs":
+                return int(got.max())
+            return out[1]
+        return check
+
+    hash_out = {}
+
+    def hash_check(partial):
+        def check(out):
+            dist, it = out
+            hash_out[partial] = dist
+            errors = verify_results(dist[:v].cpu().numpy(), want_hash)
+            if errors:
+                raise AssertionError(f"sssp_sharded_scan_hash (partial="
+                                     f"{partial}): error count {errors} "
+                                     f"against the host Dijkstra")
+            return it
+        return check
+
+    ms_edges = _msbfs_edges(ec, want_ms)
+    cases = [  # label, call, check -> loops, (pulls, routes) per loop, work
+        ("msbfs", lambda: sharded.msbfs_sharded_scan(sg, roots), msbfs_check,
+         (S, 2 * S), ms_edges),
+        ("cc_hybrid", lambda: sharded.cc_hybrid_sharded_scan(sg, hub),
+         hybrid_check, (2 * S, 4 * S), e),
+        ("slim_pagerank", lambda: sharded.pagerank_sharded_scan(slim, ec,
+                                                                ITERS),
+         same("pagerank", full_pr), (S, 2 * S), e * ITERS),
+        ("slim_bfs", lambda: sharded.bfs_sharded_scan(slim, bfs_root),
+         same("bfs", full_bfs), (S, 2 * S), e),
+        ("slim_cc", lambda: sharded.cc_sharded_scan(slim),
+         same("cc", full_cc), (2 * S, 4 * S), e),
+        ("sssp_hash_partial", lambda: sharded.sssp_sharded_scan_hash(
+            slim, ssrc, True), hash_check(True), (S, 3 * S), e),
+        ("sssp_hash_all", lambda: sharded.sssp_sharded_scan_hash(
+            slim, ssrc, False), hash_check(False), (S, 2 * S), e)]
+    for label, call, check, (pulls, routes), work in cases:
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        n = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        loops = check(out)
+        count_check(label, n, dict(pull_reduce=pulls * loops,
+                                   route_gather_finish=routes * loops))
+        for name in n:
+            launches[PATHS17[0]][name] += n[name]
+        ts = []
+        for _ in range(3):
+            timer = DeviceTimer(DEVICE).start()
+            ts.append(timer.stop(call()))
+        ms = statistics.median(ts) * 1e3
+        numbers[label] = dict(ms=ms, mteps=work / (ms / 1e3) / 1e6,
+                              loops=loops, pull_reduce=n["pull_reduce"],
+                              route_gather_finish=n["route_gather_finish"],
+                              peak_mib=peak)
+        print(f"  {label}: checked; {loops} loops, launches pull_reduce "
+              f"{n['pull_reduce']} (predicted {pulls} x {loops}), "
+              f"route_gather_finish {n['route_gather_finish']} (predicted "
+              f"{routes} x {loops}); {ms:.3f} ms (median of "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in ts)}), "
+              f"{numbers[label]['mteps']:.1f} MTEPS, peak {peak:.1f} MiB "
+              f"on {smi}")
+    if not torch.equal(hash_out[True], hash_out[False]):
+        raise AssertionError("sssp_sharded_scan_hash: partial != all-active")
+    print("  sssp_sharded_scan_hash: partial and all-active bit-equal")
+    del slim
+
+    # (b) the ranks
+    names = [str(x) for x in nccl[0]["kernel_names"]]
+
+    def rank_counts(label, out, rounds, sweeps, graph_ec):
+        """Each driver's launches on one rank (one shard) against the
+        code's counts: coloring 12 pulls and 24 routes a round; partial
+        SSSP 1 pull and 3 routes a sweep; MS-BFS 1 pull and 2 routes a
+        level, CC hybrid 2 and 4 a flood level or hook; DO-BFS 2 routes a
+        level and, per level, 1 pull (bottom-up) or 2 scatter_combine
+        (top-down: the owner mark and the min); the GraphSAGE forward 2
+        pull_rows, each Adam step 3. DO-BFS's top-down levels are
+        replayed on the host (_do_bfs_top_down)."""
+        levels = int(out["bfs_do"].max())
+        td = _do_bfs_top_down(out["bfs_do"], graph_ec)
+        m_ms = int(out["msbfs"].max())
+        f_h = int(out["cc_hybrid_counts"].sum())
+        want = dict(
+            coloring=dict(pull_reduce=12 * rounds,
+                          route_gather_finish=24 * rounds),
+            sssp_partial=dict(pull_reduce=sweeps,
+                              route_gather_finish=3 * sweeps),
+            bfs_do=dict(pull_reduce=levels - td, scatter_combine=2 * td,
+                        route_gather_finish=2 * levels),
+            msbfs=dict(pull_reduce=m_ms, route_gather_finish=2 * m_ms),
+            cc_hybrid=dict(pull_reduce=2 * f_h, route_gather_finish=4 * f_h),
+            sage_grad=dict(pull_rows=2),
+            **{f"sage_step{i}": dict(pull_rows=3) for i in range(3)})
+        for run, counts in want.items():
+            n = dict(zip(names, out[f"{run}_launches"].tolist()))
+            count_check(f"{label} {run}", n, counts)
+            for name in n:
+                launches[PATHS17[1]][name] += n[name]
+        return td, levels
+
+    def grads_close(label, out, want):
+        loss, grads = want
+        if not np.isclose(float(out["sage_loss"]), loss, rtol=1e-4, atol=0):
+            raise AssertionError(f"{label}: sharded loss {out['sage_loss']} "
+                                 f"against the unsharded {loss}")
+        for k in SAGE_PARAMS:
+            g, w = out[f"grad_{k}"], grads[k]
+            if not np.allclose(g, w, rtol=1e-4,
+                               atol=1e-6 * float(np.abs(w).max())):
+                raise AssertionError(f"{label}: gradient of {k} differs from "
+                                     f"the unsharded step's")
+
+    for label, ranks, want, want_sage, graph_ec, rounds, sweeps in (
+            ("gloo", gloo, want16, sage16, ec16, rounds16, sweeps16),
+            ("nccl", nccl, dict(
+                coloring=want_color20,
+                sssp_partial=np.concatenate([res["sssp"], np.full(
+                    sg.v_pad - v, np.inf, np.float32)]),
+                bfs_do=np.concatenate([root_levels, np.full(
+                    sg.v_pad - v, -1, np.int32)]),
+                msbfs=None, cc_hybrid=None), sage20, ec, rounds20,
+             sweeps20)):
+        for r, out in enumerate(ranks):
+            for key, w in want.items():
+                if w is not None:
+                    equal(f"{label} rank {r} {key}", out[key], w)
+            if label == "nccl":
+                equal(f"nccl msbfs", out["msbfs"][:, :v].astype(np.int32),
+                      want_ms)
+                if equal_components(out["cc_hybrid"][:v], res["cc"]):
+                    raise AssertionError("nccl cc_hybrid: another partition")
+            if not _coloring_valid(graph_ec, out["coloring"][
+                    :graph_ec.vertices_count]):
+                raise AssertionError(f"{label} rank {r}: invalid coloring")
+            grads_close(f"{label} rank {r} GraphSAGE", out, want_sage)
+            td, levels = rank_counts(f"{label} rank {r}", out, rounds, sweeps,
+                                     graph_ec)
+            if not out["sage_losses"][-1] < out["sage_losses"][0]:
+                raise AssertionError(f"{label} rank {r}: the loss did not "
+                                     f"fall: {out['sage_losses']}")
+            msg = ", ".join(f"{run} {float(out[run + '_ms']):.1f} ms" for run
+                            in ("coloring", "sssp_partial", "bfs_do",
+                                "msbfs", "cc_hybrid"))
+            step_ms = [float(out[f"sage_step{i}_ms"]) for i in range(3)]
+            numbers[f"{label}_rank{r}"] = dict(
+                import_s=float(out["import_s"]), step_ms=step_ms,
+                **{run: float(out[run + "_ms"]) for run in (
+                    "coloring", "sssp_partial", "bfs_do", "msbfs",
+                    "cc_hybrid", "sage_grad")})
+            print(f"  {label} rank {r} of {len(ranks)}: equal to the one-card "
+                  f"results, coloring valid ({rounds} rounds), GraphSAGE "
+                  f"loss and gradients equal the unsharded step's; launches "
+                  f"as predicted (DO-BFS {td} top-down of {levels} levels); "
+                  f"import_shard "
+                  f"{float(out['import_s']):.2f} s; first calls: {msg}; "
+                  f"Adam steps {', '.join(f'{t:.2f}' for t in step_ms)} ms "
+                  f"(3 pull_rows launches each), loss "
+                  f"{out['sage_losses'][0]:.4f} -> "
+                  f"{out['sage_losses'][-1]:.4f} (correctness run: ranks "
+                  f"share the card) on {smi}")
+
+    # (c) streaming, timed with the card to itself
+    sg18 = kept["loaded18"]
+    hashed = sharded.slot_weights_stacked(load_sharded_weights(
+        prefix18, S, DEVICE), sg18)
+    if not torch.equal(sharded.sssp_sharded_scan(sg18, hashed, 0, False)[0],
+                       sharded.sssp_sharded_scan_hash(sg18, 0, False)[0]):
+        raise AssertionError("SSSP on the stored hashed weights differs from "
+                             "sssp_sharded_scan_hash")
+    rev, dmask = sharded.pr_consts(ec18)
+    hub18 = int(np.argmax(np.bincount(ec18.src_ids,
+                                      minlength=ec18.vertices_count)))
+    rng18 = np.random.default_rng(SEED + 1)
+    roots18 = [int(r) for r in rng18.choice(np.flatnonzero(np.bincount(
+        ec18.src_ids, minlength=ec18.vertices_count)), 32, replace=False)]
+    hosts_b = sum(_nbytes(g) for g in ssg.shards)
+    shard_b = max(_nbytes(g) for g in ssg.shards) + max(
+        w.numel() * 4 for w in ssg.weights)
+    # the copy alone: every shard to the card once, with nothing to run
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    streaming._sweep(ssg, lambda g, s: None, "copy")
+    copy_s = time.perf_counter() - t1
+    numbers["h2d_gb_s"] = ssg.h2d_bytes / copy_s / 1e9
+    print(f"  streamed RMAT-{SCALE}: {S} slim shards, {hosts_b / 2**20:.1f} "
+          f"MiB pinned on the host; one sweep of copies alone "
+          f"{copy_s * 1e3:.2f} ms, {numbers['h2d_gb_s']:.2f} GB/s host to "
+          f"device on {smi}")
+    scases = [
+        ("pagerank", lambda: (streaming.pagerank_streamed(
+            ssg, rev, dmask, STREAM_ITERS),),
+         lambda: (sharded.pagerank_sharded_scan(sg18, ec18, STREAM_ITERS),)),
+        ("hits", lambda: streaming.hits_streamed(ssg, STREAM_ITERS // 2),
+         lambda: sharded.hits_sharded_scan(sg18, STREAM_ITERS // 2)),
+        ("msbfs", lambda: streaming.msbfs_streamed(ssg, roots18)[:1],
+         lambda: (sharded.msbfs_sharded_scan(sg18, roots18),)),
+        ("cc_hybrid", lambda: streaming.cc_hybrid_streamed(ssg, hub18)[:1],
+         lambda: sharded.cc_hybrid_sharded_scan(sg18, hub18)[:1]),
+        ("sssp", lambda: streaming.sssp_streamed(ssg, 0)[:1],
+         lambda: sharded.sssp_sharded_scan(sg18, hashed, 0,
+                                           partial=False)[:1])]
+    for label, call, resident in scases:
+        # the resident scan's peak above its start: its vertex state and
+        # temporaries, which the streamed run holds too, beside its shards
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        want = resident()
+        torch.cuda.synchronize()
+        state_b = torch.cuda.max_memory_allocated() - before
+        bound_mib = (2 * shard_b + state_b) / 2**20
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n_sweeps, h2d = len(ssg.sweep_s), ssg.h2d_bytes
+        t1 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**20
+        n = {name: k.launches for name, k in kernels.items()}
+        sweeps = ssg.sweep_s[n_sweeps:]
+        dirs = 2 if label == "cc_hybrid" else 1
+        count_check(f"{label}_streamed", n, dict(
+            pull_reduce=dirs * S * len(sweeps),
+            route_gather_finish=2 * dirs * S * len(sweeps)))
+        for name in n:
+            launches[PATHS17[2]][name] += n[name]
+        for gt, wt in zip(got, want):
+            if label in ("pagerank", "hits"):
+                w_np = wt.cpu().numpy()
+                if not np.allclose(gt.cpu().numpy(), w_np, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(w_np).max())):
+                    raise AssertionError(f"{label}_streamed differs from the "
+                                         f"resident scan")
+            elif not torch.equal(gt, wt):
+                raise AssertionError(f"{label}_streamed differs from the "
+                                     f"resident scan")
+        if ssg.peak_resident > 2 or peak > bound_mib:
+            raise AssertionError(f"{label}_streamed: {ssg.peak_resident} "
+                                 f"shards resident, peak {peak:.1f} MiB "
+                                 f"against a bound of {bound_mib:.1f}")
+        numbers[f"streamed_{label}"] = dict(
+            wall_ms=wall * 1e3, sweeps=len(sweeps),
+            sweep_ms=statistics.median(sweeps) * 1e3,
+            gb_s=(ssg.h2d_bytes - h2d) / wall / 1e9, peak_mib=peak,
+            bound_mib=bound_mib, pull_reduce=n["pull_reduce"])
+        print(f"  {label}_streamed: equal to the resident scan; "
+              f"{len(sweeps)} sweeps, {wall * 1e3:.1f} ms, sweep median "
+              f"{numbers[f'streamed_{label}']['sweep_ms']:.2f} ms (min "
+              f"{min(sweeps) * 1e3:.2f}, max {max(sweeps) * 1e3:.2f}), "
+              f"{numbers[f'streamed_{label}']['gb_s']:.2f} GB/s copied over "
+              f"the call; peak {peak:.1f} MiB above the state before it, "
+              f"bound {bound_mib:.1f} MiB (two shards with weights "
+              f"{2 * shard_b / 2**20:.1f} + the resident scan's state "
+              f"{state_b / 2**20:.1f}); launches pull_reduce "
+              f"{n['pull_reduce']}, route_gather_finish "
+              f"{n['route_gather_finish']} on {smi}")
     return dict(launches=launches, numbers=numbers)
 
 
@@ -3183,7 +3850,7 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/16] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/17] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -3191,56 +3858,56 @@ def main() -> int:
     build.load_library()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/16] build: {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[2/17] build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
           f"ptxas: " + " | ".join(ptxas))
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print("[3/16] kernel: route_gather_finish vs plain version, n = 2^24")
+    print("[3/17] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[4/16] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+    print(f"[4/17] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
           f"version on its graph")
     prr = phase_pagerank(rg, pl, smi)
     prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[5/16] kernel: scatter_combine vs plain version, V = 2^20, and "
+    print(f"[5/17] kernel: scatter_combine vs plain version, V = 2^20, and "
           f"push_expand vs plain version on RMAT-{BFS_SCALE}")
     bfs_ec, bfs_graph, bfs_ea = make_bfs_graph()
     push = phase_scatter(scm, pe, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[6/16] slice: BFS on RMAT-{BFS_SCALE}")
+    print(f"[6/17] slice: BFS on RMAT-{BFS_SCALE}")
     bfs_root, bfs_launches, pull20, root_levels = phase_bfs(
         rg, pl, pe, scm, bfs_ec, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[7/16] kernel: lane_shuffle vs plain version, "
+    print(f"[7/17] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
     lsr = phase_lane_shuffle(ls, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[8/16] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+    print(f"[8/17] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
     kernels = _kernels()
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[9/16] kernel: pull_reduce with edge weights and scatter_combine "
+    print(f"[9/17] kernel: pull_reduce with edge weights and scatter_combine "
           f"f32 vs plain versions on weighted RMAT-{BFS_SCALE}, and the "
           f"host's cost of one launch")
     wk = phase_weighted_kernels(rg, pl, scm, bfs_ec, bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[10/16] slice: SSSP, SSWP, CC and HITS on weighted "
+    print(f"[10/17] slice: SSSP, SSWP, CC and HITS on weighted "
           f"RMAT-{BFS_SCALE}")
     fix = phase_fixpoint(kernels, bfs_ec, bfs_graph, bfs_ea, smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[11/16] kernel: scatter_combine int32 add, its sorted build and "
+    print(f"[11/17] kernel: scatter_combine int32 add, its sorted build and "
           f"and_popcount vs plain versions, at the RMAT-{SCALE} triangle "
           f"count's shapes")
     k6 = phase_slice6_kernels(scm, ap, prr["ec"], smi)
@@ -3249,42 +3916,59 @@ def main() -> int:
                                      k6["scatter_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[12/16] slice: SCC, coloring, label propagation, random walks, "
+    print(f"[12/17] slice: SCC, coloring, label propagation, random walks, "
           f"reachability and triangle count on RMAT-{SCALE}")
     s6 = phase_slice6(kernels, prr["ec"], prr["graph"], k6["oriented"],
                       k6["host_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[13/16] slice: GraphSAGE at ogbn-products' widths (in "
+    print(f"[13/17] slice: GraphSAGE at ogbn-products' widths (in "
           f"{SAGE_IN}, hidden {SAGE_HIDDEN}, classes {SAGE_CLASSES}) on "
           f"RMAT-{BFS_SCALE}, sampled on RMAT-{SCALE}, and pull_rows vs plain "
           f"version")
     sage = phase_sage(kernels, prw, bfs_ec, bfs_graph, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[14/16] slice: max-flow on RMAT-{SCALE}, and the general advance "
+    print(f"[14/17] slice: max-flow on RMAT-{SCALE}, and the general advance "
           f"and segment_reduce vs plain versions")
     mfr = phase_mf(kernels, pl, prr["ec"], smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"],
                                  mfr["pull"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[15/16] slice: the measurement runtime: the per-primitive pass "
+    print(f"[15/17] slice: the measurement runtime: the per-primitive pass "
           f"on RMAT-{SCALE} and weighted RMAT-{BFS_SCALE}, the PageRank app "
           f"with it, ubench_prims and the autotuner's samples")
     meas = phase_measurement(kernels, prr["graph"], bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[16/16] slice: distribution on one card: the sharded container "
+    print(f"[16/17] slice: distribution on one card: the sharded container "
           f"and its one-card runners on weighted RMAT-{BFS_SCALE} in "
           f"{SHARDS} shards, the rank-parallel runners ({RANK_SHARDS} gloo "
           f"ranks sharing the card, one NCCL rank), sharded save and load "
           f"of RMAT-{SCALE}")
+    keep_dir = tempfile.TemporaryDirectory()
     t16 = time.perf_counter()
     sh = phase_sharded(kernels, bfs_ec, bfs_graph, bfs_ea, bfs_root,
-                       root_levels, fix["results"], prr["ec"], smi)
+                       root_levels, fix["results"], prr["ec"], smi,
+                       keep_dir.name)
     sh["numbers"]["phase_s"] = time.perf_counter() - t16
     print(f"  phase 16: {sh['numbers']['phase_s']:.1f} s")
+
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[17/17] slice: distribution part 2 on one card: MS-BFS, CC "
+          f"hybrid, slim shards and SSSP on hashed weights over phase 16's "
+          f"RMAT-{BFS_SCALE} shards, the five rank drivers and the sharded "
+          f"GraphSAGE ({RANK_SHARDS} gloo ranks on RMAT-{GLOO_SCALE}, one "
+          f"NCCL rank on RMAT-{BFS_SCALE}), streaming RMAT-{SCALE} from the "
+          f"host")
+    t17 = time.perf_counter()
+    p2 = phase_part2(kernels, bfs_ec, bfs_graph, bfs_root, root_levels,
+                     fix["results"], prr["ec"], sh, smi)
+    del sh["kept"]
+    keep_dir.cleanup()
+    p2["numbers"]["phase_s"] = time.perf_counter() - t17
+    print(f"  phase 17: {p2['numbers']['phase_s']:.1f} s")
 
     if "--profile" in sys.argv:
         profile(pl, prr["graph"], bfs_graph, bfs_root, bfs_ec, bfs_ea,
@@ -3303,7 +3987,8 @@ def main() -> int:
                    f"sage_rmat{BFS_SCALE}": sage["launches"][kernel],
                    f"mf_rmat{SCALE}": mfr["launches"][kernel],
                    **{p: c[kernel] for p, c in meas["launches"].items()},
-                   **{p: c[kernel] for p, c in sh["launches"].items()}}
+                   **{p: c[kernel] for p, c in sh["launches"].items()},
+                   **{p: c[kernel] for p, c in p2["launches"].items()}}
         if kernel == "scatter_combine":
             # scatter_combine.launches counts every entry of the source:
             # the general entries' row leaves out the sorted build's
@@ -3376,7 +4061,7 @@ def main() -> int:
         "rates": dict(s6["rates"], mf_mteps=mfr["rates"]),
         "prim_tables": meas["tables"],
         "autotuner_picks": meas["autotuner_picks"],
-        "sharded": sh["numbers"]}))
+        "sharded": sh["numbers"], "part2": p2["numbers"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

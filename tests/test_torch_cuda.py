@@ -1616,7 +1616,8 @@ def test_sharded_load_on_cuda(sharded12, tmp_path):
 def test_rank_runners_on_the_card(sharded12):
     """The dry run's rank function on one NCCL rank and on 2 gloo ranks
     that share the card: the rank-parallel runners equal the card's scan
-    runners. Needs no second card."""
+    runners, with part 2's drivers and GraphSAGE step. Needs no second
+    card."""
     from vectorgraphlibrary_tpu_torch.parallel.launch import run_ranks
     ec, by_dev = sharded12
     kw = dict(scale=12, degree=8, seed=5, source=0, pr_iterations=20,
@@ -1631,9 +1632,16 @@ def test_rank_runners_on_the_card(sharded12):
     sg = by_dev["cuda"][0]
     want_pr = sharded.pagerank_sharded_scan(sg, ec, 20).cpu().numpy()
     want_bfs = sharded.bfs_sharded_scan(sg, 0).cpu().numpy()
+    want_msbfs = sharded.msbfs_sharded_scan(sg, torch.arange(32)).cpu()
     for r in runs:
         np.testing.assert_allclose(r["pr"], want_pr, rtol=1e-5)
         np.testing.assert_array_equal(r["bfs"], want_bfs)
+        # distribution part 2 on the card: DO-BFS and partial SSSP equal
+        # the pull BFS and all-active SSSP, MS-BFS the card's scan
+        np.testing.assert_array_equal(r["bfs_do"], want_bfs)
+        np.testing.assert_array_equal(r["sssp_partial"], r["sssp"])
+        np.testing.assert_array_equal(r["msbfs"], want_msbfs.numpy())
+        assert np.isfinite(r["sage_loss"])
 
 
 def test_scaling_app_on_the_card(cuda, capsys):
@@ -1646,3 +1654,135 @@ def test_scaling_app_on_the_card(cuda, capsys):
     assert res["device"] == torch.cuda.get_device_name(0)
     assert [r["devices"] for r in res["results"]] == [1, 2]
     assert all(r["mteps"] > 0 for r in res["results"])
+
+
+@pytest.fixture(scope="module")
+def slim12():
+    """sharded12's graph as slim shards on the CPU and on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU mode)")
+    from vectorgraphlibrary_tpu_torch.parallel import shard_build
+    ec = generation.rmat(12, 8, seed=5, weighted=True)
+    return ec, {dev: shard_build.import_sharded(ec, 4, device=dev, slim=True)
+                for dev in ("cpu", "cuda")}
+
+
+# the pulls of distribution part 2: (what, combine, x's kind, directions)
+PART2_PULLS = [("msbfs words", "or", "words", "G"),
+               ("coloring banned words", "or", "words", "GS"),
+               ("coloring priorities", "min", "i32", "GS"),
+               ("coloring neighbour colors", "max", "i32", "GS"),
+               ("cc flood", "or", "bool", "GS"),
+               ("cc hook", "min", "i32", "GS"),
+               ("sssp hashed weights", "min", "f32", "G")]
+
+
+@pytest.mark.parametrize("what,combine,kind,dirs", PART2_PULLS)
+def test_part2_pulls_on_the_card(slim12, what, combine, kind, dirs):
+    """Each type and op pair that the part 2 paths pull (int32 or of
+    words, int32 min and max, bool or, which runs as int8 any01, f32 min of
+    value + weight) on slim shards: the kernel equals the plain version,
+    one pull_reduce launch per shard."""
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    ec, by_dev = slim12
+    n = by_dev["cpu"].v_pad
+    rng = np.random.default_rng(7)
+    x = {"words": lambda: rng.integers(-2**31, 2**31, n, dtype=np.int64)
+         .astype(np.int32),
+         "i32": lambda: _i32(rng, n),
+         "bool": lambda: rng.random(n) < 0.1,
+         "f32": lambda: np.where(rng.random(n) < 0.3, rng.random(n),
+                                 np.inf).astype(np.float32)}[kind]()
+    for d in dirs:
+        out = {}
+        for dev, sg in by_dev.items():
+            kw = {}
+            if kind == "f32":
+                kw = dict(weight_op="add", weight_fn=sharded.
+                          slot_hash_weight_fn(sharded.route_slot_count(
+                              sg.shard(0))))
+            pl.pull_reduce.launches = 0
+            out[dev] = sharded.sharded_pull_scan(
+                sg, torch.from_numpy(x).to(dev), combine,
+                direction=bfs.G if d == "G" else bfs.S, **kw)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert pl.pull_reduce.launches == 4, what
+        assert torch.equal(out["cuda"].cpu(), out["cpu"]), (what, d)
+
+
+PART2_SCANS = ["msbfs", "cc_hybrid", "coloring", "sssp_hash"]
+
+
+@pytest.mark.parametrize("case", PART2_SCANS)
+def test_part2_scans_on_cuda_match_cpu(slim12, case):
+    """The one-card twins of part 2 on slim shards on the card equal
+    their CPU run exactly."""
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    ec, by_dev = slim12
+    run = {"msbfs": lambda sg: (sharded.msbfs_sharded_scan(
+               sg, torch.arange(32) * 7),),
+           "cc_hybrid": lambda sg: sharded.cc_hybrid_sharded_scan(sg, 0),
+           "coloring": lambda sg: (sharded.coloring_sharded_scan(sg,
+                                                                 words=1),),
+           "sssp_hash": lambda sg: sharded.sssp_sharded_scan_hash(sg, 0)
+           }[case]
+    got, want = run(by_dev["cuda"]), run(by_dev["cpu"])
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g.cpu(), w)
+        else:
+            assert g == w
+
+
+@pytest.mark.parametrize("world,backend", [(1, None), (2, "gloo")])
+def test_sharded_aggregate_on_the_card(cuda, world, backend, monkeypatch):
+    """The sharded GraphSAGE aggregation's forward and backward
+    (pull_rows over each shard's ORIGINAL-order CSR and its transpose,
+    merged by all_reduce) on one NCCL rank and on 2 gloo ranks that share
+    the card, against the plain pull_rows in f64: rtol 1e-5. The rank
+    function's module is named from tests/ itself: an installed package
+    called `tests` would shadow this directory as a package."""
+    import os
+    from vectorgraphlibrary_tpu_torch.parallel.launch import run_ranks
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    for r in run_ranks("torch_rank_cases:sage_agg_rank", world,
+                       device="cuda", backend=backend, timeout=300):
+        np.testing.assert_allclose(r["out"], r["want_out"], rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(r["grad"], r["want_grad"], rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_streaming_on_the_card(sharded12, tmp_path):
+    """Streamed from pinned host shards to the card: PageRank within rtol
+    1e-5, MS-BFS, CC hybrid and SSSP on stored weights exactly as the
+    card's resident scans, one shard resident at a time."""
+    from vectorgraphlibrary_tpu_torch.graph.persistence import (
+        load_sharded_weights, save_sharded_graph, save_sharded_weights)
+    from vectorgraphlibrary_tpu_torch.parallel import sharded, streaming
+    ec, by_dev = sharded12
+    sg, weights = by_dev["cuda"]
+    prefix = str(tmp_path / "g")
+    save_sharded_graph(by_dev["cpu"][0], prefix)
+    save_sharded_weights(sharded.route_slot_weights(*by_dev["cpu"]), prefix)
+    ssg = streaming.load_streamed(prefix, weights=True, device="cuda")
+    assert all(t.is_pinned() for t in ssg.weights)
+    rev, dmask = sharded.pr_consts(ec)
+    np.testing.assert_allclose(
+        streaming.pagerank_streamed(ssg, rev, dmask, 20).cpu().numpy(),
+        sharded.pagerank_sharded_scan(sg, ec, 20).cpu().numpy(), rtol=1e-5)
+    roots = torch.arange(32) * 7
+    assert torch.equal(streaming.msbfs_streamed(ssg, roots)[0],
+                       sharded.msbfs_sharded_scan(sg, roots))
+    assert torch.equal(streaming.cc_hybrid_streamed(ssg, 0)[0],
+                       sharded.cc_hybrid_sharded_scan(sg, 0)[0])
+    stored = sharded.slot_weights_stacked(load_sharded_weights(
+        prefix, 4, "cuda"), sg)
+    assert torch.equal(streaming.sssp_streamed(ssg, 0)[0],
+                       sharded.sssp_sharded_scan(sg, stored, 0,
+                                                 partial=False)[0])
+    assert ssg.peak_resident == 1 and ssg.resident == 0

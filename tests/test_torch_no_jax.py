@@ -6,7 +6,9 @@ triangle count, GraphSAGE's full and sampled training steps, the general
 advance in every graph format, compute and reduce with a frontier,
 max-flow and its app's input, saving a graph, which runs the port's own
 Beneš router, and loading it, the sharded container with its one-card
-drivers (PageRank, HITS, BFS, CC, SSSP) and its sharded save and load, the
+drivers (PageRank, HITS, BFS, CC, SSSP, MS-BFS, CC hybrid and SSSP on
+hashed weights, on full and slim shards), its sharded save and load
+with the weights, the five streamed algorithms, the
 per-primitive profiling pass on a scale-10 graph with and without weights,
 and the PageRank app with that pass)
 neither loads the JAX package's native library nor launches a kernel."""
@@ -117,6 +119,22 @@ with tempfile.TemporaryDirectory() as d:
     persistence.save_sharded_graph(sg, os.path.join(d, "s"))
     sg2 = persistence.load_sharded_graph(os.path.join(d, "s"), device="cpu")
 sharded.pagerank_sharded_scan(sg2, ec, 2)
+from vectorgraphlibrary_tpu_torch.parallel import streaming
+slim = shard_build.import_sharded(ec, 2, device="cpu", slim=True)
+sharded.msbfs_sharded_scan(slim, list(range(32)))
+sharded.cc_hybrid_sharded_scan(slim, 0)
+sharded.sssp_sharded_scan_hash(slim, 0)
+with tempfile.TemporaryDirectory() as d:
+    persistence.save_sharded_graph(slim, os.path.join(d, "s"))
+    persistence.save_sharded_weights(sharded.route_slot_weights(
+        sg, shard_build.shard_edge_values(ec.weights, sg, ec, hs)),
+        os.path.join(d, "s"))
+    ssg = streaming.load_streamed(os.path.join(d, "s"), weights=True,
+                                  device="cpu")
+rev, dmask = sharded.pr_consts(ec)
+streaming.pagerank_streamed(ssg, rev, dmask, 2)
+streaming.hits_streamed(ssg, 2), streaming.msbfs_streamed(ssg, range(32))
+streaming.cc_hybrid_streamed(ssg, 0), streaming.sssp_streamed(ssg, 0)
 from vectorgraphlibrary_tpu_torch.runtime import prim_profile
 from vectorgraphlibrary_tpu_torch.runtime.perf_stats import PerformanceStats
 from vectorgraphlibrary_tpu_torch.apps import pr as pr_app

@@ -114,3 +114,127 @@ def collectives_rank(rank: int, world: int, device) -> dict:
             t(vals[rank]), t(idx[rank]), v_local, combine=op, init=init)
     return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
             for k, v in out.items()}
+
+
+def ranks2_rank(rank: int, world: int, device, scale: int, degree: int,
+                seed: int, source: int, hub: int, roots: list,
+                words: int) -> dict:
+    """One rank of test_torch_sharded_ranks2.py: its own shard of the
+    weighted RMAT graph, then the five rank drivers of distribution part 2,
+    and the coloring's banned-color word of a fixed coloring (every vertex
+    v colored v % 32) pulled over both directions of this shard and merged
+    twice: as bitwise or (merge_or_words) and as unsigned max
+    (merge_all "or")."""
+    import torch
+    from vectorgraphlibrary_tpu_torch.io import generation
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    from vectorgraphlibrary_tpu_torch.parallel import collectives as C
+    from vectorgraphlibrary_tpu_torch.parallel.mesh import make_mesh
+    from vectorgraphlibrary_tpu_torch.parallel.shard_build import (
+        edge_values_of_shard, import_shard)
+    ec = generation.rmat(scale=scale, avg_degree=degree, seed=seed,
+                         weighted=True)
+    mesh = make_mesh(world, 1, device)
+    hosts = []
+    g = import_shard(ec, world, rank, device=device, _host_out=hosts)
+    w = edge_values_of_shard(ec.weights, ec, world, rank, g, hosts[0])
+    labels, flood, hooks = sharded.make_cc_hybrid_sharded(g, mesh)(hub)
+    out = dict(
+        coloring=sharded.make_coloring_sharded(g, mesh, words=words)(),
+        sssp_partial=sharded.make_sssp_sharded_partial(
+            g, mesh, w, delta_capacity=256)(source),
+        bfs_do=sharded.make_bfs_do_sharded(g, mesh, id_cap=1 << 8,
+                                           edge_cap=1 << 12)(source),
+        msbfs=sharded.make_msbfs_sharded(g, mesh)(roots),
+        cc_hybrid=labels, cc_hybrid_counts=np.asarray([flood, hooks]))
+    ids = torch.arange(g.v_pad, dtype=torch.int32, device=device)
+    word = torch.where(ids < g.v, torch.bitwise_left_shift(
+        torch.ones_like(ids), ids % 32), 0)
+    both = (sharded._shard_pull_original(g, word, "or", direction=sharded.G)
+            | sharded._shard_pull_original(g, word, "or",
+                                           direction=sharded.S))
+    out.update(word_or=C.merge_or_words(both, mesh.e_group),
+               word_max=C.merge_all(both, "or", mesh.e_group))
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
+
+
+def sage_inputs(v_pad: int, v: int, fdim: int, classes: int,
+                seed: int = 0) -> tuple:
+    """(feats f32 [v_pad, fdim], labels int32 [v_pad], mask bool [v_pad]) in
+    ORIGINAL order, the padding vertices unmasked."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(v_pad, fdim)).astype(np.float32)
+    labels = rng.integers(0, classes, v_pad).astype(np.int32)
+    mask = (rng.random(v_pad) < 0.5) & (np.arange(v_pad) < v)
+    return feats, labels, mask
+
+
+def sage_rank(rank: int, world: int, device, params: str, scale: int,
+              degree: int, seed: int, fdim: int, classes: int,
+              steps: int) -> dict:
+    """One rank of test_torch_sharded_sage.py: the sharded GraphSAGE loss
+    and its gradients from the parameters in the `params` .npz file, then
+    `steps` Adam steps (lr 1e-2) from the same parameters."""
+    import torch
+    from vectorgraphlibrary_tpu_torch.io import generation
+    from vectorgraphlibrary_tpu_torch.models import gnn
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    from vectorgraphlibrary_tpu_torch.parallel.mesh import make_mesh
+    from vectorgraphlibrary_tpu_torch.parallel.shard_build import import_shard
+    ec = generation.rmat(scale=scale, avg_degree=degree, seed=seed,
+                         weighted=True)
+    mesh = make_mesh(world, 1, device)
+    g = import_shard(ec, world, rank, device=device)
+    feats, labels, mask = (torch.from_numpy(a).to(device) for a in
+                           sage_inputs(g.v_pad, g.v, fdim, classes))
+    with np.load(params) as z:
+        arrays = {k: z[k] for k in z.files}
+    p = gnn.sage_params_from_numpy(arrays, device=device)
+    loss = sharded.make_sage_loss_sharded(g, mesh)(p, feats, labels, mask)
+    loss.backward()
+    out = {f"grad_{k}": getattr(p, k).grad for k in arrays}
+    out["loss"] = loss.detach()
+    p = gnn.sage_params_from_numpy(arrays, device=device)
+    step = sharded.make_sage_train_step_sharded(
+        g, mesh, torch.optim.Adam(p.parameters(), lr=1e-2))
+    out["losses"] = torch.stack([step(p, feats, labels, mask)
+                                 for _ in range(steps)])
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def sage_agg_rank(rank: int, world: int, device, scale: int = 12,
+                  degree: int = 8, seed: int = 5, fdim: int = 40) -> dict:
+    """One rank of the sharded GraphSAGE aggregation on its shard: the
+    forward (the merged sums) and the backward of a random cotangent, as
+    make_sage_loss_sharded runs them, and the same sums from the plain
+    pull_rows over the whole graph's ORIGINAL-order CSR, in f64."""
+    import torch
+    import torch.distributed as dist
+    from vectorgraphlibrary_tpu_torch.io import generation
+    from vectorgraphlibrary_tpu_torch.models.gnn import transpose_csr
+    from vectorgraphlibrary_tpu_torch.ops.cuda.pull_rows import (
+        RowCSR, pull_rows_ref)
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    from vectorgraphlibrary_tpu_torch.parallel.mesh import make_mesh
+    from vectorgraphlibrary_tpu_torch.parallel.shard_build import import_shard
+    ec = generation.rmat(scale=scale, avg_degree=degree, seed=seed)
+    mesh = make_mesh(world, 1, device)
+    g = import_shard(ec, world, rank, device=device)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.random((g.v_pad, fdim)).astype(
+        np.float32)).to(device).requires_grad_(True)
+    cot = torch.from_numpy(rng.random((g.v_pad, fdim)).astype(
+        np.float32)).to(device)
+    row_ptr, col_idx, _ = sharded._original_csr(g)
+    t = RowCSR(*transpose_csr(row_ptr, col_idx, g.v_pad, g.incoming.e))
+    out = sharded._ShardNeighbourSum.apply(x, RowCSR(row_ptr, col_idx),
+                                           lambda: t, mesh.e_group)
+    out.backward(cot)
+    # the plain version: every rank's partial in f64, summed
+    part = pull_rows_ref(row_ptr, col_idx, x.detach().double())
+    part_t = pull_rows_ref(t.row_ptr, t.col_idx, cot.double())
+    dist.all_reduce(part, group=mesh.e_group)
+    dist.all_reduce(part_t, group=mesh.e_group)
+    return {k: v.detach().cpu().numpy() for k, v in dict(
+        out=out, grad=x.grad, want_out=part, want_grad=part_t).items()}

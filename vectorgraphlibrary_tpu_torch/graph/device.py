@@ -28,8 +28,8 @@ class TileBucket:
     """A dense ELL rectangle of adjacency for a contiguous degree-sorted vertex
     range [row_start, row_start+rows), row-major (rows_pad, width)."""
 
-    adj: torch.Tensor               # int32 [rows_pad, width], sentinel = v_pad
-    width: int
+    adj: Optional[torch.Tensor]     # int32 [rows_pad, width], sentinel =
+    width: int                      # v_pad; None on a slim shard
     row_start: int
     rows: int
     rows_pad: int
@@ -43,7 +43,7 @@ class TileBucket:
 class HugeTile:
     """Row-split high-degree class: rows cut into chunks of chunk_w slots."""
 
-    adj: torch.Tensor               # int32 [n_chunks_pad, chunk_w]
+    adj: Optional[torch.Tensor]     # int32 [n_chunks_pad, chunk_w]; None
     seg_ids: torch.Tensor           # int32 [n_chunks_pad], ascending row ids
     seg_lengths: torch.Tensor       # int64 [n_rows + 1]: chunks per row, then pad
     chunk_w: int
@@ -72,8 +72,10 @@ class DeviceDirectedGraph:
     row_ptr: torch.Tensor           # int32 [v_pad+1]
     col_idx: torch.Tensor           # int32 [e_pad]
     degrees: torch.Tensor           # int32 [v_pad]
-    sorted_to_orig: torch.Tensor    # int32 [v_pad]
-    orig_to_sorted: torch.Tensor    # int32 [v_pad]
+    # int32 [v_pad] each; None on a slim shard (the vertex routes hold
+    # the same orderings)
+    sorted_to_orig: Optional[torch.Tensor]
+    orig_to_sorted: Optional[torch.Tensor]
     buckets: Tuple[TileBucket, ...]
     huge: Optional[HugeTile]
     v: int
@@ -96,25 +98,31 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
 
-def _to_device_directed(h, device) -> DeviceDirectedGraph:
+def _to_device_directed(h, device, slim: bool = False
+                        ) -> DeviceDirectedGraph:
     """Host CSR (graph/build.py HostDirectedCSR of either package) -> device.
     The per-slot CSR edge indices (eidx) stay on the host: they only lay out
     per-tile copies of edge values, which the port does not keep
-    (graph/edges.py)."""
+    (graph/edges.py). slim: as parallel/shard_build.slim_value_pull leaves
+    a direction, without uploading what it drops (the tiles' adjacency,
+    the renumber maps, col_idx past the CSR's edges)."""
+    def opt(a):
+        return None if slim else _i32(a, device)
     buckets = tuple(
-        TileBucket(adj=_i32(b.adj, device), width=b.width,
+        TileBucket(adj=opt(b.adj), width=b.width,
                    row_start=b.row_start, rows=b.rows, rows_pad=b.rows_pad)
         for b in h.buckets)
     huge = None
     if h.huge is not None:
         hh = h.huge
-        huge = huge_tile(_i32(hh.adj, device), hh.seg_ids, hh.chunk_w,
+        huge = huge_tile(opt(hh.adj), hh.seg_ids, hh.chunk_w,
                          hh.n_rows, hh.n_chunks, hh.n_chunks_pad, device)
+    col_idx = h.col_idx[:h.edges_count] if slim else h.col_idx
     return DeviceDirectedGraph(
-        row_ptr=_i32(h.row_ptr, device), col_idx=_i32(h.col_idx, device),
+        row_ptr=_i32(h.row_ptr, device), col_idx=_i32(col_idx, device),
         degrees=_i32(h.degrees, device),
-        sorted_to_orig=_i32(h.sorted_to_orig, device),
-        orig_to_sorted=_i32(h.orig_to_sorted, device),
+        sorted_to_orig=opt(h.sorted_to_orig),
+        orig_to_sorted=opt(h.orig_to_sorted),
         buckets=buckets, huge=huge, v=h.vertices_count, v_pad=h.vertices_pad,
         e=h.edges_count, e_pad=h.edges_pad)
 
@@ -149,6 +157,13 @@ class VGLGraph:
     out_slots: int
     in_slots: int
     graph_format: GraphFormat = GraphFormat.TILE_CSR
+    # a shard's incoming route slot of each incoming CSR slot, int32 [e]:
+    # the order in which the JAX package keeps a shard's edge weights
+    # (parallel/sharded.slot_hash_weight_fn); None for a graph
+    in_route_slots: Optional[torch.Tensor] = None
+    # a shard without its advance route and tiles
+    # (parallel/shard_build.slim_value_pull)
+    slim: bool = False
 
     @property
     def device(self) -> torch.device:

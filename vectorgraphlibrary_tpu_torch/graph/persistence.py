@@ -38,6 +38,7 @@ from ..ops.route import (RoutePlan, benes_plan_from_packed, inverse_lanes,
 from ..ops.route_words import (build_word_masks, split_levels,
                                unpack_word_masks, word_flags)
 from .device import DeviceDirectedGraph, TileBucket, VGLGraph, huge_tile
+from .route_build import in_route_slots
 
 # the values of the "format" key that the port builds: a graph, a shard
 FORMATS = (GraphFormat.TILE_CSR.value, GraphFormat.SHARDED_CSR.value)
@@ -58,27 +59,32 @@ def _pack_directed(prefix: str, dg: DeviceDirectedGraph, out: dict,
                    sharded: bool) -> None:
     """A shard's meta holds e_pad as its edge count, as the JAX package's
     does (its shards stack only with one count); the CSR's own count is
-    row_ptr[-1]."""
-    out[f"{prefix}.row_ptr"] = _np(dg.row_ptr)
-    out[f"{prefix}.col_idx"] = _np(dg.col_idx)
-    out[f"{prefix}.degrees"] = _np(dg.degrees)
-    out[f"{prefix}.sorted_to_orig"] = _np(dg.sorted_to_orig)
-    out[f"{prefix}.orig_to_sorted"] = _np(dg.orig_to_sorted)
+    row_ptr[-1]. A slim shard's absent arrays (the renumber maps and the
+    tiles' adjacency) have no key, as in the JAX package's slim files."""
+    def put(key, t):
+        if t is not None:
+            out[key] = _np(t)
+    put(f"{prefix}.row_ptr", dg.row_ptr)
+    put(f"{prefix}.col_idx", dg.col_idx)
+    put(f"{prefix}.degrees", dg.degrees)
+    put(f"{prefix}.sorted_to_orig", dg.sorted_to_orig)
+    put(f"{prefix}.orig_to_sorted", dg.orig_to_sorted)
     out[f"{prefix}.meta"] = np.asarray([dg.v, dg.v_pad,
                                         dg.e_pad if sharded else dg.e,
                                         dg.e_pad,
                                         len(dg.buckets),
                                         1 if dg.huge is not None else 0])
     for i, b in enumerate(dg.buckets):
-        adj = _np(b.adj)
-        if b.width < 128:
-            adj = adj.reshape(b.rows_pad * b.width // 128, 128)
-        out[f"{prefix}.b{i}.adj"] = adj
+        if b.adj is not None:
+            adj = _np(b.adj)
+            if b.width < 128:
+                adj = adj.reshape(b.rows_pad * b.width // 128, 128)
+            out[f"{prefix}.b{i}.adj"] = adj
         out[f"{prefix}.b{i}.meta"] = np.asarray(
             [b.width, b.row_start, b.rows, b.rows_pad])
     if dg.huge is not None:
         h = dg.huge
-        out[f"{prefix}.huge.adj"] = _np(h.adj)
+        put(f"{prefix}.huge.adj", h.adj)
         out[f"{prefix}.huge.seg_ids"] = _np(h.seg_ids)
         out[f"{prefix}.huge.meta"] = np.asarray(
             [h.chunk_w, h.n_rows, h.n_chunks, h.n_chunks_pad])
@@ -91,32 +97,42 @@ def _i32(z, key: str, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _unpack_directed(prefix: str, z, device) -> DeviceDirectedGraph:
+def _unpack_directed(prefix: str, z, device, slim: bool
+                     ) -> DeviceDirectedGraph:
+    """slim: the direction gets no tiles' adjacency nor renumber maps (a
+    slim shard's file holds none) and its col_idx ends at the CSR's
+    edges, as slim_value_pull leaves it."""
     v, v_pad, e, e_pad, nb, has_huge = z[f"{prefix}.meta"].tolist()
     # the port's e is the CSR's edge count (a shard's meta holds e_pad)
     e_csr = int(z[f"{prefix}.row_ptr"][-1])
     if e not in (e_csr, e_pad):
         raise ValueError(f"{prefix}.meta: {e} edges; its CSR holds {e_csr}")
+
+    def opt(key):
+        return None if slim else _i32(z, key, device)
     buckets = []
     for i in range(nb):
         w, rs, r, rp = z[f"{prefix}.b{i}.meta"].tolist()
-        adj = _i32(z, f"{prefix}.b{i}.adj", device)
-        if adj.numel() != rp * w:
-            raise ValueError(f"{prefix}.b{i}.adj: {tuple(adj.shape)} for "
-                             f"{rp} rows of width {w}")
-        buckets.append(TileBucket(adj=adj.reshape(rp, w), width=w,
-                                  row_start=rs, rows=r, rows_pad=rp))
+        adj = opt(f"{prefix}.b{i}.adj")
+        if adj is not None:
+            if adj.numel() != rp * w:
+                raise ValueError(f"{prefix}.b{i}.adj: {tuple(adj.shape)} for "
+                                 f"{rp} rows of width {w}")
+            adj = adj.reshape(rp, w)
+        buckets.append(TileBucket(adj=adj, width=w, row_start=rs, rows=r,
+                                  rows_pad=rp))
     huge = None
     if has_huge:
         cw, nr, nc, ncp = z[f"{prefix}.huge.meta"].tolist()
-        huge = huge_tile(_i32(z, f"{prefix}.huge.adj", device),
+        huge = huge_tile(opt(f"{prefix}.huge.adj"),
                          z[f"{prefix}.huge.seg_ids"], cw, nr, nc, ncp, device)
     return DeviceDirectedGraph(
         row_ptr=_i32(z, f"{prefix}.row_ptr", device),
-        col_idx=_i32(z, f"{prefix}.col_idx", device),
+        col_idx=(_i32(z, f"{prefix}.col_idx", device)[:e_csr].clone()
+                 if slim else _i32(z, f"{prefix}.col_idx", device)),
         degrees=_i32(z, f"{prefix}.degrees", device),
-        sorted_to_orig=_i32(z, f"{prefix}.sorted_to_orig", device),
-        orig_to_sorted=_i32(z, f"{prefix}.orig_to_sorted", device),
+        sorted_to_orig=opt(f"{prefix}.sorted_to_orig"),
+        orig_to_sorted=opt(f"{prefix}.orig_to_sorted"),
         buckets=tuple(buckets), huge=huge, v=v, v_pad=v_pad, e=e_csr,
         e_pad=e_pad)
 
@@ -191,12 +207,15 @@ def save_graph_to_binary_file(graph: VGLGraph, path: str,
     """Write `graph` (a TILE_CSR graph or a shard) to `path` (.npz) in the
     JAX package's format. Raises ValueError, before anything is written,
     for another format, which the loader would refuse, and for a graph
-    imported with build_route=False: the format holds the advance route."""
+    imported with build_route=False: the format holds the advance route.
+    A slim shard (parallel/shard_build.slim_value_pull) has no advance
+    route, tiles' adjacency or renumber maps, and its file none either;
+    only the port loads it (the JAX package's pull needs the route)."""
     if graph.graph_format.value not in FORMATS:
         raise ValueError(f"save_graph_to_binary_file: a graph of format "
                          f"{graph.graph_format.value!r}; the port writes "
                          f"{FORMATS}")
-    if graph.advance_route is None:
+    if graph.advance_route is None and not graph.slim:
         raise ValueError("save_graph_to_binary_file: the graph has no "
                          "advance route (imported with build_route=False); "
                          "import it with build_route=True to save it")
@@ -207,34 +226,66 @@ def save_graph_to_binary_file(graph: VGLGraph, path: str,
     out["meta"] = np.asarray([graph.v, graph.v_pad, graph.e, graph.out_slots,
                               graph.in_slots])
     out["format"] = np.asarray([graph.graph_format.value], dtype="U16")
-    _pack_route("route", graph.advance_route, out)
+    if not graph.slim:
+        _pack_route("route", graph.advance_route, out)
     for prefix, attr in _VROUTES:
         _pack_route(prefix, getattr(graph, attr), out)
     (np.savez_compressed if compressed else np.savez)(path, **out)
 
 
-def load_graph_from_binary_file(path: str, device="cuda") -> VGLGraph:
+# what the port's pull reads of each direction; the JAX package's slim
+# shard files lack them (vectorgraphlibrary_tpu/parallel/shard_build.py
+# :159-176 strips the CSR and keeps the advance route)
+_CSR_KEYS = ("row_ptr", "col_idx", "degrees")
+
+
+def load_graph_from_binary_file(path: str, device="cuda",
+                                slim: bool = False) -> VGLGraph:
     """Read a graph (or one shard of a sharded graph) saved by either
     package onto `device`. device="cpu" keeps every tensor in host memory:
-    the counterpart of the reference's as_numpy=True."""
+    the counterpart of the reference's as_numpy=True (the streaming loader,
+    parallel/streaming.py, reads shards so). A file without the advance
+    route is a slim shard of the port's; slim=True reads a shard's file
+    as slim_value_pull would leave it, without executing its advance
+    route's network. A JAX package's slim shard, which
+    holds no CSR, raises ValueError: the port pulls over the CSR, and
+    rebuilding it from the route is not done. A shard gets its
+    in_route_slots from its incoming CSR and tiles' metadata."""
     device = torch.device(device)
     with np.load(path) as z:
         fmt = str(z["format"][0])
         if fmt not in FORMATS:
             raise ValueError(f"{path}: graph format {fmt!r}; the port reads "
                              f"{FORMATS} graphs only")
+        missing = [f"{d}.{k}" for d in ("out", "in") for k in _CSR_KEYS
+                   if f"{d}.{k}" not in z]
+        if missing:
+            raise ValueError(
+                f"{path}: no {', '.join(missing)}: a slim shard of the JAX "
+                "package, which keeps the advance route and drops the CSR; "
+                "the port's pull reads the CSR, and the port does not "
+                "rebuild it from the route. Save the graph unslimmed, or "
+                "slim it in the port (shard_build.import_sharded(slim=True))")
         v, v_pad, e, out_slots, in_slots = z["meta"].tolist()
-        for prefix in ("route",) + tuple(p for p, _ in _VROUTES):
+        slim = slim or "route.meta" not in z
+        for prefix, _ in _VROUTES:
             if f"{prefix}.meta" not in z:
                 raise ValueError(f"{path}: no route {prefix!r}")
+        incoming = _unpack_directed("in", z, device, slim)
+        graph_format = GraphFormat.parse(fmt)
+        slots = None
+        if graph_format == GraphFormat.SHARDED_CSR:
+            slots = in_route_slots(z["in.row_ptr"], incoming.buckets,
+                                   incoming.huge, device)
         return VGLGraph(
-            outgoing=_unpack_directed("out", z, device),
-            incoming=_unpack_directed("in", z, device),
-            advance_route=_unpack_route("route", z, device, needs_flags=True),
+            outgoing=_unpack_directed("out", z, device, slim),
+            incoming=incoming,
+            advance_route=(None if slim else _unpack_route(
+                "route", z, device, needs_flags=True)),
             **{attr: _unpack_route(prefix, z, device, needs_flags=False)
                for prefix, attr in _VROUTES},
             v=v, v_pad=v_pad, e=e, out_slots=out_slots, in_slots=in_slots,
-            graph_format=GraphFormat.parse(fmt))
+            graph_format=graph_format, in_route_slots=slots, slim=slim)
 
 
 def save_sharded_graph(sg, path_prefix: str, compressed: bool = False) -> None:
@@ -251,6 +302,29 @@ def save_sharded_graph(sg, path_prefix: str, compressed: bool = False) -> None:
                    "e": sg.e,
                    "edges_per_shard": [int(c) for c in sg.edges_per_shard]},
                   f)
+
+
+def save_sharded_weights(slot_weights, path_prefix: str) -> None:
+    """Write each shard's incoming edge weights in route-slot order (f32
+    [n]: parallel/sharded.route_slot_weights, or the JAX package's
+    EdgeArray.incoming.slot_flat) as `{prefix}.weights{s}.npy`, the JAX
+    package's files (its persistence.py:177-185), so either package reads
+    the other's."""
+    for s, w in enumerate(slot_weights):
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        np.save(f"{path_prefix}.weights{s}.npy", w.astype(np.float32,
+                                                          copy=False))
+
+
+def load_sharded_weights(path_prefix: str, n_shards: int,
+                         device="cuda") -> torch.Tensor:
+    """The shards' route-slot weights as f32 [S, n] on `device`
+    (device="cpu": host memory, the reference's as_numpy=True);
+    parallel/sharded.slot_weights_stacked lays them out for the pull."""
+    return torch.from_numpy(np.stack([
+        np.load(f"{path_prefix}.weights{s}.npy").astype(np.float32,
+                                                         copy=False)
+        for s in range(n_shards)])).to(device)
 
 
 def load_sharded_graph(path_prefix: str, device="cuda"):

@@ -82,3 +82,62 @@ def build_advance_route(h_out, h_in, selfloop_edges: Optional[np.ndarray] = None
     return (make_route_plan(perm, flags_fwd=flags_fwd, flags_inv=flags_inv,
                             device=device),
             out_total, in_total)
+
+
+def csr_route_slots(row_ptr: np.ndarray, buckets, huge=None) -> np.ndarray:
+    """int64 [e]: the tile slot of each of a direction's e CSR slots, in the
+    flat slot space of slot_map (huge chunks first, then the buckets in
+    order); for the incoming direction, the advance route's slot. Made from
+    the CSR's row_ptr and the tiles' metadata alone, as the tiles are laid
+    out (graph/build.py): a bucket's row r takes slots (r - row_start) *
+    width + k of the bucket for its k-th CSR slot, k < its degree; a huge
+    row's chunks, in seg_ids order, take chunk_w CSR slots each. buckets:
+    objects with width, row_start, rows and rows_pad (host or device
+    tiles); huge: one with chunk_w, n_rows, n_chunks_pad and seg_ids, or
+    None. So it serves a graph whose tiles are gone (a slim shard) or were
+    never read (a loaded file): slot_map(h)[h.edge_perm[j]] for CSR slot j
+    of the host CSR h it was built from."""
+    rp = np.asarray(row_ptr, np.int64)
+    e = int(rp[-1])
+    starts, lens, firsts = [], [], []
+    offset = 0
+    if huge is not None:
+        seg = huge.seg_ids
+        seg = (seg.cpu().numpy() if hasattr(seg, "cpu") else seg).astype(
+            np.int64)
+        cw = huge.chunk_w
+        chunks = np.flatnonzero(seg < huge.n_rows)     # the rest pad
+        rows = seg[chunks]
+        first = np.searchsorted(seg[chunks], rows, side="left")
+        s = rp[rows] + (np.arange(len(chunks)) - first) * cw
+        starts.append(s)
+        lens.append(np.minimum(cw, rp[rows + 1] - s))
+        firsts.append(offset + chunks * cw)
+        offset += huge.n_chunks_pad * cw
+    for b in buckets:
+        rows = np.arange(b.row_start, min(b.row_start + b.rows, len(rp) - 1))
+        deg = rp[rows + 1] - rp[rows]
+        if (deg > b.width).any():
+            raise ValueError(f"a row of degree {int(deg.max())} in a bucket "
+                             f"of width {b.width}")
+        starts.append(rp[rows])
+        lens.append(deg)
+        firsts.append(offset + (rows - b.row_start) * b.width)
+        offset += b.rows_pad * b.width
+    starts, lens, firsts = (np.concatenate(a) if a else np.zeros(0, np.int64)
+                            for a in (starts, lens, firsts))
+    run = np.repeat(np.arange(len(lens)), lens)
+    k = np.arange(len(run)) - np.repeat(np.cumsum(lens) - lens, lens)
+    out = np.full(e, -1, np.int64)
+    out[starts[run] + k] = firsts[run] + k
+    if (out < 0).any():
+        raise ValueError("some CSR slot lies in no tile")
+    return out
+
+
+def in_route_slots(row_ptr: np.ndarray, buckets, huge, device):
+    """VGLGraph.in_route_slots of a shard, from its incoming CSR's row_ptr
+    and tiles' metadata (csr_route_slots): int32 [e] on `device`."""
+    import torch
+    return torch.from_numpy(csr_route_slots(row_ptr, buckets, huge).astype(
+        np.int32)).to(device)

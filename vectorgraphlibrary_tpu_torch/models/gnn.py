@@ -48,20 +48,25 @@ def _csr(graph: VGLGraph, direction: TraversalDirection) -> RowCSR:
                          lambda: RowCSR(dg.row_ptr, dg.col_idx))
 
 
-def transposed_csr(dg: DeviceDirectedGraph) -> tuple:
-    """(row_ptr, col_idx) of the transpose of dg's CSR: row u lists, in
-    ascending order, the rows v of dg whose columns hold u (as often as
-    they do), all in dg's sorted ordering. One stable sort of col_idx on
-    its device."""
-    e, n = dg.e, dg.v_pad
-    cols = dg.col_idx[:e]
+def transpose_csr(row_ptr: torch.Tensor, col_idx: torch.Tensor, n: int,
+                  e: int) -> tuple:
+    """(row_ptr, col_idx) of the transpose of an n x n CSR of e edges (its
+    col_idx may be padded past e): row u lists, in ascending order, the
+    rows v whose columns hold u (as often as they do). One stable sort of
+    col_idx on its device."""
+    cols = col_idx[:e]
     rows = torch.repeat_interleave(
         torch.arange(n, dtype=torch.int32, device=cols.device),
-        dg.degrees.long(), output_size=e)
+        (row_ptr[1:] - row_ptr[:-1]).long(), output_size=e)
     order = torch.sort(cols, stable=True).indices
-    row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=cols.device)
-    row_ptr[1:] = torch.cumsum(torch.bincount(cols.long(), minlength=n), 0)
-    return row_ptr, rows[order].contiguous()
+    t_ptr = torch.zeros(n + 1, dtype=torch.int32, device=cols.device)
+    t_ptr[1:] = torch.cumsum(torch.bincount(cols.long(), minlength=n), 0)
+    return t_ptr, rows[order].contiguous()
+
+
+def transposed_csr(dg: DeviceDirectedGraph) -> tuple:
+    """transpose_csr of dg's CSR, in dg's sorted ordering."""
+    return transpose_csr(dg.row_ptr, dg.col_idx, dg.v_pad, dg.e)
 
 
 def _csr_t(graph: VGLGraph, direction: TraversalDirection) -> RowCSR:

@@ -184,6 +184,10 @@ def pull_reduce(row_ptr: torch.Tensor, col_idx: torch.Tensor, x: torch.Tensor,
     if op not in _OPS:
         raise ValueError(f"unknown pull_reduce op {op!r}")
     _check_weights(weights, weight_op)
+    if weights is not None and weights.shape != col_idx.shape:
+        raise ValueError(f"pull_reduce: weights of shape "
+                         f"{tuple(weights.shape)} for col_idx of shape "
+                         f"{tuple(col_idx.shape)}")
     if not x.is_cuda:
         if x.device.type == "cpu":
             return pull_reduce_ref(row_ptr, col_idx, x, op, exclude_self_loops,

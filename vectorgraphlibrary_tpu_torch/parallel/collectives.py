@@ -3,7 +3,8 @@
 
 Reference (`vgl_compute_api/common/mpi_exchange.hpp`, SURVEY.md §2.4.5):
 - EXCHANGE_ALL (:78-187): ring exchange of full arrays + merge op
-  → ``merge_all``: one all_reduce (SUM, MIN or MAX) over a group;
+  → ``merge_all``: one all_reduce (SUM, MIN or MAX) over a group, and
+  ``merge_or_words``: the bitwise or of words that differ by rank;
 - EXCHANGE_RECENTLY_CHANGED (:14-53): delta compaction + ring + merge
   → ``merge_changed`` (dense, unchanged entries masked to the identity) and
   ``merge_changed_sparse`` (compacted deltas through one all_gather);
@@ -61,6 +62,19 @@ def merge_all(x: torch.Tensor, merge_op: str, group=None) -> torch.Tensor:
         return _all_reduce(x.to(torch.uint8), _OPS[merge_op],
                            group).to(torch.bool)
     return _all_reduce(x, _OPS[merge_op], group)
+
+
+def merge_or_words(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Bitwise or of every rank's integer words: one all_gather, then the
+    or of the gathered rows (reference sharded.py:304-312). Unlike
+    merge_all's unsigned max, right where the ranks' words differ, as a
+    SCATTER pull's partial words of one source do."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out | p
+    return out
 
 
 def _identity(merge_op: str, dtype) -> float:

@@ -9,11 +9,16 @@ shard of RMAT-9 (average degree 8, seed 1, weighted) and runs PageRank,
 BFS, SSSP, CC and HITS through the rank-parallel runners
 (sharded.make_*_sharded); rank 0 also builds every shard (import_sharded)
 and runs the same five through the one-card scan runners, which must give
-the same values (bit for bit, HITS within rtol 1e-5); then every rank
-takes a few PageRank, SSSP and BFS steps of the 2-D edge x vertex COO path
-(distributed.py) on the reference's factorization of the ranks. The
-reference's dry run also drives the sharded partial SSSP, DO-BFS, MS-BFS,
-CC hybrid and GraphSAGE step, which the port has not taken yet.
+the same values (bit for bit, HITS within rtol 1e-5). As the reference's
+dry run (dryrun.py:41-85), every rank then runs the partial-active SSSP
+(delta_capacity 128), DO-BFS (id_cap 2^8, edge_cap 2^12), MS-BFS from
+roots 0 to 31, flood-hybrid CC from hub 0 and one GraphSAGE step (in 4,
+hidden 8, 3 classes, Adam 1e-2), with the reference's checks; their
+results equal on every rank, the SSSP and DO-BFS equal the all-active
+SSSP and pull BFS, and MS-BFS and CC hybrid equal rank 0's scan twins.
+Then every rank takes a few PageRank, SSSP and BFS steps of the 2-D edge
+x vertex COO path (distributed.py) on the reference's factorization of the
+ranks.
 """
 from __future__ import annotations
 
@@ -32,6 +37,10 @@ from .shard_build import (edge_values_of_shard, import_shard, import_sharded,
                           shard_edge_values)
 
 ALGORITHMS = ("pr", "bfs", "sssp", "cc", "hits_auth", "hits_hub")
+# distribution part 2: equal on every rank
+PART2 = ("sssp_partial", "bfs_do", "msbfs", "cc_hybrid", "cc_hybrid_counts",
+         "sage_loss")
+SAGE_F, SAGE_HIDDEN, SAGE_CLASSES = 4, 8, 3
 
 
 def _coo_steps(ec, device, source: int, steps: int) -> dict:
@@ -55,6 +64,30 @@ def _coo_steps(ec, device, source: int, steps: int) -> dict:
                 e_index=grid.e_index, v_index=grid.v_index)
 
 
+def _part2(g, mesh, w, device, source: int) -> dict:
+    """The rank drivers of distribution part 2 and one GraphSAGE step."""
+    from ..models import gnn
+    labels, flood, hooks = sharded.make_cc_hybrid_sharded(g, mesh)(0)
+    rng = np.random.default_rng(0)
+    feats = torch.from_numpy(rng.normal(size=(g.v_pad, SAGE_F)).astype(
+        np.float32)).to(device)
+    classes = torch.from_numpy(rng.integers(0, SAGE_CLASSES, g.v_pad).astype(
+        np.int32)).to(device)
+    mask = torch.from_numpy(rng.random(g.v_pad) < 0.5).to(device)
+    params = gnn.init_sage(torch.Generator(device).manual_seed(0), SAGE_F,
+                           SAGE_HIDDEN, SAGE_CLASSES)
+    step = sharded.make_sage_train_step_sharded(
+        g, mesh, torch.optim.Adam(params.parameters(), lr=1e-2))
+    return dict(
+        sssp_partial=sharded.make_sssp_sharded_partial(
+            g, mesh, w, delta_capacity=128)(source),
+        bfs_do=sharded.make_bfs_do_sharded(g, mesh, id_cap=1 << 8,
+                                           edge_cap=1 << 12)(source),
+        msbfs=sharded.make_msbfs_sharded(g, mesh)(torch.arange(32)),
+        cc_hybrid=labels, cc_hybrid_counts=np.asarray([flood, hooks]),
+        sage_loss=step(params, feats, classes, mask))
+
+
 def sharded_rank(rank: int, world: int, device, scale: int = 9,
                  degree: int = 8, seed: int = 1, source: int = 0,
                  pr_iterations: int = 5, hits_iterations: int = 5,
@@ -73,6 +106,7 @@ def sharded_rank(rank: int, world: int, device, scale: int = 9,
         bfs=sharded.make_bfs_sharded(g, mesh)(source),
         sssp=sharded.make_sssp_sharded(g, mesh, w)(source),
         cc=sharded.make_cc_sharded(g, mesh)(), hits_auth=auth, hits_hub=hub)
+    out.update(_part2(g, mesh, w, device, source))
     out.update(_coo_steps(ec, device, source, coo_steps))
     if rank == 0:
         hs = []
@@ -84,7 +118,9 @@ def sharded_rank(rank: int, world: int, device, scale: int = 9,
             scan_sssp=sharded.sssp_sharded_scan(
                 sg, shard_edge_values(ec.weights, sg, ec, hs), source)[0],
             scan_cc=sharded.cc_sharded_scan(sg)[0], scan_hits_auth=auth,
-            scan_hits_hub=hub)
+            scan_hits_hub=hub,
+            scan_msbfs=sharded.msbfs_sharded_scan(sg, torch.arange(32)),
+            scan_cc_hybrid=sharded.cc_hybrid_sharded_scan(sg, 0)[0])
     out["jax_loaded"] = any(m.split(".")[0] in ("jax", "jaxlib",
                                                 "vectorgraphlibrary_tpu")
                             for m in sys.modules)
@@ -128,6 +164,24 @@ def run_dryrun(n_devices: int, timeout: float = 300.0, **kwargs) -> list:
         else:
             np.testing.assert_array_equal(first["scan_" + key], first[key],
                                           err_msg=f"{key}: scan != ranks")
+    for r in results:
+        for key in PART2:
+            np.testing.assert_array_equal(r[key], first[key],
+                                          err_msg=f"{key} differs by rank")
+    for key, want in (("sssp_partial", "sssp"), ("bfs_do", "bfs"),
+                      ("msbfs", "scan_msbfs"), ("cc_hybrid",
+                                                "scan_cc_hybrid")):
+        np.testing.assert_array_equal(first[key], first[want],
+                                      err_msg=f"{key} != {want}")
+    # the reference's checks
+    _check(bool(np.isfinite(first["sssp_partial"]).any()),
+           "partial SSSP reached no vertex")
+    _check(int((first["bfs_do"] > 0).sum()) >= 1, "DO-BFS reached no vertex")
+    _check(first["msbfs"].shape == (32, first["pr"].shape[0])
+           and int((first["msbfs"] > 0).sum()) >= 32,
+           "MS-BFS levels of the wrong shape or roots unreached")
+    _check(int(first["cc_hybrid_counts"][0]) >= 1, "CC hybrid never flooded")
+    _check(bool(np.isfinite(first["sage_loss"])), "GraphSAGE loss not finite")
     s = float(first["pr"].sum())
     _check(0.5 < s < 1.5, f"PageRank sums to {s}")
     _check(int((first["bfs"] > 0).sum()) >= 1, "BFS reached no vertex")

@@ -28,9 +28,10 @@ import torch
 from ..config import VGLConfig, DEFAULT_CONFIG, GraphFormat
 from ..graph.build import (HostDirectedCSR, build_directed_csr, layout_of,
                            unify_layouts)
-from ..graph.device import VGLGraph, _to_device_directed
+from ..graph.device import (DeviceDirectedGraph, VGLGraph,
+                            _to_device_directed)
 from ..graph.edges import EdgeArray, build_edge_array_from_host
-from ..graph.route_build import build_advance_route
+from ..graph.route_build import build_advance_route, in_route_slots
 from ..io.edges_container import EdgesContainer
 from ..ops.route import make_route_plan
 
@@ -148,9 +149,19 @@ def _pad_edges(h: HostDirectedCSR, e_pad: int) -> None:
     h.edges_pad = e_pad
 
 
+def _tile_slots(h: HostDirectedCSR) -> int:
+    """The slots of a direction's tiles (huge chunks, then the buckets):
+    the advance route's out_slots or in_slots (route_build.slot_map's
+    total)."""
+    huge = 0 if h.huge is None else h.huge.n_chunks_pad * h.huge.chunk_w
+    return huge + sum(b.rows_pad * b.width for b in h.buckets)
+
+
 def _build_shard(ec: EdgesContainer, plan: _ShardPlan, s: int,
-                 cfg: VGLConfig, device) -> Tuple[VGLGraph, tuple]:
-    """Shard s on `device` and its two host CSRs."""
+                 cfg: VGLConfig, device,
+                 slim: bool = False) -> Tuple[VGLGraph, tuple]:
+    """Shard s on `device` and its two host CSRs; a slim shard builds no
+    advance route and uploads none of what slim_value_pull drops."""
     v = ec.vertices_count
     m = plan.shard_id == s
     src, dst = ec.src_ids[m], ec.dst_ids[m]
@@ -160,11 +171,15 @@ def _build_shard(ec: EdgesContainer, plan: _ShardPlan, s: int,
                               v_pad=plan.v_pad)
     _pad_edges(h_out, plan.e_pad)
     _pad_edges(h_in, plan.e_pad)
-    route, out_slots, in_slots = build_advance_route(
-        h_out, h_in, selfloop_edges=src == dst, device=device)
+    if slim:
+        route = None
+        out_slots, in_slots = _tile_slots(h_out), _tile_slots(h_in)
+    else:
+        route, out_slots, in_slots = build_advance_route(
+            h_out, h_in, selfloop_edges=src == dst, device=device)
     g = VGLGraph(
-        outgoing=_to_device_directed(h_out, device),
-        incoming=_to_device_directed(h_in, device),
+        outgoing=_to_device_directed(h_out, device, slim),
+        incoming=_to_device_directed(h_in, device, slim),
         advance_route=route,
         vertex_route_s_from_g=make_route_plan(
             _vertex_perm(h_out, h_in, v, plan.v_pad), device=device),
@@ -173,21 +188,57 @@ def _build_shard(ec: EdgesContainer, plan: _ShardPlan, s: int,
         vertex_route_g_from_o=make_route_plan(_from_orig_perm(h_in, v),
                                               device=device),
         v=v, v_pad=plan.v_pad, e=plan.e_pad, out_slots=out_slots,
-        in_slots=in_slots, graph_format=GraphFormat.SHARDED_CSR)
+        in_slots=in_slots, graph_format=GraphFormat.SHARDED_CSR,
+        in_route_slots=in_route_slots(h_in.row_ptr, h_in.buckets, h_in.huge,
+                                      device), slim=slim)
     return g, (h_out, h_in)
+
+
+def slim_value_pull(g: VGLGraph) -> VGLGraph:
+    """The shard without what the port's shard pull never reads: the
+    advance route (about 10 B per route slot: two int32 gather indices and
+    two flag bytes), the tiles' adjacency (bucket and huge `adj`, 4 B per
+    tile slot), the two renumber maps per direction, whose orderings the
+    vertex routes also hold, and each col_idx's padding past the shard's
+    own edges to the unified e_pad (the dst % S split leaves the largest
+    shard with most of the edges, and every shard padded to it). It keeps
+    each direction's CSR (row_ptr, col_idx, degrees), the tiles' metadata
+    and huge seg_ids, the three vertex routes and in_route_slots, so every
+    scan and rank runner, the weight layouts and the sharded GraphSAGE run
+    on it.
+
+    This is the reverse of the JAX package's slim shard
+    (vectorgraphlibrary_tpu/parallel/shard_build.py:159-176), which keeps
+    the advance route and strips the CSR: its chip pulls through the route
+    and its tiles. The port's pull reads each direction's CSR (one kernel
+    launch over row_ptr and col_idx, ops/advance.advance_pull_value), so
+    the CSR is what stays here and the route is what goes."""
+    def strip(dg: DeviceDirectedGraph) -> DeviceDirectedGraph:
+        return dataclasses.replace(
+            dg, col_idx=dg.col_idx[:dg.e].clone(), sorted_to_orig=None,
+            orig_to_sorted=None,
+            buckets=tuple(dataclasses.replace(b, adj=None)
+                          for b in dg.buckets),
+            huge=(None if dg.huge is None
+                  else dataclasses.replace(dg.huge, adj=None)))
+    return dataclasses.replace(g, outgoing=strip(g.outgoing),
+                               incoming=strip(g.incoming), advance_route=None,
+                               slim=True)
 
 
 def import_shard(ec: EdgesContainer, n_shards: int, s: int,
                  cfg: VGLConfig = DEFAULT_CONFIG, device="cuda",
                  _host_out: Optional[list] = None,
-                 keep_edge_slots: Optional[bool] = None) -> VGLGraph:
+                 keep_edge_slots: Optional[bool] = None,
+                 slim: bool = False) -> VGLGraph:
     """Shard s of import_sharded(ec, n_shards) alone, built against the
     same unified layouts, so that each rank builds only its own. _host_out
     receives (h_out, h_in). keep_edge_slots is taken for the reference's
-    signature and stores nothing (graph/device.import_graph says why)."""
+    signature and stores nothing (graph/device.import_graph says why);
+    slim as in import_sharded."""
     del keep_edge_slots
     g, hosts = _build_shard(ec, _plan_shards(ec, n_shards, cfg), s, cfg,
-                            torch.device(device))
+                            torch.device(device), slim)
     if _host_out is not None:
         _host_out.append(hosts)
     return g
@@ -196,18 +247,19 @@ def import_shard(ec: EdgesContainer, n_shards: int, s: int,
 def import_sharded(ec: EdgesContainer, n_shards: int,
                    cfg: VGLConfig = DEFAULT_CONFIG, device="cuda",
                    _host_out: Optional[list] = None,
-                   keep_edge_slots: Optional[bool] = None
-                   ) -> ShardedTileGraph:
+                   keep_edge_slots: Optional[bool] = None,
+                   slim: bool = False) -> ShardedTileGraph:
     """Partition COO by destination, build every shard against the unified
     layouts. _host_out receives [(h_out, h_in), ...] per shard, which
     shard_edge_values needs to lay out edge values. keep_edge_slots as in
-    import_shard."""
+    import_shard. slim=True: every shard as slim_value_pull leaves it (the
+    out-of-memory scale path), without building the advance route."""
     del keep_edge_slots
     device = torch.device(device)
     plan = _plan_shards(ec, n_shards, cfg)
     shards = []
     for s in range(n_shards):
-        g, hosts = _build_shard(ec, plan, s, cfg, device)
+        g, hosts = _build_shard(ec, plan, s, cfg, device, slim)
         shards.append(g)
         if _host_out is not None:
             _host_out.append(hosts)
