@@ -28,7 +28,10 @@ result line):
    CSR tensor, the time to make its plan (set-up) and the device time of
    each of its kernels per call; the route kernel on the graph's routes,
    timed on the vertex route the path runs and on the 2^24 advance route,
-   and bool vectors through the routes (as bytes) equal to a cast to int8;
+   each on the device in turns with the kernel's first design
+   (apps/exp_route_v1.cu, one slot per thread) and beside a copy_ of the
+   route's indices (the floor of a launch of that size), and bool vectors
+   through the routes (as bytes) equal to a cast to int8;
 5. kernel: scatter_combine against its plain version on the card, bit for
    bit, into V = 2^20 int32 vertices from 2^15, 2^16 and 2^17 destinations
    (an eighth of them dropped), all dropped, and none; min and max of random
@@ -73,7 +76,9 @@ result line):
    route_gather_finish call by events and by torch.profiler, beside
    index_select, the earlier wrapper path and each step alone); the
    RMAT-20 vertex route by events and on the device, beside
-   index_select and its bound; and scatter_combine's int32 min of 2^16
+   index_select and its bound, and its int8 route of a byte vector (DO-BFS's
+   bottom-up levels), each on the device in turns with the first design
+   and beside a copy_ of the indices; and scatter_combine's int32 min of 2^16
    messages into 2^20 (K4's row) again, and its int32 add, beside
    scatter_reduce and index_add, and the in-place entry scatter_combine_
    (min and add, first held bit for bit against the plain version) beside
@@ -207,6 +212,14 @@ result line):
    rtol 1e-5), S pulls and 2S routes per sweep (2S and 4S for CC), at most
    two shards resident and the peak memory under two shards with weights
    plus the resident scan's state; the copy's GB/s and each sweep's ms.
+   (d) the same files stripped to the JAX package's slim shards
+   (persistence.save_jax_slim_sharded: the advance route kept, the CSRs,
+   renumber maps and tiles' adjacency dropped) and load_sharded_graph on
+   the card, which rebuilds each CSR from the route (timed while (b)'s
+   ranks run, as load_streamed is): 8 lane_shuffle launches per shard, as
+   the full files' load; every rebuilt CSR and in_route_slots equal to
+   phase 16's full load, PageRank, BFS and hashed SSSP bit-equal; both
+   loads' seconds.
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
@@ -671,9 +684,29 @@ def phase_pagerank(rg, pl, smi: str):
           f"path): kernel {adv_ms:.4f} ms (runs "
           f"{', '.join(f'{t:.4f}' for t in ks)}), plain {adv_plain_ms:.4f} ms, "
           f"bound {adv_bound:.4f} ms on {smi}")
+    # on the device, in turns with the kernel's first design
+    from vectorgraphlibrary_tpu_torch.apps import exp_route
+    first = exp_route.first_design()
+
+    def first_fn():
+        return first.finish_f32(msgs, plan.fwd_idx, plan.flags_fwd, True, 0.0)
+    want_adv = rg.route_gather_finish_ref(
+        msgs, plan.fwd_idx, flags=plan.flags_fwd, exclude_self_loops=True,
+        ident=0.0)
+    if not torch.equal(first_fn().view(torch.int32),
+                       want_adv.view(torch.int32)):
+        raise AssertionError("the first design's advance route differs from "
+                             "the plain version")
+    adv_turns = [_one_kernel_ms(f) for f in (
+        first_fn, lambda: apply_route(plan, msgs, finish=fin),
+        lambda: apply_route(plan, msgs, finish=fin), first_fn)]
+    print(f"  RMAT-{SCALE} advance route f32 fwd finish, device ms per call "
+          f"by torch.profiler: first design / kernel / kernel / first design "
+          f"{adv_turns} on {smi}")
     route = dict(max_err=max_err, **vr, advance_route_2p24_ms=adv_ms,
                  advance_route_2p24_plain_ms=adv_plain_ms,
-                 advance_route_2p24_bound_ms=adv_bound)
+                 advance_route_2p24_bound_ms=adv_bound,
+                 advance_route_2p24_first_tree_tree_first_device_ms=adv_turns)
     return dict(graph=graph, ec=ec, ranks=vals, oracle=want,
                 launches=launches, route=route, pull=pull)
 
@@ -1192,19 +1225,29 @@ def phase_weighted_kernels(rg, pl, scm, ec, graph, ea, smi: str) -> dict:
 
     k4 = _k4_retime(scm, smi)
     launch = _launch_cost(rg, smi)
+    frontier_bytes = (torch.rand(graph.v_pad, device=DEVICE) < 0.3).to(
+        torch.int8)
     route = _vertex_route_times(rg, graph.vertex_route_s_from_g,
                                 graph.outgoing.degrees, f"RMAT-{BFS_SCALE}",
-                                smi)
+                                smi, x_bytes=frontier_bytes)
     return dict(pull_err=pull_err, pulls=pulls, scatter=scatter, launch=launch,
                 route=route, k4=k4)
 
 
-def _vertex_route_times(rg, vplan, x, label: str, smi: str) -> dict:
+def _vertex_route_times(rg, vplan, x, label: str, smi: str,
+                        x_bytes=None) -> dict:
     """route_gather_finish on the inverse vertex route of int32 x (the route
     the path runs), by events and on the device (torch.profiler), beside
     index_select and the bound (idx and x read, out written). The event
     times are means of 100 launches, kernel and index_select in turns: at
-    these sizes they are the host's cost of a launch."""
+    these sizes they are the host's cost of a launch. On the device also
+    the first design of the kernel (apps/exp_route_v1.cu, the parent's
+    source) in turns with it (first, tree, tree, first), and a one-call
+    copy_ of the route's indices into an int32 buffer: one pass with no
+    dependent read, the floor of a launch of that size. x_bytes: also the
+    int8 route of those bytes (DO-BFS's bottom-up levels), on the device
+    against the first design, the floor and index_select."""
+    from vectorgraphlibrary_tpu_torch.apps import exp_route
     k, lib = [], []
     for _ in range(3):
         k.append(_cuda_ms(lambda: rg.route_gather_finish(x, vplan.inv_idx),
@@ -1218,15 +1261,41 @@ def _vertex_route_times(rg, vplan, x, label: str, smi: str) -> dict:
     p_ms = _median3(f"route_gather_finish {label} vertex route i32 inv, "
                     f"plain", "ms", [_cuda_ms(lambda: rg.route_gather_finish_ref(
                         x, vplan.inv_idx)) for _ in range(3)], smi)
-    bound = _bound_ms(vplan.n * (4 + 4 + 4))
-    dev_k = _one_kernel_ms(lambda: rg.route_gather_finish(x, vplan.inv_idx))
-    dev_l = _one_kernel_ms(lambda: torch.index_select(x, 0, vplan.inv_idx))
-    print(f"  route_gather_finish {label} vertex route ({vplan.n} slots): "
-          f"device ms per call by torch.profiler {dev_k} (index_select "
-          f"{dev_l}), bound {bound:.4f} ms"
-          + (f" ({dev_k / bound:.2f}x)" if dev_k else ""))
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound,
-                device_ms=dev_k, library_device_ms=dev_l)
+    first = exp_route.first_design()
+    floor_out = torch.empty(vplan.n, dtype=torch.int32, device=DEVICE)
+
+    def on_device(xv, name: str, x_size: int) -> dict:
+        want = rg.route_gather_finish_ref(xv, vplan.inv_idx)
+        for who, got in (("kernel", rg.route_gather_finish(xv, vplan.inv_idx)),
+                         ("first design", first.route(xv, vplan.inv_idx))):
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"route_gather {label} {name}: the "
+                                     f"{who} differs from the plain version")
+        tree_fn = lambda: rg.route_gather_finish(xv, vplan.inv_idx)
+        first_fn = lambda: first.route(xv, vplan.inv_idx)
+        turns = [_one_kernel_ms(f, reps=20)
+                 for f in (first_fn, tree_fn, tree_fn, first_fn)]
+        r = dict(device_ms=(None if None in turns[1:3]
+                            else (turns[1] + turns[2]) / 2),
+                 first_tree_tree_first_device_ms=turns,
+                 copy_floor_device_ms=_one_kernel_ms(
+                     lambda: floor_out.copy_(vplan.inv_idx), reps=20),
+                 library_device_ms=_one_kernel_ms(
+                     lambda: torch.index_select(xv, 0, vplan.inv_idx)),
+                 bound_ms=_bound_ms(vplan.n * (4 + 2 * x_size)))
+        print(f"  route_gather_finish {label} vertex route {name} "
+              f"({vplan.n} slots), device ms per call by torch.profiler: "
+              f"first design / kernel / kernel / first design "
+              f"{turns}; copy_ of its indices {r['copy_floor_device_ms']}; "
+              f"index_select {r['library_device_ms']}; bound "
+              f"{r['bound_ms']:.4f} on {smi}")
+        return r
+    r = on_device(x, "i32 inv", 4)
+    out = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, **r)
+    if x_bytes is not None:
+        out["i8_inv"] = on_device(x_bytes, "i8 inv", 1)
+    return out
 
 
 def _one_kernel_ms(fn, reps: int = 10):
@@ -3069,7 +3138,7 @@ def phase_sharded(kernels: dict, ec, graph, ea, bfs_root: int, root_levels,
 
 
 PATHS17 = (f"part2_scan_rmat{BFS_SCALE}", f"part2_ranks_rmat{BFS_SCALE}",
-           f"streamed_rmat{SCALE}")
+           f"streamed_rmat{SCALE}", f"jax_slim_load_rmat{SCALE}")
 GLOO_SCALE = 16            # phase 17 (b): the gloo ranks' graph
 STREAM_ITERS = 20          # phase 17 (c): PageRank iterations (HITS: half)
 SAGE_PARAMS = ("w_self1", "w_nbr1", "b1", "w_self2", "w_nbr2", "b2")
@@ -3235,13 +3304,16 @@ def phase_part2(kernels: dict, ec, graph, bfs_root: int, root_levels,
     RMAT-18 shards and their hashed weights (save_sharded_weights) from
     pinned host memory: the five streamed algorithms equal the resident
     scans; host-to-device GB/s, each sweep's ms and the peak device memory
-    against two shards and the state. Returns the launches on each path
-    and the numbers printed."""
+    against two shards and the state. (d) Those files as the JAX package's
+    slim shards, loaded on the card with their CSRs rebuilt: equal to the
+    full load, the scans bit-equal. Returns the launches on each path and
+    the numbers printed."""
     from concurrent.futures import ThreadPoolExecutor
     from vectorgraphlibrary_tpu_torch.config import TraversalDirection
     from vectorgraphlibrary_tpu_torch.graph.device import import_graph
     from vectorgraphlibrary_tpu_torch.graph.persistence import (
-        load_sharded_weights, save_sharded_weights)
+        load_sharded_graph, load_sharded_weights, save_jax_slim_sharded,
+        save_sharded_weights)
     from vectorgraphlibrary_tpu_torch.io import generation
     from vectorgraphlibrary_tpu_torch.models import bfs, cc, common, sssp
     from vectorgraphlibrary_tpu_torch.parallel import shard_build, sharded
@@ -3367,6 +3439,27 @@ def phase_part2(kernels: dict, ec, graph, bfs_root: int, root_levels,
             ssg = streaming.load_streamed(prefix18, weights=True,
                                           device=DEVICE)
             numbers["load_streamed_s"] = time.perf_counter() - t1
+            # (d)'s files: the same shards as the JAX package's slim shards
+            # (the advance route kept; the CSRs, renumber maps and tiles'
+            # adjacency dropped: this host has no JAX to write them),
+            # loaded on the card with each CSR rebuilt from the route
+            jprefix = f"{prefix18}_jax_slim"
+            t1 = time.perf_counter()
+            save_jax_slim_sharded(prefix18, jprefix)
+            numbers["jax_slim_write_s"] = time.perf_counter() - t1
+            for k in kernels.values():
+                k.launches = 0
+            t1 = time.perf_counter()
+            jslim18 = load_sharded_graph(jprefix, device=DEVICE)
+            torch.cuda.synchronize()
+            numbers["load_jax_slim_s"] = time.perf_counter() - t1
+            n = {name: k.launches for name, k in kernels.items()}
+            # two lane_shuffle launches per plan: the advance route and
+            # the three vertex routes of each shard, as a full file's load
+            count_check("load_sharded_graph of the JAX slim shards", n,
+                        dict(lane_shuffle=8 * S))
+            for name in n:
+                launches[PATHS17[3]][name] += n[name]
             # a slim import uploads only what a slim shard keeps: its peak
             # device memory against the slim shards' bytes (a full shard
             # built and then stripped would add the largest full shard)
@@ -3703,6 +3796,49 @@ def phase_part2(kernels: dict, ec, graph, bfs_root: int, root_levels,
               f"{state_b / 2**20:.1f}); launches pull_reduce "
               f"{n['pull_reduce']}, route_gather_finish "
               f"{n['route_gather_finish']} on {smi}")
+    del ssg
+
+    # (d) the JAX package's slim shards, written and loaded in (b): every
+    # rebuilt CSR against phase 16's full load of the same files, and the
+    # scans over both
+    full, jslim = kept["loaded18"], jslim18
+    for s in range(S):
+        got, want = jslim.shard(s), shard_build.slim_value_pull(full.shard(s))
+        if not (got.slim and got.advance_route is None):
+            raise AssertionError(f"JAX slim shard {s}: not loaded slim")
+        for d in ("outgoing", "incoming"):
+            for k in ("row_ptr", "col_idx", "degrees"):
+                if not torch.equal(getattr(getattr(got, d), k),
+                                   getattr(getattr(want, d), k)):
+                    raise AssertionError(f"JAX slim shard {s}: rebuilt "
+                                         f"{d}.{k} differs from the full "
+                                         f"load's")
+        if not torch.equal(got.in_route_slots, want.in_route_slots):
+            raise AssertionError(f"JAX slim shard {s}: in_route_slots "
+                                 f"differ from the full load's")
+    for k in kernels.values():
+        k.launches = 0
+    for label, fn in (
+            ("pagerank", lambda g: sharded.pagerank_sharded_scan(g, ec18,
+                                                                 ITERS)),
+            ("bfs", lambda g: sharded.bfs_sharded_scan(g, roots18[0])),
+            ("sssp_hash", lambda g: sharded.sssp_sharded_scan_hash(
+                g, roots18[0], True)[0])):
+        if not torch.equal(fn(jslim), fn(full)):
+            raise AssertionError(f"{label} on the JAX slim shards differs "
+                                 f"from the full load's")
+    n = {name: k.launches for name, k in kernels.items()}
+    for name in n:
+        launches[PATHS17[3]][name] += n[name]
+    print(f"  JAX package's slim shards of RMAT-{SCALE} in {S}: written in "
+          f"{numbers['jax_slim_write_s']:.2f} s; load_sharded_graph "
+          f"{numbers['load_jax_slim_s']:.2f} s (CSRs rebuilt, while the "
+          f"ranks of (b) ran) against phase 16's load of the full files "
+          f"{p16['numbers']['load_s']:.2f} s, lane_shuffle {8 * S} "
+          f"launches each as predicted; every CSR and in_route_slots equal "
+          f"to the full load's; PageRank, BFS and hashed SSSP bit-equal "
+          f"(their launches {n}) on {smi}")
+    del full, jslim
     return dict(launches=launches, numbers=numbers)
 
 
@@ -3854,8 +3990,15 @@ def main() -> int:
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
+    from concurrent.futures import ThreadPoolExecutor
+    from vectorgraphlibrary_tpu_torch.apps import exp_route
     t0 = time.perf_counter()
-    build.load_library()
+    with ThreadPoolExecutor(1) as pool:
+        # the route kernel's first design, the yardstick of phases 4 and 9,
+        # built beside the library
+        first = pool.submit(exp_route.first_design)
+        build.load_library()
+        first.result()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     print(f"[2/17] build: {time.perf_counter() - t0:.2f} s (nvcc "

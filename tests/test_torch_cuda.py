@@ -103,6 +103,85 @@ def test_kernel_tail_and_offset_views_equal_plain_version(cuda, n, offset):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# every tail of the vector items (V = 4 for 4-byte values, 16 for bytes),
+# one wave and several
+ROUTE_NS = [1, 3, 15, 16, 17, 4095, 1 << 18, (1 << 20) + 5]
+
+
+def _route_data(rng, dtype, k):
+    """k seeded values of dtype; f32 with NaNs (one canonical NaN, so a
+    NaN's bits do not depend on which operand min/max return), infinities
+    and signed zeros."""
+    if dtype == "f32":
+        a = rng.standard_normal(k).astype(np.float32)
+        special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)
+        pick = rng.random(k) < 0.1
+        a[pick] = special[rng.integers(0, 5, int(pick.sum()))]
+        return a
+    if dtype == "i32":
+        return rng.integers(-2**31, 2**31 - 1, k, dtype=np.int64).astype(
+            np.int32)
+    return rng.integers(-128, 128, k).astype(np.int8)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", ROUTE_NS)
+@pytest.mark.parametrize("dtype", ["f32", "i32", "i8"])
+def test_route_gather_every_entry_tail_and_view(cuda, dtype, n, offset):
+    """Every entry (the finish entries of each type, and b4 and b1 without
+    a finish), every weight op with and without flags and
+    exclude_self_loops, at every tail of the vector items; x, idx, flags
+    and weights as views one element past a 16-byte boundary (offset 1),
+    which the kernel reads by words or bytes. Bit-equal to the plain
+    version, one launch counted per call."""
+    rng = np.random.default_rng(8 * n + offset)
+    m = n + 7                                  # x longer than the route
+
+    def view(a):
+        return torch.from_numpy(a).to(cuda)[offset:]
+    x = view(_route_data(rng, dtype, m + offset))
+    idx = view(rng.integers(0, m, n + offset).astype(np.int32))
+    flags = view(rng.integers(0, 4, n + offset).astype(np.uint8))
+    w = view(_route_data(rng, dtype, n + offset))
+    ident = -2.5 if dtype == "f32" else -3
+    cases = [{}]
+    for excl in (False, True):
+        cases.append(dict(flags=flags, exclude_self_loops=excl, ident=ident))
+    for op in ("add", "min", "max", "mul"):
+        cases.append(dict(weights=w, weight_op=op))
+        for excl in (False, True):
+            cases.append(dict(flags=flags, exclude_self_loops=excl,
+                              ident=ident, weights=w, weight_op=op))
+    for kw in cases:
+        before = rg.route_gather_finish.launches
+        got = rg.route_gather_finish(x, idx, **kw)
+        torch.cuda.synchronize()
+        assert rg.route_gather_finish.launches == before + 1
+        want = rg.route_gather_finish_ref(x, idx, **kw)
+        if dtype == "f32":
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want), (n, offset, kw.keys(),
+                                        kw.get("weight_op"))
+
+
+@pytest.mark.parametrize("n", [128, 1 << 12, 1 << 18])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_route_gather_bool_through_apply_route(cuda, n, inverse):
+    """bool values ride the byte entry as their bytes, on a view one byte
+    past a 16-byte boundary too."""
+    rng = np.random.default_rng(n)
+    plan = make_route_plan(rng.permutation(n), device=cuda)
+    idx = plan.inv_idx if inverse else plan.fwd_idx
+    for off in (0, 1):
+        xb = (torch.from_numpy(rng.random(n + off) < 0.4).to(cuda))[off:]
+        before = rg.route_gather_finish.launches
+        got = apply_route(plan, xb, inverse=inverse)
+        torch.cuda.synchronize()
+        assert rg.route_gather_finish.launches == before + 1
+        assert got.dtype == torch.bool
+        assert torch.equal(got, xb[idx.long()])
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     idx = torch.arange(8, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):

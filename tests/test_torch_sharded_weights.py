@@ -3,8 +3,8 @@ package: route-slot edge weights (save_sharded_weights,
 load_sharded_weights) written by either package load in the other and lay
 out, bit for bit, as each package lays out the same COO weights; a port
 slim shard saves and loads, and its scans run bit-equal; a slim shard of
-the JAX package (no CSR) is refused with a ValueError naming the missing
-keys. RMAT-10 (average degree 8, seed 3, weighted) in 4 shards."""
+the JAX package (no CSR) loads with its CSRs rebuilt from the advance
+route. RMAT-10 (average degree 8, seed 3, weighted) in 4 shards."""
 import numpy as np
 import pytest
 
@@ -102,13 +102,31 @@ def test_port_slim_shards_save_load_and_run_bit_equal(built):
         assert torch.equal(fn(loaded), fn(slim))
 
 
-def test_jax_slim_shard_is_refused(built):
+def test_jax_slim_shard_loads(built):
+    """The JAX package's slim shards (the advance route kept, the CSRs
+    dropped) load with their CSRs rebuilt from the route: equal to the
+    port's slim import of the same graph, and the JAX package's route-slot
+    weights lay out on them as on the port's full shards."""
     ec = jgen.rmat(**GRAPH)
-    jslim = jsb.import_sharded(ec, 2, slim=True)
+    jslim = jsb.import_sharded(ec, N_SHARDS, slim=True)
     prefix = str(built["d"] / "jslim")
     jpersistence.save_sharded_graph(jslim, prefix)
-    with pytest.raises(ValueError, match="out.row_ptr, out.col_idx"):
-        persistence.load_graph_from_binary_file(f"{prefix}.shard0.npz",
-                                                device="cpu")
-    with pytest.raises(ValueError, match="slim shard of the JAX package"):
-        persistence.load_sharded_graph(prefix, device="cpu")
+    with np.load(f"{prefix}.shard0.npz") as z:
+        assert "route.meta" in z.files and "in.col_idx" not in z.files
+    one = persistence.load_graph_from_binary_file(f"{prefix}.shard0.npz",
+                                                  device="cpu")
+    loaded = persistence.load_sharded_graph(prefix, device="cpu")
+    want = sb.import_sharded(built["ec"], N_SHARDS, device="cpu", slim=True)
+    for a, b in zip((one, *loaded.shards), (want.shard(0), *want.shards)):
+        assert a.slim and a.advance_route is None
+        for f in ("outgoing", "incoming"):
+            x, y = getattr(a, f), getattr(b, f)
+            for k in ("row_ptr", "col_idx", "degrees"):
+                assert torch.equal(getattr(x, k), getattr(y, k)), (f, k)
+        assert torch.equal(a.in_route_slots, b.in_route_slots)
+    ws = sharded.slot_weights_stacked(persistence.load_sharded_weights(
+        built["jprefix"], N_SHARDS, device="cpu"), loaded)
+    for s in range(N_SHARDS):
+        e = loaded.shard(s).incoming.e
+        assert torch.equal(ws[s].incoming.flat[:e],
+                           built["weights"][s].incoming.flat[:e])

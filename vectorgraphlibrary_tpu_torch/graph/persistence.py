@@ -20,6 +20,10 @@ save/load_main_content_to_binary_file, vect_csr_graph.h:90-92):
   apply_route_stages: two lane-shuffle launches per plan) to recover the
   port's gather indices; a file saved on a TPU carries only the words, which
   are unpacked first.
+- a slim shard of the JAX package keeps the advance route and drops each
+  direction's CSR; the loader rebuilds the CSRs from the route's flags and
+  permutation and the tiles' metadata (route_build.csrs_from_route).
+  save_jax_slim_sharded writes such files from full ones.
 - per-slot CSR edge indices (`eidx`, in files of weighted graphs) are not
   read: they map tile slots to CSR slots, to lay out the JAX package's tile
   copies of edge values, and the port keeps edge values only in CSR slot
@@ -28,6 +32,7 @@ save/load_main_content_to_binary_file, vect_csr_graph.h:90-92):
 from __future__ import annotations
 
 import json
+import shutil
 
 import numpy as np
 import torch
@@ -38,7 +43,7 @@ from ..ops.route import (RoutePlan, benes_plan_from_packed, inverse_lanes,
 from ..ops.route_words import (build_word_masks, split_levels,
                                unpack_word_masks, word_flags)
 from .device import DeviceDirectedGraph, TileBucket, VGLGraph, huge_tile
-from .route_build import in_route_slots
+from .route_build import csrs_from_route, in_route_slots
 
 # the values of the "format" key that the port builds: a graph, a shard
 FORMATS = (GraphFormat.TILE_CSR.value, GraphFormat.SHARDED_CSR.value)
@@ -97,16 +102,10 @@ def _i32(z, key: str, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _unpack_directed(prefix: str, z, device, slim: bool
-                     ) -> DeviceDirectedGraph:
-    """slim: the direction gets no tiles' adjacency nor renumber maps (a
-    slim shard's file holds none) and its col_idx ends at the CSR's
-    edges, as slim_value_pull leaves it."""
-    v, v_pad, e, e_pad, nb, has_huge = z[f"{prefix}.meta"].tolist()
-    # the port's e is the CSR's edge count (a shard's meta holds e_pad)
-    e_csr = int(z[f"{prefix}.row_ptr"][-1])
-    if e not in (e_csr, e_pad):
-        raise ValueError(f"{prefix}.meta: {e} edges; its CSR holds {e_csr}")
+def _unpack_tiles(prefix: str, z, device, slim: bool) -> tuple:
+    """A direction's (buckets, huge) on `device`; slim: without the tiles'
+    adjacency, which a slim shard's file does not hold."""
+    _, _, _, _, nb, has_huge = z[f"{prefix}.meta"].tolist()
 
     def opt(key):
         return None if slim else _i32(z, key, device)
@@ -126,15 +125,37 @@ def _unpack_directed(prefix: str, z, device, slim: bool
         cw, nr, nc, ncp = z[f"{prefix}.huge.meta"].tolist()
         huge = huge_tile(opt(f"{prefix}.huge.adj"),
                          z[f"{prefix}.huge.seg_ids"], cw, nr, nc, ncp, device)
+    return tuple(buckets), huge
+
+
+def _unpack_directed(prefix: str, z, device, slim: bool, tiles=None,
+                     csr=None) -> DeviceDirectedGraph:
+    """slim: the direction gets no tiles' adjacency nor renumber maps (a
+    slim shard's file holds none) and its col_idx ends at the CSR's
+    edges, as slim_value_pull leaves it. csr: (row_ptr, col_idx, degrees)
+    rebuilt from the advance route (route_build.csrs_from_route), for a
+    file that holds none; tiles: its (buckets, huge) where already read."""
+    v, v_pad, e, e_pad, _, _ = z[f"{prefix}.meta"].tolist()
+    if csr is None:
+        e_csr = int(z[f"{prefix}.row_ptr"][-1])
+        col_idx = _i32(z, f"{prefix}.col_idx", device)
+        csr = (_i32(z, f"{prefix}.row_ptr", device),
+               col_idx[:e_csr].clone() if slim else col_idx,
+               _i32(z, f"{prefix}.degrees", device))
+    else:
+        e_csr = csr[1].numel()
+    # the port's e is the CSR's edge count (a shard's meta holds e_pad)
+    if e not in (e_csr, e_pad):
+        raise ValueError(f"{prefix}.meta: {e} edges; its CSR holds {e_csr}")
+    buckets, huge = tiles or _unpack_tiles(prefix, z, device, slim)
+
+    def opt(key):
+        return None if slim else _i32(z, key, device)
     return DeviceDirectedGraph(
-        row_ptr=_i32(z, f"{prefix}.row_ptr", device),
-        col_idx=(_i32(z, f"{prefix}.col_idx", device)[:e_csr].clone()
-                 if slim else _i32(z, f"{prefix}.col_idx", device)),
-        degrees=_i32(z, f"{prefix}.degrees", device),
+        row_ptr=csr[0], col_idx=csr[1], degrees=csr[2],
         sorted_to_orig=opt(f"{prefix}.sorted_to_orig"),
         orig_to_sorted=opt(f"{prefix}.orig_to_sorted"),
-        buckets=tuple(buckets), huge=huge, v=v, v_pad=v_pad, e=e_csr,
-        e_pad=e_pad)
+        buckets=buckets, huge=huge, v=v, v_pad=v_pad, e=e_csr, e_pad=e_pad)
 
 
 def _pack_route(prefix: str, plan: RoutePlan, out: dict) -> None:
@@ -235,7 +256,8 @@ def save_graph_to_binary_file(graph: VGLGraph, path: str,
 
 # what the port's pull reads of each direction; the JAX package's slim
 # shard files lack them (vectorgraphlibrary_tpu/parallel/shard_build.py
-# :159-176 strips the CSR and keeps the advance route)
+# :159-176 strips the CSR and keeps the advance route), and the loader
+# rebuilds them from the route
 _CSR_KEYS = ("row_ptr", "col_idx", "degrees")
 
 
@@ -247,9 +269,11 @@ def load_graph_from_binary_file(path: str, device="cuda",
     parallel/streaming.py, reads shards so). A file without the advance
     route is a slim shard of the port's; slim=True reads a shard's file
     as slim_value_pull would leave it, without executing its advance
-    route's network. A JAX package's slim shard, which
-    holds no CSR, raises ValueError: the port pulls over the CSR, and
-    rebuilding it from the route is not done. A shard gets its
+    route's network. A JAX package's slim shard holds the advance route
+    and no CSR: the loader executes the route's network on `device` (two
+    lane_shuffle launches on a card, the plain version on the CPU) and
+    rebuilds both CSRs from it (route_build.csrs_from_route), then returns
+    the port's slim shard, without the route. A shard gets its
     in_route_slots from its incoming CSR and tiles' metadata."""
     device = torch.device(device)
     with np.load(path) as z:
@@ -259,33 +283,46 @@ def load_graph_from_binary_file(path: str, device="cuda",
                              f"{FORMATS} graphs only")
         missing = [f"{d}.{k}" for d in ("out", "in") for k in _CSR_KEYS
                    if f"{d}.{k}" not in z]
-        if missing:
+        if missing and (len(missing) < 2 * len(_CSR_KEYS)
+                        or "route.meta" not in z):
             raise ValueError(
-                f"{path}: no {', '.join(missing)}: a slim shard of the JAX "
-                "package, which keeps the advance route and drops the CSR; "
-                "the port's pull reads the CSR, and the port does not "
-                "rebuild it from the route. Save the graph unslimmed, or "
-                "slim it in the port (shard_build.import_sharded(slim=True))")
+                f"{path}: no {', '.join(missing)}: neither a full file nor "
+                "a slim shard that keeps its advance route (written by "
+                "neither package's save)")
         v, v_pad, e, out_slots, in_slots = z["meta"].tolist()
-        slim = slim or "route.meta" not in z
         for prefix, _ in _VROUTES:
             if f"{prefix}.meta" not in z:
                 raise ValueError(f"{path}: no route {prefix!r}")
-        incoming = _unpack_directed("in", z, device, slim)
+        vroutes = {attr: _unpack_route(prefix, z, device, needs_flags=False)
+                   for prefix, attr in _VROUTES}
         graph_format = GraphFormat.parse(fmt)
-        slots = None
-        if graph_format == GraphFormat.SHARDED_CSR:
-            slots = in_route_slots(z["in.row_ptr"], incoming.buckets,
-                                   incoming.huge, device)
+        sharded = graph_format == GraphFormat.SHARDED_CSR
+        if missing:
+            slim = True
+            tiles = {d: _unpack_tiles(d, z, device, slim=True)
+                     for d in ("out", "in")}
+            csr_out, csr_in, slots = csrs_from_route(
+                _unpack_route("route", z, device, needs_flags=True),
+                tiles["out"], tiles["in"], vroutes["vertex_route_s_from_g"],
+                v_pad)
+            outgoing = _unpack_directed("out", z, device, slim,
+                                        tiles["out"], csr_out)
+            incoming = _unpack_directed("in", z, device, slim, tiles["in"],
+                                        csr_in)
+        else:
+            slim = slim or "route.meta" not in z
+            outgoing = _unpack_directed("out", z, device, slim)
+            incoming = _unpack_directed("in", z, device, slim)
+            slots = (in_route_slots(z["in.row_ptr"], incoming.buckets,
+                                    incoming.huge, device)
+                     if sharded else None)
         return VGLGraph(
-            outgoing=_unpack_directed("out", z, device, slim),
-            incoming=incoming,
+            outgoing=outgoing, incoming=incoming,
             advance_route=(None if slim else _unpack_route(
                 "route", z, device, needs_flags=True)),
-            **{attr: _unpack_route(prefix, z, device, needs_flags=False)
-               for prefix, attr in _VROUTES},
-            v=v, v_pad=v_pad, e=e, out_slots=out_slots, in_slots=in_slots,
-            graph_format=graph_format, in_route_slots=slots, slim=slim)
+            **vroutes, v=v, v_pad=v_pad, e=e, out_slots=out_slots,
+            in_slots=in_slots, graph_format=graph_format,
+            in_route_slots=slots if sharded else None, slim=slim)
 
 
 def save_sharded_graph(sg, path_prefix: str, compressed: bool = False) -> None:
@@ -302,6 +339,36 @@ def save_sharded_graph(sg, path_prefix: str, compressed: bool = False) -> None:
                    "e": sg.e,
                    "edges_per_shard": [int(c) for c in sg.edges_per_shard]},
                   f)
+
+
+# the keys of a direction that the JAX package's slim shard file lacks
+# (its slim_value_pull drops the CSR, the renumber maps and the tiles'
+# adjacency and edge indices)
+_JAX_SLIM_DROPS = (*_CSR_KEYS, "sorted_to_orig", "orig_to_sorted", "adj",
+                   "eidx")
+
+
+def _jax_slim_drops(key: str) -> bool:
+    return key.split(".")[0] in ("out", "in") \
+        and key.split(".")[-1] in _JAX_SLIM_DROPS
+
+
+def save_jax_slim_sharded(src_prefix: str, dst_prefix: str) -> None:
+    """Write the sharded graph saved at src_prefix (full shards, by either
+    package) as the JAX package's slim shards at dst_prefix: each shard's
+    file without the keys that its slim save leaves out, the meta file as
+    it is. The JAX package loads them as it loads its own slim shards, and
+    so does load_sharded_graph (rebuilding the CSRs)."""
+    with open(f"{src_prefix}.meta.json") as f:
+        n_shards = json.load(f)["n_shards"]
+    for s in range(n_shards):
+        with np.load(f"{src_prefix}.shard{s}.npz") as z:
+            if "route.meta" not in z:
+                raise ValueError(f"{src_prefix}.shard{s}.npz: no advance "
+                                 "route (a slim shard of the port's)")
+            kept = {k: z[k] for k in z.files if not _jax_slim_drops(k)}
+        np.savez(f"{dst_prefix}.shard{s}.npz", **kept)
+    shutil.copyfile(f"{src_prefix}.meta.json", f"{dst_prefix}.meta.json")
 
 
 def save_sharded_weights(slot_weights, path_prefix: str) -> None:

@@ -141,3 +141,87 @@ def in_route_slots(row_ptr: np.ndarray, buckets, huge, device):
     import torch
     return torch.from_numpy(csr_route_slots(row_ptr, buckets, huge).astype(
         np.int32)).to(device)
+
+
+def _slot_owners(buckets, huge, n: int, device):
+    """int32 [n]: the row that owns each tile slot of a direction, in
+    slot_map's flat order (huge chunks in seg_ids order, then the buckets'
+    rows, width slots each); 0 past the tiles. A pad chunk or pad row owns
+    slots that hold no edge."""
+    import torch
+    parts = []
+    if huge is not None:
+        parts.append(huge.seg_ids.to(device=device, dtype=torch.int32)
+                     .repeat_interleave(huge.chunk_w))
+    for b in buckets:
+        parts.append(torch.arange(b.row_start, b.row_start + b.rows_pad,
+                                  dtype=torch.int32, device=device)
+                     .repeat_interleave(b.width))
+    owners = torch.zeros(n, dtype=torch.int32, device=device)
+    if parts:
+        flat = torch.cat(parts)
+        if flat.numel() > n:
+            raise ValueError(f"tiles of {flat.numel()} slots for a route of "
+                             f"{n}")
+        owners[:flat.numel()] = flat
+    return owners
+
+
+def csrs_from_route(route, out_tiles, in_tiles, s_from_g, v_pad: int):
+    """Both directions' CSRs of a graph whose file kept the advance route
+    and dropped the CSRs (the JAX package's slim shard), on the route's
+    device. route: the advance RoutePlan with its finish flags; out_tiles,
+    in_tiles: (buckets, huge) of each direction (metadata and huge seg_ids;
+    no adjacency needed); s_from_g: the vertex route whose forward index
+    maps a scatter-ordered vertex to its gather-ordered id.
+
+    The inverse of build_advance_route and csr_route_slots:
+    - a slot's flags bit 0 marks a real edge, and a row's real slots are its
+      first degree(row) slots, so counting each direction's real slots by
+      owning row gives its degrees, and their prefix sum its row_ptr;
+    - the route's forward index sends each incoming slot the outgoing slot
+      it came from, whose owner is the edge's source (scatter order); the
+      inverse index sends each outgoing slot its incoming slot, whose owner
+      is the destination (gather order); s_from_g maps each into the
+      direction's own ordering;
+    - csr_route_slots(row_ptr, tiles) lists each CSR slot's tile slot, in
+      CSR order, so the columns come out in the order the pull reduces.
+    Returns ((row_ptr, col_idx, degrees) of the outgoing direction, the
+    same of the incoming, in_route_slots): int32 tensors, col_idx of the
+    CSR's own edges. Raises ValueError where the flags and the tiles
+    disagree."""
+    import torch
+    if route.flags_fwd is None or route.flags_inv is None:
+        raise ValueError("the advance route holds no finish flags, which "
+                         "mark its real edge slots")
+    dev = route.fwd_idx.device
+    n = route.n
+    owners = {d: _slot_owners(*tiles, n, dev)
+              for d, tiles in (("out", out_tiles), ("in", in_tiles))}
+    # the other direction's owner of each slot, and the vertex map from the
+    # other direction's ordering into this one's
+    other = {"out": (route.inv_idx, owners["in"], s_from_g.inv_idx),
+             "in": (route.fwd_idx, owners["out"], s_from_g.fwd_idx)}
+    result = {}
+    for d, flags, (buckets, huge) in (("out", route.flags_inv, out_tiles),
+                                      ("in", route.flags_fwd, in_tiles)):
+        real = (flags & 1) != 0
+        degrees = torch.bincount(owners[d][real], minlength=v_pad)
+        if degrees.numel() > v_pad:
+            raise ValueError(f"{d}: an edge slot owned by row "
+                             f"{degrees.numel() - 1} of {v_pad}")
+        row_ptr = torch.zeros(v_pad + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(degrees, 0, out=row_ptr[1:])
+        slots = torch.from_numpy(csr_route_slots(
+            row_ptr.cpu().numpy(), buckets, huge)).to(dev)
+        if not bool(real[slots].all()):
+            raise ValueError(f"{d}: a row's edge slots are not its first "
+                             "degree slots")
+        route_idx, other_owner, vmap = other[d]
+        col = torch.index_select(vmap, 0, torch.index_select(
+            other_owner, 0, torch.index_select(route_idx, 0, slots)))
+        result[d] = (row_ptr.to(torch.int32), col.to(torch.int32),
+                     degrees.to(torch.int32))
+        if d == "in":
+            result["slots"] = slots.to(torch.int32)
+    return result["out"], result["in"], result["slots"]
