@@ -220,6 +220,28 @@ result line):
    the full files' load; every rebuilt CSR and in_route_slots equal to
    phase 16's full load, PageRank, BFS and hashed SSSP bit-equal; both
    loads' seconds.
+18. slice: the large tier's path (RMAT-25 at degree 32 is its size; here
+   RMAT-20 at degree 32, as one run's time allows). The port's builder,
+   apps/build_scale25.py, in a process of its own (this one has a CUDA
+   context, and the builder forks) with rmat_fast on every core and as
+   many shard workers as there are shards and cores, into a temporary
+   cache: 8 shards by the
+   destination hash, their edges summing to |E| and the largest under 1.5x
+   the smallest; the builder's and the generator's seconds and bytes on
+   disk. The graph generated again for the oracles in another process,
+   beside the builder, its PageRank constants equal to the builder's. The artifact loaded
+   resident (load_sharded_graph, stored weights by slot_weights_stacked)
+   and streamed (load_streamed(weights=True)); the device bytes resident
+   and the copies' GB/s. PageRank (20 iterations), stored-weight SSSP
+   (all-active, from the hub), MS-BFS from 32 roots and CC hybrid in both,
+   streamed equal to resident (PageRank bit for bit or within rtol 1e-5,
+   the rest exactly), only pull_reduce and route_gather_finish launched (S
+   pulls and 2S routes per sweep streamed, 2S and 4S for CC; S and 2S per
+   PageRank iteration resident), each call's MTEPS (median of 3 by
+   DeviceTimer) and peak memory; PageRank error count 0 against
+   seq_page_rank, SSSP within rtol 1e-5 of scipy's dijkstra over the same
+   edges (the least weight of repeated edges), CC's component count equal
+   to scipy's connected_components.
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
@@ -228,7 +250,8 @@ none) and its bound (bound_ms: the bytes it must move at the H100's 3.35
 TB/s, or for and_popcount the larger of that and its operations at 67
 TOP/s) at the main path's shapes, "rates", phase 12's and 14's MTEPS,
 "prim_tables", phase 15's per-primitive tables, "autotuner_picks", and
-"sharded", phase 16's numbers, and "part2", phase 17's.
+"sharded", phase 16's numbers, "part2", phase 17's, and "tier", phase
+18's.
 The last line is {"ok": true, "device":
 {...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
 PageRank run, one DO-BFS root, one all-active SSSP run and one HITS call to
@@ -3842,6 +3865,249 @@ def phase_part2(kernels: dict, ec, graph, bfs_root: int, root_levels,
     return dict(launches=launches, numbers=numbers)
 
 
+TIER_SCALE, TIER_DEGREE, TIER_SHARDS = 20, 32, 8   # phase 18
+TIER_PR_ITERS = 20
+PATHS18 = (f"tier_resident_rmat{TIER_SCALE}", f"tier_streamed_rmat{TIER_SCALE}")
+
+
+def _tier_edges(path: str, workers: int) -> str:
+    """Python source that writes the builder's graph (rmat_fast from its
+    seed, weighted) to `path` as src, dst, w: run in a process of its own,
+    because rmat_fast forks and this one has a CUDA context."""
+    return (f"import numpy as np\n"
+            f"from vectorgraphlibrary_tpu_torch.io.generation import "
+            f"rmat_fast\n"
+            f"ec = rmat_fast({TIER_SCALE}, {TIER_DEGREE}, seed=42, "
+            f"weighted=True, workers={workers})\n"
+            f"np.savez({path!r}, src=ec.src_ids, dst=ec.dst_ids, "
+            f"w=ec.weights)\n")
+
+
+def _host_child(cmd: list, env: dict) -> tuple:
+    """Start a host-only child (no CUDA: CUDA_VISIBLE_DEVICES is empty
+    there) from the repository's root; -> (the process, its start time)."""
+    return (subprocess.Popen(
+        cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="", **env),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        time.perf_counter())
+
+
+def _host_done(label: str, child: tuple, timeout: int) -> tuple:
+    """Wait for a _host_child; -> (its stdout, its wall seconds). Raises if
+    it fails (and kills it past `timeout`)."""
+    proc, t0 = child
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} failed ({proc.returncode}):\n"
+                             f"{out[-4000:]}\n{err[-4000:]}")
+    return out, time.perf_counter() - t0
+
+
+def phase_tier(kernels: dict, smi: str) -> dict:
+    """Phase 18: the large tier's path at RMAT-20/32 in 8 hash shards (module
+    doc). -> {"launches": {path: counts}, "numbers": {...}}."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components, dijkstra
+    from vectorgraphlibrary_tpu_torch.apps import scale_tier
+    from vectorgraphlibrary_tpu_torch.graph import persistence
+    from vectorgraphlibrary_tpu_torch.io.edges_container import (
+        EdgesContainer)
+    from vectorgraphlibrary_tpu_torch.models import pr
+    from vectorgraphlibrary_tpu_torch.parallel import sharded, streaming
+    from vectorgraphlibrary_tpu_torch.runtime.timer import DeviceTimer
+    from vectorgraphlibrary_tpu_torch.utils.verify import (
+        verify_ranking_results)
+    S, numbers = TIER_SHARDS, {}
+    workers = min(S, os.cpu_count() or 1)
+    cache = tempfile.TemporaryDirectory()
+    env = dict(VGL_S25_SCALE=str(TIER_SCALE), VGL_S25_DEGREE=str(TIER_DEGREE),
+               VGL_S25_SHARDS=str(S), VGL_S25_WORKERS=str(workers),
+               VGL_S25_CACHE=cache.name, VGL_S25_GEN="rmat_fast")
+    coo = os.path.join(cache.name, "coo.npz")
+    # the builder, and beside it the graph again for the oracles
+    builder = _host_child([sys.executable, "-m",
+                           "vectorgraphlibrary_tpu_torch.apps.build_scale25"],
+                          env)
+    regen = _host_child([sys.executable, "-c", _tier_edges(coo, workers)], {})
+    out, wall = _host_done("apps/build_scale25.py", builder, 900)
+    _, gen_wall = _host_done("rmat_fast", regen, 600)
+    built = json.loads(out.strip().splitlines()[-1])
+    numbers["builder"] = dict(built, wall_s=wall)
+    print(f"  build_scale25 (a process of its own, {workers} workers, "
+          f"rmat_fast): generate {built['gen_s']:.2f} s, build "
+          f"{built['build_s']:.2f} s, {built['bytes_on_disk'] / 2**20:.1f} "
+          f"MiB on disk, host {built['nproc']} cores, "
+          f"{built['mem_total_gib']} GiB")
+    prefix = built["built"]
+    with open(f"{prefix}.meta.json") as f:
+        meta = json.load(f)
+    eps = meta["edges_per_shard"]
+    e = TIER_DEGREE << TIER_SCALE
+    if meta["e"] != e or sum(eps) != e or len(eps) != S \
+            or meta["partition"] != "dst-hash":
+        raise AssertionError(f"tier meta: {meta}")
+    if max(eps) >= 1.5 * min(eps):
+        raise AssertionError(f"tier shards unbalanced: {eps}")
+    with np.load(coo) as z:
+        ec = EdgesContainer(z["src"], z["dst"], 1 << TIER_SCALE, z["w"])
+    v = ec.vertices_count
+    consts = scale_tier.load_consts(prefix, meta["v_pad"], DEVICE)
+    rev, dmask = sharded.pr_consts(ec)
+    if not (np.array_equal(rev, consts.rev)
+            and np.array_equal(dmask, consts.dmask)):
+        raise AssertionError("the builder's prconsts differ from the graph's")
+    hub = consts.hub
+    roots = [int(r) for r in np.random.default_rng(SEED + 2).choice(
+        np.flatnonzero(consts.rev > 0), 32, replace=False)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sg = persistence.load_sharded_graph(prefix, DEVICE)
+    weights = sharded.slot_weights_stacked(
+        persistence.load_sharded_weights(prefix, S, DEVICE), sg)
+    torch.cuda.synchronize()
+    numbers["resident_load_s"] = time.perf_counter() - t0
+    numbers["resident_bytes"] = (
+        sum(scale_tier.tensor_bytes(g) for g in sg.shards)
+        + scale_tier.tensor_bytes(weights))
+    t0 = time.perf_counter()
+    ssg = streaming.load_streamed(prefix, weights=True, device=DEVICE)
+    numbers["streamed_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streaming._sweep(ssg, lambda g, s: None, "copy")
+    numbers["h2d_gb_s"] = ssg.h2d_bytes / (time.perf_counter() - t0) / 1e9
+    print(f"  loaded: resident {numbers['resident_bytes'] / 2**20:.1f} MiB "
+          f"on the card in {numbers['resident_load_s']:.2f} s; streamed in "
+          f"{numbers['streamed_load_s']:.2f} s, copies at "
+          f"{numbers['h2d_gb_s']:.2f} GB/s host to device on {smi}")
+
+    # (name, resident call, streamed call, edges a call traverses)
+    cases = [
+        ("pagerank",
+         lambda: (sharded.pagerank_sharded_scan_consts(
+             sg, consts.rev, consts.dmask, TIER_PR_ITERS),),
+         lambda: (streaming.pagerank_streamed(
+             ssg, consts.rev, consts.dmask, TIER_PR_ITERS),),
+         e * TIER_PR_ITERS),
+        ("sssp",
+         lambda: sharded.sssp_sharded_scan(sg, weights, hub,
+                                           partial=False)[:1],
+         lambda: streaming.sssp_streamed(ssg, hub)[:1], e),
+        ("msbfs", lambda: (sharded.msbfs_sharded_scan(sg, roots),),
+         lambda: streaming.msbfs_streamed(ssg, roots)[:1], None),
+        ("cc_hybrid", lambda: sharded.cc_hybrid_sharded_scan(sg, hub)[:1],
+         lambda: streaming.cc_hybrid_streamed(ssg, hub)[:1], e)]
+    launches = {p: dict.fromkeys(kernels, 0) for p in PATHS18}
+    results = {}
+    for label, resident, streamed, edges in cases:
+        got = {}
+        for path, call in zip(PATHS18, (resident, streamed)):
+            for k in kernels.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            n_sweeps = len(ssg.sweep_s)
+            got[path] = call()
+            torch.cuda.synchronize()
+            n = {name: k.launches for name, k in kernels.items()}
+            for name in n:
+                launches[path][name] += n[name]
+            if n["pull_reduce"] == 0 or n["route_gather_finish"] == 0 \
+                    or any(c for name, c in n.items() if name not in (
+                        "pull_reduce", "route_gather_finish")):
+                raise AssertionError(f"tier {label} {path}: launches {n}")
+            if path == PATHS18[1]:
+                sweeps = len(ssg.sweep_s) - n_sweeps
+                dirs = 2 if label == "cc_hybrid" else 1
+                if n != dict(dict.fromkeys(kernels, 0),
+                             pull_reduce=dirs * S * sweeps,
+                             route_gather_finish=2 * dirs * S * sweeps):
+                    raise AssertionError(f"tier {label} streamed: launches "
+                                         f"{n} for {sweeps} sweeps")
+            elif label == "pagerank" and n != dict(
+                    dict.fromkeys(kernels, 0),
+                    pull_reduce=S * TIER_PR_ITERS,
+                    route_gather_finish=2 * S * TIER_PR_ITERS):
+                raise AssertionError(f"tier pagerank resident: launches {n}")
+        for a, b in zip(*got.values()):
+            if label == "pagerank" and not torch.equal(a, b):
+                if not np.allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=0):
+                    raise AssertionError("tier pagerank: streamed differs "
+                                         "from resident")
+            elif label != "pagerank" and not torch.equal(a, b):
+                raise AssertionError(f"tier {label}: streamed differs from "
+                                     f"resident")
+        results[label] = got[PATHS18[0]][0]
+        rates = {}
+        for path, call in zip(PATHS18, (resident, streamed)):
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                timer = DeviceTimer(DEVICE).start()
+                res = call()
+                times.append(timer.stop(res))
+            if edges is None:        # MS-BFS: the roots' traversed edges
+                edges = scale_tier.traversed_edges(results["msbfs"],
+                                                   consts.outdeg)
+            t = statistics.median(times)
+            rates[path] = dict(ms=t * 1e3, min_ms=min(times) * 1e3,
+                               max_ms=max(times) * 1e3,
+                               mteps=edges / t / 1e6,
+                               peak_mib=torch.cuda.max_memory_allocated()
+                               / 2**20)
+        numbers[label] = dict(rates, edges=edges)
+        print(f"  {label}: resident and streamed equal; "
+              + "; ".join(f"{p} median {r['ms']:.2f} ms (min "
+                          f"{r['min_ms']:.2f}, max {r['max_ms']:.2f}), "
+                          f"{r['mteps']:.1f} MTEPS, peak {r['peak_mib']:.1f} "
+                          f"MiB" for p, r in rates.items()) + f" on {smi}")
+
+    # the oracles, on the host
+    want = pr.seq_page_rank(ec, max_iterations=TIER_PR_ITERS,
+                            use_convergence=False)
+    errors = verify_ranking_results(results["pagerank"][:v].cpu().numpy(),
+                                    want)
+    if errors:
+        raise AssertionError(f"tier pagerank: error count {errors}")
+    key = ec.src_ids.astype(np.int64) * v + ec.dst_ids
+    order = np.lexsort((ec.weights, key))
+    first = np.ones(len(order), bool)
+    first[1:] = key[order][1:] != key[order][:-1]
+    keep = order[first]
+    mat = sp.csr_matrix((ec.weights[keep].astype(np.float64),
+                         (ec.src_ids[keep], ec.dst_ids[keep])), shape=(v, v))
+    t0 = time.perf_counter()
+    want_d = dijkstra(mat, directed=True, indices=hub)
+    got_d = results["sssp"][:v].cpu().numpy().astype(np.float64)
+    if not np.array_equal(np.isinf(got_d), np.isinf(want_d)) or not \
+            np.allclose(got_d[np.isfinite(want_d)],
+                        want_d[np.isfinite(want_d)], rtol=1e-5, atol=0):
+        raise AssertionError("tier sssp: distances differ from scipy's "
+                             "dijkstra")
+    n_comp, _ = connected_components(mat, directed=True, connection="weak")
+    got_comp = int(torch.unique(results["cc_hybrid"][:v]).numel())
+    if got_comp != n_comp:
+        raise AssertionError(f"tier cc: {got_comp} components, scipy "
+                             f"{n_comp}")
+    numbers.update(components=n_comp, oracle_s=time.perf_counter() - t0,
+                   generate_again_s=gen_wall,
+                   reached=int(np.isfinite(want_d).sum()))
+    print(f"  oracles: PageRank error count 0 against seq_page_rank, SSSP "
+          f"from {hub} equal to scipy's dijkstra ({numbers['reached']} "
+          f"reached, rtol 1e-5), {n_comp} weak components as scipy's; "
+          f"launches {launches}")
+    del ssg, sg, weights
+    cache.cleanup()
+    return {"launches": launches, "numbers": numbers}
+
+
 PRIM_REPS = 3        # profile_graph_primitives' default
 UBENCH_K = 5
 
@@ -3986,7 +4252,7 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/17] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/18] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -4001,56 +4267,56 @@ def main() -> int:
         first.result()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/17] build: {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[2/18] build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
           f"ptxas: " + " | ".join(ptxas))
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print("[3/17] kernel: route_gather_finish vs plain version, n = 2^24")
+    print("[3/18] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[4/17] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+    print(f"[4/18] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
           f"version on its graph")
     prr = phase_pagerank(rg, pl, smi)
     prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[5/17] kernel: scatter_combine vs plain version, V = 2^20, and "
+    print(f"[5/18] kernel: scatter_combine vs plain version, V = 2^20, and "
           f"push_expand vs plain version on RMAT-{BFS_SCALE}")
     bfs_ec, bfs_graph, bfs_ea = make_bfs_graph()
     push = phase_scatter(scm, pe, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[6/17] slice: BFS on RMAT-{BFS_SCALE}")
+    print(f"[6/18] slice: BFS on RMAT-{BFS_SCALE}")
     bfs_root, bfs_launches, pull20, root_levels = phase_bfs(
         rg, pl, pe, scm, bfs_ec, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[7/17] kernel: lane_shuffle vs plain version, "
+    print(f"[7/18] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
     lsr = phase_lane_shuffle(ls, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[8/17] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+    print(f"[8/18] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
     kernels = _kernels()
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[9/17] kernel: pull_reduce with edge weights and scatter_combine "
+    print(f"[9/18] kernel: pull_reduce with edge weights and scatter_combine "
           f"f32 vs plain versions on weighted RMAT-{BFS_SCALE}, and the "
           f"host's cost of one launch")
     wk = phase_weighted_kernels(rg, pl, scm, bfs_ec, bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[10/17] slice: SSSP, SSWP, CC and HITS on weighted "
+    print(f"[10/18] slice: SSSP, SSWP, CC and HITS on weighted "
           f"RMAT-{BFS_SCALE}")
     fix = phase_fixpoint(kernels, bfs_ec, bfs_graph, bfs_ea, smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[11/17] kernel: scatter_combine int32 add, its sorted build and "
+    print(f"[11/18] kernel: scatter_combine int32 add, its sorted build and "
           f"and_popcount vs plain versions, at the RMAT-{SCALE} triangle "
           f"count's shapes")
     k6 = phase_slice6_kernels(scm, ap, prr["ec"], smi)
@@ -4059,33 +4325,33 @@ def main() -> int:
                                      k6["scatter_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[12/17] slice: SCC, coloring, label propagation, random walks, "
+    print(f"[12/18] slice: SCC, coloring, label propagation, random walks, "
           f"reachability and triangle count on RMAT-{SCALE}")
     s6 = phase_slice6(kernels, prr["ec"], prr["graph"], k6["oriented"],
                       k6["host_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[13/17] slice: GraphSAGE at ogbn-products' widths (in "
+    print(f"[13/18] slice: GraphSAGE at ogbn-products' widths (in "
           f"{SAGE_IN}, hidden {SAGE_HIDDEN}, classes {SAGE_CLASSES}) on "
           f"RMAT-{BFS_SCALE}, sampled on RMAT-{SCALE}, and pull_rows vs plain "
           f"version")
     sage = phase_sage(kernels, prw, bfs_ec, bfs_graph, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[14/17] slice: max-flow on RMAT-{SCALE}, and the general advance "
+    print(f"[14/18] slice: max-flow on RMAT-{SCALE}, and the general advance "
           f"and segment_reduce vs plain versions")
     mfr = phase_mf(kernels, pl, prr["ec"], smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"],
                                  mfr["pull"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[15/17] slice: the measurement runtime: the per-primitive pass "
+    print(f"[15/18] slice: the measurement runtime: the per-primitive pass "
           f"on RMAT-{SCALE} and weighted RMAT-{BFS_SCALE}, the PageRank app "
           f"with it, ubench_prims and the autotuner's samples")
     meas = phase_measurement(kernels, prr["graph"], bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[16/17] slice: distribution on one card: the sharded container "
+    print(f"[16/18] slice: distribution on one card: the sharded container "
           f"and its one-card runners on weighted RMAT-{BFS_SCALE} in "
           f"{SHARDS} shards, the rank-parallel runners ({RANK_SHARDS} gloo "
           f"ranks sharing the card, one NCCL rank), sharded save and load "
@@ -4099,7 +4365,7 @@ def main() -> int:
     print(f"  phase 16: {sh['numbers']['phase_s']:.1f} s")
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[17/17] slice: distribution part 2 on one card: MS-BFS, CC "
+    print(f"[17/18] slice: distribution part 2 on one card: MS-BFS, CC "
           f"hybrid, slim shards and SSSP on hashed weights over phase 16's "
           f"RMAT-{BFS_SCALE} shards, the five rank drivers and the sharded "
           f"GraphSAGE ({RANK_SHARDS} gloo ranks on RMAT-{GLOO_SCALE}, one "
@@ -4112,6 +4378,17 @@ def main() -> int:
     keep_dir.cleanup()
     p2["numbers"]["phase_s"] = time.perf_counter() - t17
     print(f"  phase 17: {p2['numbers']['phase_s']:.1f} s")
+
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[18/18] slice: the large tier's path: apps/build_scale25.py "
+          f"(rmat_fast, in a process of its own) at RMAT-{TIER_SCALE}/"
+          f"{TIER_DEGREE} in {TIER_SHARDS} hash shards, loaded resident and "
+          f"streamed: PageRank, stored-weight SSSP, MS-BFS and CC hybrid "
+          f"in both, against each other and the host oracles")
+    t18 = time.perf_counter()
+    tier = phase_tier(kernels, smi)
+    tier["numbers"]["phase_s"] = time.perf_counter() - t18
+    print(f"  phase 18: {tier['numbers']['phase_s']:.1f} s")
 
     if "--profile" in sys.argv:
         profile(pl, prr["graph"], bfs_graph, bfs_root, bfs_ec, bfs_ea,
@@ -4131,7 +4408,8 @@ def main() -> int:
                    f"mf_rmat{SCALE}": mfr["launches"][kernel],
                    **{p: c[kernel] for p, c in meas["launches"].items()},
                    **{p: c[kernel] for p, c in sh["launches"].items()},
-                   **{p: c[kernel] for p, c in p2["launches"].items()}}
+                   **{p: c[kernel] for p, c in p2["launches"].items()},
+                   **{p: c[kernel] for p, c in tier["launches"].items()}}
         if kernel == "scatter_combine":
             # scatter_combine.launches counts every entry of the source:
             # the general entries' row leaves out the sorted build's
@@ -4204,7 +4482,8 @@ def main() -> int:
         "rates": dict(s6["rates"], mf_mteps=mfr["rates"]),
         "prim_tables": meas["tables"],
         "autotuner_picks": meas["autotuner_picks"],
-        "sharded": sh["numbers"], "part2": p2["numbers"]}))
+        "sharded": sh["numbers"], "part2": p2["numbers"],
+        "tier": tier["numbers"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

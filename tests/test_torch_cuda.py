@@ -441,6 +441,76 @@ def test_pull_reduce_propagates_nan(cuda):
                                      else float("-inf"))
 
 
+def _f32_specials(rng, n, nan_share=0.03) -> np.ndarray:
+    x = rng.choice(np.array([-0.0, 0.0, 1.0, -1.0, 3.0], np.float32), n,
+                   p=[0.35, 0.35, 0.1, 0.1, 0.1]).astype(np.float32)
+    x[rng.random(n) < nan_share] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("kernel", ["route", "pull", "pull-weighted",
+                                    "segment", "scatter", "scatter-const",
+                                    "scatter-in-place"])
+def test_f32_min_max_rule_in_every_kernel(cuda, rmat12_cuda, kernel, op):
+    """The three kernels that take an f32 min or max give their plain
+    versions' bits on NaN, -0.0 and +0.0 (the port's one f32 rule,
+    csrc/f32_minmax.cuh; the plain versions hold the JAX package's answer,
+    tests/test_torch_f32_order.py)."""
+    rng = np.random.default_rng(12)
+
+    def bits_equal(got, want):
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32).cpu(),
+                           want.view(torch.int32).cpu())
+    if kernel == "route":
+        n = 1 << 16
+        idx = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda)
+        flags = torch.from_numpy(rng.integers(0, 4, n).astype(np.uint8)
+                                 ).to(cuda)
+        x, w = (torch.from_numpy(_f32_specials(rng, n)).to(cuda)
+                for _ in range(2))
+        args = (x, idx, flags, w, op, True, -7.0)
+        bits_equal(rg.route_gather_finish(*args),
+                   rg.route_gather_finish_ref(*args))
+        return
+    if kernel.startswith("scatter"):
+        n_out, n = 1 << 12, 1 << 16
+        out = torch.from_numpy(_f32_specials(rng, n_out, 0.01)).to(cuda)
+        idx = torch.from_numpy(rng.integers(-3, n_out + 3, n).astype(
+            np.int32)).to(cuda)
+        msgs = [torch.from_numpy(_f32_specials(rng, n, 0.0005)).to(cuda)]
+        if kernel == "scatter-const":
+            msgs = [float("nan"), -0.0, 0.0]
+        for msg in msgs:
+            want = sc.scatter_combine_ref(out, idx, msg, op)
+            if kernel == "scatter-in-place":
+                got = sc.scatter_combine_(out.clone(), idx, msg, op)
+            else:
+                got = sc.scatter_combine(out, idx, msg, op)
+            bits_equal(got, want)
+        return
+    _, g = rmat12_cuda
+    dg = g.incoming
+    x = torch.from_numpy(_f32_specials(rng, g.v_pad, 0.002)).to(cuda)
+    if kernel == "segment":
+        e = int(dg.row_ptr[-1])
+        msgs = torch.from_numpy(_f32_specials(rng, e, 0.002)).to(cuda)
+        bits_equal(pl.segment_reduce(dg.row_ptr, msgs, op),
+                   pl.segment_reduce_ref(dg.row_ptr, msgs, op))
+        return
+    w = wop = None
+    if kernel == "pull-weighted":
+        w = torch.from_numpy(_f32_specials(rng, dg.col_idx.numel(), 0.002)
+                             ).to(cuda)
+        wop = "max" if op == "min" else "min"
+    for plan in (None, pl.make_plan(dg.row_ptr)):
+        got = pl.pull_reduce(dg.row_ptr, dg.col_idx, x, op, plan=plan,
+                             weights=w, weight_op=wop)
+        bits_equal(got, pl.pull_reduce_ref(dg.row_ptr, dg.col_idx, x, op,
+                                           weights=w, weight_op=wop))
+
+
 def test_pull_reduce_rejects_what_it_does_not_take(cuda):
     row_ptr = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda)
     col_idx = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
@@ -517,8 +587,9 @@ def test_push_expand_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("case", list(SCATTER_CASES))
 def test_scatter_combine_f32_equals_plain_version(cuda, case, op):
     """f32 min and max, bit for bit: random messages of both signs with
-    +-inf entries (no NaN, no -0.0: the kernel orders those by bit pattern)
-    as a tensor and as one constant."""
+    +-inf, NaN, -0.0 and +0.0 entries, into a target that holds them too,
+    as a tensor and as one constant (the port's one f32 rule,
+    csrc/f32_minmax.cuh)."""
     n_out, n, kind = SCATTER_CASES[case]
     rng = np.random.default_rng(5)
     if kind == "dup":
@@ -533,11 +604,14 @@ def test_scatter_combine_f32_equals_plain_version(cuda, case, op):
     idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
     out = rng.standard_normal(n_out).astype(np.float32) * 100
     out[::5] = np.inf if op == "min" else -np.inf
+    out[1::7], out[2::7], out[3::301] = 0.0, -0.0, np.nan
     out = torch.from_numpy(out).to(cuda)
     msgs = rng.standard_normal(n).astype(np.float32) * 100
     msgs[::97] = np.inf
     msgs[3::89] = -np.inf
-    for msg in (torch.from_numpy(msgs).to(cuda), 1.5, -2.25, float("inf")):
+    msgs[5::11], msgs[6::13], msgs[7::1009] = -0.0, 0.0, np.nan
+    for msg in (torch.from_numpy(msgs).to(cuda), 1.5, -2.25, float("inf"),
+                float("nan"), -0.0, 0.0):
         before = sc.scatter_combine.launches
         got = sc.scatter_combine(out, idx, msg, op)
         torch.cuda.synchronize()
@@ -546,7 +620,7 @@ def test_scatter_combine_f32_equals_plain_version(cuda, case, op):
         assert got.dtype == torch.float32
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     if kind == "drop" or n == 0:
-        assert torch.equal(got, out)
+        assert torch.equal(got.view(torch.int32), out.view(torch.int32))
 
 
 def _scatter_inputs(rng, case, dtype, op):
@@ -1865,3 +1939,45 @@ def test_streaming_on_the_card(sharded12, tmp_path):
                        sharded.sssp_sharded_scan(sg, stored, 0,
                                                  partial=False)[0])
     assert ssg.peak_resident == 1 and ssg.resident == 0
+
+
+def test_hash_tier_artifact_resident_and_streamed_on_the_card(cuda,
+                                                              tmp_path):
+    """Phase 18's path small: apps/build_scale25.py (rmat_fast, in a process
+    of its own: this one has a CUDA context) at RMAT-12/16 in 8 hash shards,
+    loaded resident and streamed on the card; PageRank bit for bit or within
+    rtol 1e-5, stored-weight SSSP, MS-BFS and CC hybrid exactly equal."""
+    import os
+    import subprocess
+    import sys
+    from vectorgraphlibrary_tpu_torch.graph.persistence import (
+        load_sharded_graph, load_sharded_weights)
+    from vectorgraphlibrary_tpu_torch.parallel import sharded, streaming
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "vectorgraphlibrary_tpu_torch.apps.build_scale25"],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="", VGL_S25_SCALE="12",
+                 VGL_S25_DEGREE="16", VGL_S25_SHARDS="8", VGL_S25_WORKERS="4",
+                 VGL_S25_CACHE=str(tmp_path), VGL_S25_GEN="rmat_fast"))
+    assert r.returncode == 0, r.stdout + r.stderr
+    prefix = str(tmp_path / "rmat12_16_slimw")
+    sg = load_sharded_graph(prefix, "cuda")
+    weights = sharded.slot_weights_stacked(load_sharded_weights(
+        prefix, 8, "cuda"), sg)
+    ssg = streaming.load_streamed(prefix, weights=True, device="cuda")
+    with np.load(f"{prefix}.prconsts.npz") as z:
+        rev, dmask = z["rev"], z["dmask"]
+    hub = int(np.argmax(rev == rev[rev > 0].min()))
+    a = sharded.pagerank_sharded_scan_consts(sg, rev, dmask, 20)
+    b = streaming.pagerank_streamed(ssg, rev, dmask, 20)
+    assert torch.equal(a, b) or np.allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                            rtol=1e-5, atol=0)
+    assert torch.equal(sharded.sssp_sharded_scan(sg, weights, hub,
+                                                 partial=False)[0],
+                       streaming.sssp_streamed(ssg, hub)[0])
+    roots = list(range(0, 320, 10))
+    assert torch.equal(sharded.msbfs_sharded_scan(sg, roots),
+                       streaming.msbfs_streamed(ssg, roots)[0])
+    assert torch.equal(sharded.cc_hybrid_sharded_scan(sg, hub)[0],
+                       streaming.cc_hybrid_streamed(ssg, hub)[0])

@@ -10,7 +10,8 @@ drivers (PageRank, HITS, BFS, CC, SSSP, MS-BFS, CC hybrid and SSSP on
 hashed weights, on full and slim shards), its sharded save and load
 with the weights, the five streamed algorithms, the
 per-primitive profiling pass on a scale-10 graph with and without weights,
-and the PageRank app with that pass)
+the PageRank app with that pass, the large tier's builder and apps, and
+rmat_fast on two forked workers)
 neither loads the JAX package's native library nor launches a kernel."""
 import os
 import subprocess
@@ -145,6 +146,10 @@ prim_profile.profile_graph_primitives(wg, ea, stats=PerformanceStats())
 assert run_app("pr", pr_app.run_round, pr_app.check_round, needs_source=False,
                argv=["-s", "10", "-e", "8", "-it", "1", "-check", "-dev",
                      "cpu"]) == 0
+from vectorgraphlibrary_tpu_torch.apps import (bench_s22w_resident,
+                                               bench_scale25, build_scale25)
+from vectorgraphlibrary_tpu_torch.io.generation import rmat_fast
+rmat_fast(8, 4, seed=1, chunk=256, workers=2)
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "vectorgraphlibrary_tpu" or m.startswith("vectorgraphlibrary_tpu.")]

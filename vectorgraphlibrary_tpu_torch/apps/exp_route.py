@@ -166,7 +166,8 @@ def _built(stem: str, source: Path, report: bool = False) -> Path:
     """`source` built into the cache; report: print ptxas' register and
     spill lines."""
     path, log, _ = build.compile_shared(stem, [source], build._nvcc(),
-                                        build.NVCC_FLAGS)
+                                        build.NVCC_FLAGS,
+                                        headers=build.HEADERS)
     if report and log:
         print(f"  {stem}: " + " | ".join(
             ln.strip() for ln in log.splitlines()

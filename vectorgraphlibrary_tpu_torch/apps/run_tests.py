@@ -10,7 +10,8 @@ apps/run_tests.py; reference `apps/run_tests.py:10-177` +
 
 Each app runs as `python -m vectorgraphlibrary_tpu_torch.apps.<app>` in its
 own process, on the card, or with --cpu on the CPU (-dev cpu). Tiers: tiny
-to large (synthetic graphs) and real (the corpus's cached graphs, the two
+to xlarge (synthetic graphs; xlarge, RMAT-22, runs 3600 s per app unless
+--timeout says otherwise) and real (the corpus's cached graphs, the two
 bundled ones included; io/corpus.py). Results go to <out>.json and
 <out>.csv, by default under .cache/torch_harness/ (gitignored).
 
@@ -37,9 +38,23 @@ TIERS = {
     "small": [("rmat", 14, 16), ("ru", 14, 16)],
     "medium": [("rmat", 18, 32)],
     "large": [("rmat", 20, 32)],
+    # each app imports the graph itself (minutes of host preprocessing at
+    # scale 22, in the tier's timeout); the scale-25 tier runs through the
+    # persisted sharded artifact instead (apps/build_scale25.py,
+    # apps/bench_scale25.py, apps/bench_s22w_resident.py)
+    "xlarge": [("rmat", 22, 16)],
 }
 DEFAULT_TIMEOUT = 600
+TIER_TIMEOUTS = {"xlarge": 3600}
 DEFAULT_OUT = os.path.join(REPO, ".cache", "torch_harness", "harness_results")
+
+
+def timeout_for(tier: str, timeout: int) -> int:
+    """Seconds per app run: the tier's own (TIER_TIMEOUTS) unless --timeout
+    names another than the default."""
+    if timeout == DEFAULT_TIMEOUT and tier in TIER_TIMEOUTS:
+        return TIER_TIMEOUTS[tier]
+    return timeout
 
 
 def run_app(app: str, args: list, timeout: int) -> tuple[str, float, bool]:
@@ -189,6 +204,7 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=DEFAULT_OUT,
                    help="results go to OUT.json and OUT.csv")
     args = p.parse_args(argv)
+    args.timeout = timeout_for(args.tier, args.timeout)
     apps = args.apps.split(",") if args.apps else APPS
     graphs = (real_graph_corpus(args.real.split(",") if args.real else None)
               if args.tier == "real" else TIERS[args.tier])

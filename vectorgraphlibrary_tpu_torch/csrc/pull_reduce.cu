@@ -72,7 +72,8 @@
 // between them); by device time in one run (apps/exp_pull.py), 0.0337 and
 // 0.0793 against 0.0546 and 0.1642 for the degree-class schedule before it.
 //
-// min/max propagate NaN as torch.minimum/maximum do. 1-byte values compute in
+// f32 min/max follow the port's one rule (f32_minmax.cuh: NaN propagates,
+// -0.0 below +0.0, the same bits in any order). 1-byte values compute in
 // int32 and are narrowed on store; integer sums wrap as torch's do.
 //
 // Plain C interface (loaded with ctypes): each entry returns cudaGetLastError()
@@ -82,6 +83,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "f32_minmax.cuh"
 
 namespace {
 
@@ -100,18 +103,17 @@ constexpr unsigned kFull = 0xffffffffu;
 template <typename T> struct Compute { typedef T type; };
 template <> struct Compute<int8_t> { typedef int32_t type; };
 
-template <typename C> __device__ __forceinline__ bool is_nan(C) { return false; }
-template <> __device__ __forceinline__ bool is_nan<float>(float a) { return a != a; }
-
 template <int OP, typename C>
 __device__ __forceinline__ C combine(C a, C b) {
   if constexpr (OP == OP_ADD) {
     if constexpr (std::is_same<C, float>::value) return a + b;
     else return (C)((uint32_t)a + (uint32_t)b);   // wraps, no signed overflow
   } else if constexpr (OP == OP_MIN) {
-    return is_nan(a) ? a : (is_nan(b) ? b : (b < a ? b : a));
+    if constexpr (std::is_same<C, float>::value) return vgl_fmin(a, b);
+    else return b < a ? b : a;
   } else if constexpr (OP == OP_MAX) {
-    return is_nan(a) ? a : (is_nan(b) ? b : (b > a ? b : a));
+    if constexpr (std::is_same<C, float>::value) return vgl_fmax(a, b);
+    else return b > a ? b : a;
   } else {
     if constexpr (std::is_same<C, float>::value) return a;  // never launched
     else return a | b;

@@ -76,6 +76,8 @@
 
 #include <algorithm>
 
+#include "f32_minmax.cuh"
+
 namespace {
 
 enum WeightOp { W_NONE = 0, W_ADD = 1, W_MIN = 2, W_MAX = 3, W_MUL = 4 };
@@ -90,8 +92,6 @@ constexpr long long kKeepBytes = 16ll << 20;
 template <typename T> struct Compute { typedef T type; };
 template <> struct Compute<int8_t> { typedef int32_t type; };
 
-template <typename C> __device__ __forceinline__ bool is_nan(C a) { return false; }
-template <> __device__ __forceinline__ bool is_nan<float>(float a) { return a != a; }
 
 // integer add and mul wrap, as torch's do
 template <typename C> __device__ __forceinline__ C wrap_add(C a, C b) {
@@ -109,28 +109,27 @@ template <> __device__ __forceinline__ int32_t wrap_mul<int32_t>(int32_t a,
   return (int32_t)((uint32_t)a * (uint32_t)b);
 }
 
-// min/max of two numbers: fminf/fmaxf for floats, as torch.minimum and
-// torch.maximum compute them on the card (so +0 and -0 compare as there)
+// min/max of two numbers; floats by the port's one f32 rule
+// (f32_minmax.cuh: NaN propagates, -0.0 below +0.0)
 template <typename C> __device__ __forceinline__ C min_of(C a, C b) {
   return b < a ? b : a;
 }
 template <> __device__ __forceinline__ float min_of<float>(float a, float b) {
-  return fminf(a, b);
+  return vgl_fmin(a, b);
 }
 template <typename C> __device__ __forceinline__ C max_of(C a, C b) {
   return b > a ? b : a;
 }
 template <> __device__ __forceinline__ float max_of<float>(float a, float b) {
-  return fmaxf(a, b);
+  return vgl_fmax(a, b);
 }
 
-// min/max propagate NaN, as torch.minimum/maximum and jnp.minimum/maximum do
 template <int WOP, typename C>
 __device__ __forceinline__ C apply_wop(C a, C b) {
   if (WOP == W_ADD) return wrap_add(a, b);
   if (WOP == W_MUL) return wrap_mul(a, b);
-  if (WOP == W_MIN) return is_nan(a) ? a : (is_nan(b) ? b : min_of(a, b));
-  if (WOP == W_MAX) return is_nan(a) ? a : (is_nan(b) ? b : max_of(a, b));
+  if (WOP == W_MIN) return min_of(a, b);
+  if (WOP == W_MAX) return max_of(a, b);
   return a;
 }
 

@@ -36,8 +36,11 @@
 // atomicAdd on int32: a sum modulo 2^32 is exact in any order. There is no
 // f32 add: float sums taken by atomics round in the order the threads
 // arrive, which changes from run to run, so the wrapper raises for it. The
-// return value of each atomic is unused, so it compiles to a
-// fire-and-forget reduction (RED).
+// return value of each int32 atomic is unused, so it compiles to a
+// fire-and-forget reduction (RED). f32 min and max combine by the port's
+// one f32 rule (f32_minmax.cuh) in a compare-and-swap loop: integer
+// atomics on the floats' bits put a positive NaN above +inf, so a min
+// dropped it.
 //
 // The sorted build (vgl_scatter_build_sorted_i32): messages whose indices
 // never decrease, combined into a target that the entry makes itself,
@@ -85,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_minmax.cuh"
+
 namespace {
 
 enum Op { OP_MIN = 0, OP_MAX = 1, OP_OR = 2, OP_ADD = 3 };
@@ -109,6 +114,13 @@ __global__ void scatter_combine_kernel(int32_t* __restrict__ out,
   }
 }
 
+// f32 min/max: a compare-and-swap loop that combines by the port's one f32
+// rule (f32_minmax.cuh). The rule is a total order of the bit patterns, so
+// the result is the same in any order of the threads. A message that does
+// not change the target's value (the usual case once a sweep's distances
+// settle) ends after one read: the target only moves down (min) or up
+// (max) that order, so a message that does not beat a value read once
+// never beats a later one.
 template <bool IS_MIN>
 __global__ void scatter_combine_f32_kernel(float* __restrict__ out,
                                            uint32_t n_out,
@@ -121,15 +133,16 @@ __global__ void scatter_combine_f32_kernel(float* __restrict__ out,
     const uint32_t d = (uint32_t)__ldg(idx + i);
     if (d >= n_out) continue;
     const float m = msg != nullptr ? __ldg(msg + i) : msg_const;
-    const int32_t bits = __float_as_int(m);
-    // sign clear: floats order as signed ints; sign set: as unsigned ints,
-    // reversed
-    if ((bits >= 0) == IS_MIN) {
-      if (bits >= 0) atomicMin((int32_t*)(out + d), bits);
-      else atomicMin((uint32_t*)(out + d), (uint32_t)bits);
-    } else {
-      if (bits >= 0) atomicMax((int32_t*)(out + d), bits);
-      else atomicMax((uint32_t*)(out + d), (uint32_t)bits);
+    unsigned int* word = (unsigned int*)(out + d);
+    unsigned int seen = *(volatile unsigned int*)word;
+    while (true) {
+      const float cur = __uint_as_float(seen);
+      const unsigned int want =
+          __float_as_uint(IS_MIN ? vgl_fmin(cur, m) : vgl_fmax(cur, m));
+      if (want == seen) break;
+      const unsigned int was = atomicCAS(word, seen, want);
+      if (was == seen) break;
+      seen = was;
     }
   }
 }

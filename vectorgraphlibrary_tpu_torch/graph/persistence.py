@@ -378,9 +378,14 @@ def save_sharded_weights(slot_weights, path_prefix: str) -> None:
     package's files (its persistence.py:177-185), so either package reads
     the other's."""
     for s, w in enumerate(slot_weights):
-        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
-        np.save(f"{path_prefix}.weights{s}.npy", w.astype(np.float32,
-                                                          copy=False))
+        save_shard_weights(w, path_prefix, s)
+
+
+def save_shard_weights(w, path_prefix: str, s: int) -> None:
+    """Shard s's file of save_sharded_weights (f32 [n], route-slot
+    order), for a builder that writes each shard on its own."""
+    w = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+    np.save(f"{path_prefix}.weights{s}.npy", w.astype(np.float32, copy=False))
 
 
 def load_sharded_weights(path_prefix: str, n_shards: int,

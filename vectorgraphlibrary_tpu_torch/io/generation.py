@@ -6,6 +6,7 @@ gives the same graph in both packages. Capability match for the reference
 `random_uniform` (graph_generation.hpp:5-48) and `R_MAT` recursive-quadrant
 sampling (graph_generation.hpp:94-120), vectorized: all edges' quadrant
 decisions for one recursion level are drawn as one batched array.
+`rmat_fast` makes the billion-edge tier's graphs in chunks on a fork pool.
 """
 from __future__ import annotations
 
@@ -61,3 +62,76 @@ def generate(kind: str, scale: int, avg_degree: int, seed: int = 42,
     if kind in ("ru", "random_uniform"):
         return random_uniform(scale, avg_degree, seed, weighted=weighted)
     raise ValueError(f"unknown synthetic graph type {kind!r}")
+
+
+def rmat_fast(scale: int, avg_degree: int, seed: int = 42,
+              a: float = RMAT_A, b: float = RMAT_B, c: float = RMAT_C,
+              weighted: bool = True, chunk: int = 1 << 27,
+              workers: int = 2) -> EdgesContainer:
+    """Billion-edge R-MAT (a copy of the JAX package's rmat_fast, array for
+    array the same graph): the same recursive-quadrant model as `rmat`, with
+    float32 uniform draws (half the generator's traffic), int32 src/dst
+    arithmetic from the start (valid for scale <= 30), chunks of `chunk`
+    edges to bound peak RAM, and a fork pool of `workers` processes. Chunk
+    ci draws from SeedSequence([seed, ci]) whichever worker runs it, so the
+    graph depends on (seed, chunk) and not on `workers`; it is a DIFFERENT
+    graph than rmat(seed). Weights: uniform [1, 100) f32 from seed + 1,
+    drawn chunk by chunk.
+
+    The pool forks, so the chunks' arguments reach the workers through a
+    module global. A process that has created a CUDA context must not
+    fork: this raises there, and a caller on the card runs the generator
+    in a process of its own (apps/build_scale25.py)."""
+    import multiprocessing as mp
+    import sys
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        raise RuntimeError("rmat_fast forks its workers, and this process "
+                           "has a CUDA context: run it in a process of its "
+                           "own")
+    v = 1 << scale
+    e = v * avg_degree
+    n_chunks = -(-e // chunk)
+    ab, abc = a + b, a + b + c
+
+    global _RMAT_FAST_ARGS
+    _RMAT_FAST_ARGS = (scale, chunk, e, seed, a, ab, abc)
+
+    ctx = mp.get_context("fork")
+    with ctx.Pool(workers) as pool:
+        parts = pool.map(_rmat_fast_chunk, range(n_chunks), chunksize=1)
+    src = np.concatenate([p[0] for p in parts])
+    dst = np.concatenate([p[1] for p in parts])
+    del parts
+    ec = EdgesContainer(src, dst, v)
+    if weighted:
+        rng = np.random.default_rng(seed + 1)
+        w = np.empty(e, np.float32)
+        for lo in range(0, e, chunk):
+            hi = min(lo + chunk, e)
+            w[lo:hi] = rng.uniform(1.0, 100.0, hi - lo).astype(np.float32)
+        ec = EdgesContainer(src, dst, v, w)
+    return ec
+
+
+# rmat_fast's arguments for its forked workers (set before the fork)
+_RMAT_FAST_ARGS = None
+
+
+def _rmat_fast_chunk(ci: int):
+    """Edges [ci * chunk, ...) of rmat_fast: (src, dst) int32."""
+    scale, chunk, e, seed, a, ab, abc = _RMAT_FAST_ARGS
+    lo = ci * chunk
+    n = min(chunk, e - lo)
+    rng = np.random.default_rng(np.random.SeedSequence([seed, ci]))
+    src = np.zeros(n, dtype=np.int32)
+    dst = np.zeros(n, dtype=np.int32)
+    for _ in range(scale):
+        u = rng.random(n, dtype=np.float32)
+        src_bit = (u >= ab).astype(np.int32)
+        dst_bit = ((u >= a) & (u < ab) | (u >= abc)).astype(np.int32)
+        np.left_shift(src, 1, out=src)
+        np.left_shift(dst, 1, out=dst)
+        np.bitwise_or(src, src_bit, out=src)
+        np.bitwise_or(dst, dst_bit, out=dst)
+    return src, dst

@@ -45,8 +45,10 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 _CSRC = _PKG_DIR / "csrc"
 # gitignored: the repository's .gitignore lists .cache/
 _BUILD_DIR = _PKG_DIR.parent / ".cache" / "torch_kernels"
+# what the sources include from csrc/ (on nvcc's -I path), in the hash
+HEADERS = tuple(sorted(_CSRC.glob("*.cuh")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{_CSRC}")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -69,17 +71,19 @@ def _nvcc() -> str:
 
 def compile_shared(stem: str, sources: Sequence[Path], compiler: str,
                    flags: Sequence[str],
-                   link_flags: Sequence[str] = ("-shared",)
+                   link_flags: Sequence[str] = ("-shared",),
+                   headers: Sequence[Path] = ()
                    ) -> tuple[Path, str, float]:
     """Compile each of `sources` to an object with `flags`, all at once, and
     link them with `link_flags` into .cache/torch_kernels/<stem>_<hash>.so,
-    once per hash of the sources and the flags. Safe for concurrent
+    once per hash of the sources, the `headers` they include and the
+    flags. Safe for concurrent
     processes: each writes its own temporary files and renames the library
     into place. Returns the library's path, the compiler's output and the
     build's seconds (both empty when the library was already built). Raises
     if the build fails."""
     h = hashlib.sha256()
-    for src in sources:
+    for src in (*sources, *headers):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join([*flags, *link_flags]).encode())
@@ -120,7 +124,8 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         so, build_log, build_seconds = compile_shared(
-            "libvgl_kernels", sorted(_CSRC.glob("*.cu")), _nvcc(), NVCC_FLAGS)
+            "libvgl_kernels", sorted(_CSRC.glob("*.cu")), _nvcc(), NVCC_FLAGS,
+            headers=HEADERS)
         _lib = ctypes.CDLL(str(so))
         return _lib
 

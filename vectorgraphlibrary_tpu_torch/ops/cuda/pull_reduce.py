@@ -56,7 +56,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import monoid as M
-from . import build
+from . import build, f32_order
 
 TILE = 1280                 # csrc/pull_reduce.cu kTile: merge items per block
 # a 4-byte x larger than this reads only its first L1_COLS entries through
@@ -65,8 +65,8 @@ X_IN_L1_BYTES = 2 << 20
 L1_COLS = 1 << 15
 _OPS = {"add": 0, "min": 1, "max": 2, "or": 3, "any01": 2}
 _WOPS = {None: 0, "add": 1, "min": 2, "max": 3, "mul": 4}
-_JOIN = {"add": torch.add, "min": torch.minimum, "max": torch.maximum,
-         "mul": torch.mul}
+_JOIN = {"add": torch.add, "min": f32_order.minimum,
+         "max": f32_order.maximum, "mul": torch.mul}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # row_ptr, col_idx, x, weights, weight op, hot columns, out, tiles, n_tiles,
 # fix, n_fix, carry, exclude_self_loops, op, ident
@@ -116,6 +116,15 @@ def pull_reduce_ref(row_ptr: torch.Tensor, col_idx: torch.Tensor,
                                        output_size=e)
         vals = torch.where(cols == rows, mon.identity(x.dtype).to(x.device),
                            vals)
+    return _segments(mon, vals, degs)
+
+
+def _segments(mon, vals: torch.Tensor, degs: torch.Tensor) -> torch.Tensor:
+    """mon's reduction of vals over rows of degs entries; an f32 min or max
+    by the port's one f32 rule (f32_order), as the kernel's."""
+    if vals.dtype == torch.float32 and mon.name in ("min", "max"):
+        return f32_order.segment_reduce(vals, degs, mon.name,
+                                        mon.identity(vals.dtype).item())
     return mon.segment_reduce(vals, degs)
 
 
@@ -237,7 +246,7 @@ def segment_reduce_ref(row_ptr: torch.Tensor, x: torch.Tensor,
     sums in another order): Monoid.segment_reduce of x's first row_ptr[-1]
     slots over the rows' lengths."""
     degs = (row_ptr[1:] - row_ptr[:-1]).long()
-    return M.get(op).segment_reduce(x[:int(row_ptr[-1])], degs)
+    return _segments(M.get(op), x[:int(row_ptr[-1])], degs)
 
 
 def segment_reduce(row_ptr: torch.Tensor, x: torch.Tensor, op: str,

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, f32_order
 
 _WOPS = {None: 0, "add": 1, "min": 2, "max": 3, "mul": 4}
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -49,8 +49,8 @@ def route_gather_finish_ref(x: torch.Tensor, idx: torch.Tensor,
     """Plain PyTorch version of the kernel (same arguments, same result)."""
     y = x[idx.long()]
     if weight_op is not None:
-        op = {"add": torch.add, "min": torch.minimum, "max": torch.maximum,
-              "mul": torch.mul}[weight_op]
+        op = {"add": torch.add, "min": f32_order.minimum,
+              "max": f32_order.maximum, "mul": torch.mul}[weight_op]
         y = op(y, weights)
     if flags is not None:
         keep = (flags & 1) != 0

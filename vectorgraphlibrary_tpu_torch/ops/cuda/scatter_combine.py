@@ -10,8 +10,9 @@ same combine into `out` itself, for a caller that has just made the target
 and does not read it again (the triangle count's bitmaps, the sparse push's
 owner mark): the same checks, the same C entries and kernel, no copy. The
 f32 min is the combine of SSSP's sparse
-push; csrc/scatter_combine.cu says how it orders -0.0 and NaN (distances
-hold neither). It replaces the TPU kernel of apps/exp_push.py (make_c/_kern,
+push; f32 min and max follow the port's one f32 rule (csrc/f32_minmax.cuh,
+ops/cuda/f32_order.py: NaN propagates, -0.0 below +0.0), the JAX package's
+`.at[].min` and `.at[].max`. It replaces the TPU kernel of apps/exp_push.py (make_c/_kern,
 the case op="or", msg=1) and runs the scatter stages of the generic sparse push
 (ops/advance.advance_push_sparse, through Monoid.scatter_at and
 Monoid.scatter_at_); the BFS push runs csrc/push_expand.cu instead.
@@ -37,7 +38,7 @@ from typing import Union
 
 import torch
 
-from . import build
+from . import build, f32_order
 
 _OPS = {"min": 0, "max": 1, "or": 2, "add": 3}
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
@@ -84,11 +85,15 @@ def _messages(idx: torch.Tensor, msg, dtype) -> torch.Tensor:
 def scatter_combine_ref(out: torch.Tensor, idx: torch.Tensor,
                         msg: Union[torch.Tensor, int], op: str) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments, same result).
-    min/max/add: one scatter_reduce with a dump slot; or: bit by bit, as the
+    min/max/add: one scatter_reduce with a dump slot (f32 min/max on the
+    keys of the port's one f32 rule, f32_order); or: bit by bit, as the
     amax of each bit, so words with bit 31 set stay exact."""
     if op not in _OPS:
         raise ValueError(f"unknown scatter_combine op {op!r}")
     msg = _messages(idx, msg, out.dtype)
+    if out.dtype == torch.float32 and op in ("min", "max"):
+        return f32_order.values(scatter_reduce_drop(
+            f32_order.keys(out, op), idx, f32_order.keys(msg, op), op), op)
     if op != "or":
         return scatter_reduce_drop(out, idx, msg, op)
     res = out.clone()

@@ -3,7 +3,9 @@ vectorgraphlibrary_tpu/parallel/shard_build.py).
 
 Each shard owns the destinations d with d % S == s and holds their in-edges
 as a full tiled and routed subgraph over the whole vertex space, so the
-single-card advance runs on every shard unchanged. Every shard is built
+single-card advance runs on every shard unchanged. Another partition (the
+large tier's destination hash, apps/build_scale25.py) plans its shards
+with plan_parts and builds each with build_shard_edges. Every shard is built
 against the unified TileLayout (graph/build.layout_of, unify_layouts): the
 elementwise max of the shards' natural layouts. The reference needs that to
 stack the shards into one pytree; here the shards stay a list, and the
@@ -101,12 +103,12 @@ class ShardedTileGraph:
 
 
 @dataclasses.dataclass(frozen=True)
-class _ShardPlan:
+class ShardPlan:
     """What every shard's build shares: the partition and the unified
     layouts and paddings (reference shard_build.py:102-117)."""
 
     n_shards: int
-    shard_id: np.ndarray          # int [e]: dst % n_shards
+    shard_id: Optional[np.ndarray]   # int [e]: the edge's shard, or None
     edges_per_shard: Tuple[int, ...]
     layout_out: object
     layout_in: object
@@ -114,26 +116,37 @@ class _ShardPlan:
     e_pad: int
 
 
-def _plan_shards(ec: EdgesContainer, n_shards: int,
-                 cfg: VGLConfig = DEFAULT_CONFIG) -> _ShardPlan:
-    """Partition by destination modulo S (a contiguous range would put the
-    power-law hubs of low ids in shard 0, and the unified layout would then
-    size every shard like shard 0) and unify the shards' natural layouts.
-    Host only: one degree count per shard and direction."""
-    v = ec.vertices_count
-    shard_id = ec.dst_ids % n_shards
+def plan_parts(parts, v: int, cfg: VGLConfig = DEFAULT_CONFIG,
+               shard_id: Optional[np.ndarray] = None) -> ShardPlan:
+    """The plan of shards given by their edges, parts = [(src, dst), ...]
+    in shard order, whatever the partition (import_sharded's dst % S,
+    apps/build_scale25.py's multiplicative hash): the shards' natural
+    layouts unified, v_pad and the unified e_pad. Host only: one degree
+    count per shard and direction. shard_id: the partition itself, which
+    build_shard reads; None where the caller keeps each shard's edges
+    (build_shard_edges)."""
     louts, lins, counts = [], [], []
-    for s in range(n_shards):
-        m = shard_id == s
-        louts.append(layout_of(np.bincount(ec.src_ids[m], minlength=v), cfg))
-        lins.append(layout_of(np.bincount(ec.dst_ids[m], minlength=v), cfg))
-        counts.append(int(np.count_nonzero(m)))
+    for src, dst in parts:
+        louts.append(layout_of(np.bincount(src, minlength=v), cfg))
+        lins.append(layout_of(np.bincount(dst, minlength=v), cfg))
+        counts.append(int(len(src)))
     l_out, l_in = unify_layouts(louts), unify_layouts(lins)
     v_pad = max(_next_pow2(max(l_out.total_rows, l_in.total_rows, v)), 1024)
     e_pad = max(8 * ((max(counts) + 7) // 8), 8)
-    return _ShardPlan(n_shards=n_shards, shard_id=shard_id,
+    return ShardPlan(n_shards=len(counts), shard_id=shard_id,
                      edges_per_shard=tuple(counts), layout_out=l_out,
                      layout_in=l_in, v_pad=v_pad, e_pad=e_pad)
+
+
+def _plan_shards(ec: EdgesContainer, n_shards: int,
+                 cfg: VGLConfig = DEFAULT_CONFIG) -> ShardPlan:
+    """Partition by destination modulo S (a contiguous range would put the
+    power-law hubs of low ids in shard 0, and the unified layout would then
+    size every shard like shard 0) and unify the shards' natural layouts."""
+    shard_id = ec.dst_ids % n_shards
+    parts = ((ec.src_ids[m], ec.dst_ids[m])
+             for m in (shard_id == s for s in range(n_shards)))
+    return plan_parts(parts, ec.vertices_count, cfg, shard_id)
 
 
 def _pad_edges(h: HostDirectedCSR, e_pad: int) -> None:
@@ -157,14 +170,25 @@ def _tile_slots(h: HostDirectedCSR) -> int:
     return huge + sum(b.rows_pad * b.width for b in h.buckets)
 
 
-def _build_shard(ec: EdgesContainer, plan: _ShardPlan, s: int,
+def _build_shard(ec: EdgesContainer, plan: ShardPlan, s: int,
                  cfg: VGLConfig, device,
                  slim: bool = False) -> Tuple[VGLGraph, tuple]:
     """Shard s on `device` and its two host CSRs; a slim shard builds no
     advance route and uploads none of what slim_value_pull drops."""
-    v = ec.vertices_count
     m = plan.shard_id == s
-    src, dst = ec.src_ids[m], ec.dst_ids[m]
+    return build_shard_edges(ec.src_ids[m], ec.dst_ids[m], ec.vertices_count,
+                             plan, cfg, device, slim)
+
+
+def build_shard_edges(src: np.ndarray, dst: np.ndarray, v: int,
+                      plan: ShardPlan, cfg: VGLConfig = DEFAULT_CONFIG,
+                      device="cpu", slim: bool = False
+                      ) -> Tuple[VGLGraph, tuple]:
+    """The shard that holds the edges (src, dst) of a plan's partition, on
+    `device`, and its two host CSRs (h_out, h_in); h_in.edge_perm maps each
+    incoming CSR slot to its edge's index in (src, dst). slim as in
+    import_sharded."""
+    device = torch.device(device)
     h_out = build_directed_csr(src, dst, v, cfg, layout=plan.layout_out,
                                v_pad=plan.v_pad)
     h_in = build_directed_csr(dst, src, v, cfg, layout=plan.layout_in,

@@ -352,6 +352,18 @@ def pagerank_sharded_scan(sg: ShardedTileGraph, ec,
                      0.85, max_iterations)
 
 
+def pagerank_sharded_scan_consts(sg: ShardedTileGraph, rev, dmask,
+                                 max_iterations: int = 100) -> torch.Tensor:
+    """pagerank_sharded_scan from the degree constants themselves (rev,
+    dmask as pr_consts gives them, [v] or [v_pad], numpy or torch: a
+    builder's .prconsts.npz), for a graph whose edges are not at hand."""
+    consts = (torch.as_tensor(_pad_v(np.asarray(rev), sg.v_pad)).to(sg.device),
+              torch.as_tensor(_pad_v(np.asarray(dmask), sg.v_pad, fill=False)
+                              ).to(sg.device))
+    return _pagerank(_scan_pull(sg), consts, sg.v, sg.v_pad, sg.device,
+                     0.85, max_iterations)
+
+
 def hits_sharded_scan(sg: ShardedTileGraph, iterations: int = 20
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """One-card HITS over the shards in turn; (auth, hub) [v_pad] ORIGINAL."""
