@@ -242,6 +242,22 @@ result line):
    seq_page_rank, SSSP within rtol 1e-5 of scipy's dijkstra over the same
    edges (the least weight of repeated edges), CC's component count equal
    to scipy's connected_components.
+19. slice: the scale-24 tier's path at RMAT-20/16 (cut from 24 for the
+   script's time), the phase-6 graph: apps/build_scale24.py in a process
+   of its own into a temporary cache (the shard count that the JAX
+   script's rule picks, dst % S edges per shard summing to |E|, "partition":
+   "dst-mod"), the host oracles beside it; the artifact loaded resident and
+   apps/bench_scale24.py's rows (PageRank, HITS, BFS from vertex 2, MS-BFS
+   from 32 roots, partial SSSP on the slot-hash weights, CC hybrid), each
+   a median of 3 after a warm-up by DeviceTimer, one row at a time with
+   only pull_reduce and route_gather_finish launched (S pulls and 2S
+   routes per whole-graph pull, 3S with SSSP's source mask); PageRank
+   error count 0 against seq_page_rank, BFS equal to a host BFS, MS-BFS
+   equal to the unsharded vgl_msbfs for all 32 roots and to a host BFS for
+   2, HITS within rtol 1e-5 (atol 1e-6 of the max) of vgl_hits, SSSP error
+   count 0 against scipy's dijkstra on the hashed weights read back from
+   the shards, CC's component count equal to scipy's; then
+   apps/crosscheck_scale20.crosscheck on the same graph ok.
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
@@ -250,8 +266,8 @@ none) and its bound (bound_ms: the bytes it must move at the H100's 3.35
 TB/s, or for and_popcount the larger of that and its operations at 67
 TOP/s) at the main path's shapes, "rates", phase 12's and 14's MTEPS,
 "prim_tables", phase 15's per-primitive tables, "autotuner_picks", and
-"sharded", phase 16's numbers, "part2", phase 17's, and "tier", phase
-18's.
+"sharded", phase 16's numbers, "part2", phase 17's, "tier", phase
+18's, and "scale24", phase 19's.
 The last line is {"ok": true, "device":
 {...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
 PageRank run, one DO-BFS root, one all-active SSSP run and one HITS call to
@@ -3909,10 +3925,22 @@ def _host_done(label: str, child: tuple, timeout: int) -> tuple:
     return out, time.perf_counter() - t0
 
 
+def _least_weight_matrix(src, dst, w, v: int):
+    """scipy CSR matrix [v, v] of the edges (src, dst) in f64, a repeated
+    edge keeping its least weight (csr_matrix would sum them)."""
+    import scipy.sparse as sp
+    key = src.astype(np.int64) * v + dst
+    order = np.lexsort((w, key))
+    first = np.ones(len(order), bool)
+    first[1:] = key[order][1:] != key[order][:-1]
+    keep = order[first]
+    return sp.csr_matrix((w[keep].astype(np.float64),
+                          (src[keep], dst[keep])), shape=(v, v))
+
+
 def phase_tier(kernels: dict, smi: str) -> dict:
     """Phase 18: the large tier's path at RMAT-20/32 in 8 hash shards (module
     doc). -> {"launches": {path: counts}, "numbers": {...}}."""
-    import scipy.sparse as sp
     from scipy.sparse.csgraph import connected_components, dijkstra
     from vectorgraphlibrary_tpu_torch.apps import scale_tier
     from vectorgraphlibrary_tpu_torch.graph import persistence
@@ -4076,13 +4104,7 @@ def phase_tier(kernels: dict, smi: str) -> dict:
                                     want)
     if errors:
         raise AssertionError(f"tier pagerank: error count {errors}")
-    key = ec.src_ids.astype(np.int64) * v + ec.dst_ids
-    order = np.lexsort((ec.weights, key))
-    first = np.ones(len(order), bool)
-    first[1:] = key[order][1:] != key[order][:-1]
-    keep = order[first]
-    mat = sp.csr_matrix((ec.weights[keep].astype(np.float64),
-                         (ec.src_ids[keep], ec.dst_ids[keep])), shape=(v, v))
+    mat = _least_weight_matrix(ec.src_ids, ec.dst_ids, ec.weights, v)
     t0 = time.perf_counter()
     want_d = dijkstra(mat, directed=True, indices=hub)
     got_d = results["sssp"][:v].cpu().numpy().astype(np.float64)
@@ -4104,6 +4126,186 @@ def phase_tier(kernels: dict, smi: str) -> dict:
           f"reached, rtol 1e-5), {n_comp} weak components as scipy's; "
           f"launches {launches}")
     del ssg, sg, weights
+    cache.cleanup()
+    return {"launches": launches, "numbers": numbers}
+
+
+S24_SCALE, S24_DEGREE = 20, 16   # phase 19: the scale-24 path cut from 24
+PATHS19 = (f"scale24_rmat{S24_SCALE}", f"crosscheck_rmat{S24_SCALE}")
+
+
+def _shard_edges_hashed(sg) -> tuple:
+    """Every edge of a loaded sharded graph as (src, dst, w) in ORIGINAL
+    ids, read back from each shard's incoming CSR (its rows and columns in
+    the GATHER ordering, mapped by the shard's own vertex route), with the
+    slot-hash weight that sssp_sharded_scan_hash gives it."""
+    from vectorgraphlibrary_tpu_torch.models import common
+    from vectorgraphlibrary_tpu_torch.models.common import TraversalDirection
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    fn = sharded.slot_hash_weight_fn(sharded.route_slot_count(sg.shard(0)))
+    ids = torch.arange(sg.v_pad, dtype=torch.int32, device=sg.device)
+    src, dst, w = [], [], []
+    for s, g in enumerate(sg.shards):
+        orig = common.to_direction(g, ids, TraversalDirection.ORIGINAL,
+                                   TraversalDirection.GATHER)
+        e = g.incoming.e
+        rows = torch.repeat_interleave(
+            torch.arange(sg.v_pad, device=sg.device),
+            g.incoming.row_ptr.diff().long())
+        dst.append(orig[rows].cpu().numpy())
+        src.append(orig[g.incoming.col_idx[:e].long()].cpu().numpy())
+        w.append(fn(s, g).flat[:e].cpu().numpy())
+    return tuple(np.concatenate(a) for a in (src, dst, w))
+
+
+def phase_scale24(kernels: dict, ec, graph, smi: str) -> dict:
+    """Phase 19: the scale-24 tier's path at RMAT-20/16 (module doc) on
+    the phase-6 graph `ec` (imported unsharded as `graph`). -> {"launches":
+    {path: counts}, "numbers": {...}}."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components, dijkstra
+    from vectorgraphlibrary_tpu_torch.apps import (bench_scale24,
+                                                   build_scale24,
+                                                   crosscheck_scale20)
+    from vectorgraphlibrary_tpu_torch.models import bfs, common, hits, pr
+    from vectorgraphlibrary_tpu_torch.models.common import TraversalDirection
+    from vectorgraphlibrary_tpu_torch.utils.verify import (
+        verify_ranking_results, verify_results)
+    numbers, v = {}, ec.vertices_count
+    if (v.bit_length() - 1, ec.edges_count // v) != (S24_SCALE, S24_DEGREE):
+        raise AssertionError("phase 19 runs on the phase-6 graph")
+    cache = tempfile.TemporaryDirectory()
+    builder = _host_child(
+        [sys.executable, "-m", "vectorgraphlibrary_tpu_torch.apps.build_scale24"],
+        dict(VGL_S24_SCALE=str(S24_SCALE), VGL_S24_DEGREE=str(S24_DEGREE),
+             VGL_S24_CACHE=cache.name))
+    # the host oracles, beside the builder
+    t0 = time.perf_counter()
+    want_shards = build_scale24.shard_count(ec)
+    roots = bench_scale24.roots_of(v)
+    want_pr = pr.seq_page_rank(ec, max_iterations=bench_scale24.PR_ITERS,
+                               use_convergence=False)
+    want_lv = bfs.seq_top_down(ec, [bench_scale24.SOURCE, int(roots[0]),
+                                    int(roots[1])])
+    n_comp = connected_components(sp.csr_matrix(
+        (np.ones(ec.edges_count, bool), (ec.src_ids, ec.dst_ids)),
+        shape=(v, v)), directed=True, connection="weak")[0]
+    numbers["host_oracles_s"] = time.perf_counter() - t0
+    out, wall = _host_done("apps/build_scale24.py", builder, 600)
+    built = json.loads(out.strip().splitlines()[-1])
+    numbers["builder"] = dict(built, wall_s=wall)
+    prefix = built["built"]
+    with open(f"{prefix}.meta.json") as f:
+        meta = json.load(f)
+    S, eps = meta["n_shards"], meta["edges_per_shard"]
+    if S != want_shards or built["shards"] != S or meta["e"] != ec.edges_count \
+            or sum(eps) != meta["e"] or meta["partition"] != "dst-mod" \
+            or eps != np.bincount(ec.dst_ids % S, minlength=S).tolist():
+        raise AssertionError(f"scale-24 meta {meta}, want {want_shards} "
+                             f"dst-mod shards")
+    print(f"  build_scale24 (a process of its own): {S} dst % S shards as "
+          f"the JAX script's rule picks, edges {eps} (sum |E|), generate "
+          f"{built['gen_s']:.2f} s, build {built['build_s']:.2f} s, peak RSS "
+          f"{built['shard_peak_rss_gib']} GiB a worker, "
+          f"{built['bytes_on_disk'] / 2**20:.1f} MiB on disk; host oracles "
+          f"{numbers['host_oracles_s']:.2f} s beside it")
+
+    sg, consts, load_row = bench_scale24.load(prefix, DEVICE)
+    numbers["load"] = load_row
+    launches = {p: dict.fromkeys(kernels, 0) for p in PATHS19}
+    results, rows = {}, []
+    for name in bench_scale24.ROWS:
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        got = bench_scale24.measure(sg, consts, DEVICE, (name,), results)
+        torch.cuda.synchronize()
+        n = {kn: k.launches for kn, k in kernels.items()}
+        pulls = S * (got[0]["warmup_pull_steps"]
+                     + bench_scale24.REPS * got[0]["pull_steps"])
+        routes = (3 if name == "sssp" else 2) * pulls
+        if n != dict(dict.fromkeys(kernels, 0), pull_reduce=pulls,
+                     route_gather_finish=routes):
+            raise AssertionError(f"scale-24 {name}: launches {n}, want "
+                                 f"{pulls} pulls and {routes} routes")
+        for kn in n:
+            launches[PATHS19[0]][kn] += n[kn]
+        rows += got
+    numbers["rows"] = rows
+    by = {r["metric"]: r for r in rows}
+    s = f"rmat{S24_SCALE}"
+
+    # the checks
+    errors = verify_ranking_results(results["pagerank"][:v].cpu().numpy(),
+                                    want_pr)
+    if errors:
+        raise AssertionError(f"scale-24 pagerank: error count {errors}")
+    if not np.array_equal(results["bfs"][:v].cpu().numpy(), want_lv[0]):
+        raise AssertionError("scale-24 bfs: levels differ from the host BFS")
+    g_ms = bfs.vgl_msbfs(graph, roots).values
+    want_ms = torch.stack([common.to_direction(
+        graph, g_ms[i], TraversalDirection.SCATTER,
+        TraversalDirection.ORIGINAL) for i in range(len(roots))])[:, :v]
+    got_ms = results["msbfs"][:, :v].to(torch.int32)
+    if not torch.equal(got_ms, want_ms.to(torch.int32)):
+        raise AssertionError("scale-24 msbfs: levels differ from vgl_msbfs")
+    if not np.array_equal(got_ms[:2].cpu().numpy(), want_lv[1:]):
+        raise AssertionError("scale-24 msbfs: levels differ from the host "
+                             "BFS")
+    auth, hub = hits.vgl_hits(graph, iterations=bench_scale24.HITS_ITERS)
+    for label, a, b in (("auth", results["hits"][0], auth.values),
+                        ("hub", results["hits"][1], hub.values)):
+        a, b = a[:v].cpu().numpy(), b[:v].cpu().numpy()
+        if not np.allclose(a, b, rtol=1e-5, atol=1e-6 * np.abs(b).max()):
+            raise AssertionError(f"scale-24 hits {label}: differs from "
+                                 f"vgl_hits")
+    t0 = time.perf_counter()
+    src, dst, w = _shard_edges_hashed(sg)
+    want_d = dijkstra(_least_weight_matrix(src, dst, w, v), directed=True,
+                      indices=bench_scale24.SOURCE)
+    errors = verify_results(results["sssp"][0][:v].cpu().numpy(), want_d)
+    if errors or len(src) != ec.edges_count:
+        raise AssertionError(f"scale-24 sssp: error count {errors} against "
+                             f"the host Dijkstra on the hashed weights")
+    numbers["dijkstra_s"] = time.perf_counter() - t0
+    got_comp = by[f"cc_sv_{s}_mteps"]["components"]
+    if got_comp != n_comp:
+        raise AssertionError(f"scale-24 cc: {got_comp} components, scipy "
+                             f"{n_comp}")
+    del src, dst, w
+
+    # the cross-check, on the same graph
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cross = crosscheck_scale20.crosscheck(ec, bench_scale24.PR_ITERS, DEVICE,
+                                          graph=graph)
+    torch.cuda.synchronize()
+    launches[PATHS19[1]] = {kn: k.launches for kn, k in kernels.items()}
+    numbers["crosscheck"] = dict(cross, seconds=time.perf_counter() - t0)
+    if not cross["ok"] or launches[PATHS19[1]]["pull_reduce"] == 0 \
+            or launches[PATHS19[1]]["route_gather_finish"] == 0:
+        raise AssertionError(f"scale-24 cross-check: {cross}, launches "
+                             f"{launches[PATHS19[1]]}")
+    numbers.update(components=n_comp, reached=by[f"bfs_{s}_gteps"]["reached"])
+    print("  rows (median of 3 after a warm-up, DeviceTimer): " + "; ".join(
+        f"{r['metric']} {r['value']:.2f} {r['unit']} ({r['seconds'] * 1e3:.2f}"
+        f" ms, min {r['seconds_min'] * 1e3:.2f}, max "
+        f"{r['seconds_max'] * 1e3:.2f}, peak "
+        f"{r['peak_device_bytes'] / 2**20:.1f} MiB)" for r in rows)
+          + f" on {smi}")
+    print(f"  checks: PageRank error count 0 against seq_page_rank; BFS from "
+          f"{bench_scale24.SOURCE} equal to the host BFS "
+          f"({numbers['reached']} reached); MS-BFS equal to vgl_msbfs for "
+          f"{len(roots)} roots and to the host BFS for 2; HITS within rtol "
+          f"1e-5 of vgl_hits; hashed SSSP error count 0 against scipy's "
+          f"dijkstra on {len(want_d)} vertices ({numbers['dijkstra_s']:.2f} "
+          f"s); {n_comp} weak components as scipy's; cross-check ok "
+          f"(max abs errors {cross['max_abs_err_scan_vs_oracle']:.3g}, "
+          f"{cross['max_abs_err_single_vs_oracle']:.3g}); launches "
+          f"{launches}")
+    del sg
     cache.cleanup()
     return {"launches": launches, "numbers": numbers}
 
@@ -4252,7 +4454,7 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/18] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/19] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -4267,56 +4469,56 @@ def main() -> int:
         first.result()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/18] build: {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[2/19] build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
           f"ptxas: " + " | ".join(ptxas))
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print("[3/18] kernel: route_gather_finish vs plain version, n = 2^24")
+    print("[3/19] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[4/18] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+    print(f"[4/19] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
           f"version on its graph")
     prr = phase_pagerank(rg, pl, smi)
     prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[5/18] kernel: scatter_combine vs plain version, V = 2^20, and "
+    print(f"[5/19] kernel: scatter_combine vs plain version, V = 2^20, and "
           f"push_expand vs plain version on RMAT-{BFS_SCALE}")
     bfs_ec, bfs_graph, bfs_ea = make_bfs_graph()
     push = phase_scatter(scm, pe, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[6/18] slice: BFS on RMAT-{BFS_SCALE}")
+    print(f"[6/19] slice: BFS on RMAT-{BFS_SCALE}")
     bfs_root, bfs_launches, pull20, root_levels = phase_bfs(
         rg, pl, pe, scm, bfs_ec, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[7/18] kernel: lane_shuffle vs plain version, "
+    print(f"[7/19] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
     lsr = phase_lane_shuffle(ls, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[8/18] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+    print(f"[8/19] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
     kernels = _kernels()
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[9/18] kernel: pull_reduce with edge weights and scatter_combine "
+    print(f"[9/19] kernel: pull_reduce with edge weights and scatter_combine "
           f"f32 vs plain versions on weighted RMAT-{BFS_SCALE}, and the "
           f"host's cost of one launch")
     wk = phase_weighted_kernels(rg, pl, scm, bfs_ec, bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[10/18] slice: SSSP, SSWP, CC and HITS on weighted "
+    print(f"[10/19] slice: SSSP, SSWP, CC and HITS on weighted "
           f"RMAT-{BFS_SCALE}")
     fix = phase_fixpoint(kernels, bfs_ec, bfs_graph, bfs_ea, smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[11/18] kernel: scatter_combine int32 add, its sorted build and "
+    print(f"[11/19] kernel: scatter_combine int32 add, its sorted build and "
           f"and_popcount vs plain versions, at the RMAT-{SCALE} triangle "
           f"count's shapes")
     k6 = phase_slice6_kernels(scm, ap, prr["ec"], smi)
@@ -4325,33 +4527,33 @@ def main() -> int:
                                      k6["scatter_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[12/18] slice: SCC, coloring, label propagation, random walks, "
+    print(f"[12/19] slice: SCC, coloring, label propagation, random walks, "
           f"reachability and triangle count on RMAT-{SCALE}")
     s6 = phase_slice6(kernels, prr["ec"], prr["graph"], k6["oriented"],
                       k6["host_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[13/18] slice: GraphSAGE at ogbn-products' widths (in "
+    print(f"[13/19] slice: GraphSAGE at ogbn-products' widths (in "
           f"{SAGE_IN}, hidden {SAGE_HIDDEN}, classes {SAGE_CLASSES}) on "
           f"RMAT-{BFS_SCALE}, sampled on RMAT-{SCALE}, and pull_rows vs plain "
           f"version")
     sage = phase_sage(kernels, prw, bfs_ec, bfs_graph, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[14/18] slice: max-flow on RMAT-{SCALE}, and the general advance "
+    print(f"[14/19] slice: max-flow on RMAT-{SCALE}, and the general advance "
           f"and segment_reduce vs plain versions")
     mfr = phase_mf(kernels, pl, prr["ec"], smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"],
                                  mfr["pull"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[15/18] slice: the measurement runtime: the per-primitive pass "
+    print(f"[15/19] slice: the measurement runtime: the per-primitive pass "
           f"on RMAT-{SCALE} and weighted RMAT-{BFS_SCALE}, the PageRank app "
           f"with it, ubench_prims and the autotuner's samples")
     meas = phase_measurement(kernels, prr["graph"], bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[16/18] slice: distribution on one card: the sharded container "
+    print(f"[16/19] slice: distribution on one card: the sharded container "
           f"and its one-card runners on weighted RMAT-{BFS_SCALE} in "
           f"{SHARDS} shards, the rank-parallel runners ({RANK_SHARDS} gloo "
           f"ranks sharing the card, one NCCL rank), sharded save and load "
@@ -4365,7 +4567,7 @@ def main() -> int:
     print(f"  phase 16: {sh['numbers']['phase_s']:.1f} s")
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[17/18] slice: distribution part 2 on one card: MS-BFS, CC "
+    print(f"[17/19] slice: distribution part 2 on one card: MS-BFS, CC "
           f"hybrid, slim shards and SSSP on hashed weights over phase 16's "
           f"RMAT-{BFS_SCALE} shards, the five rank drivers and the sharded "
           f"GraphSAGE ({RANK_SHARDS} gloo ranks on RMAT-{GLOO_SCALE}, one "
@@ -4380,7 +4582,7 @@ def main() -> int:
     print(f"  phase 17: {p2['numbers']['phase_s']:.1f} s")
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[18/18] slice: the large tier's path: apps/build_scale25.py "
+    print(f"[18/19] slice: the large tier's path: apps/build_scale25.py "
           f"(rmat_fast, in a process of its own) at RMAT-{TIER_SCALE}/"
           f"{TIER_DEGREE} in {TIER_SHARDS} hash shards, loaded resident and "
           f"streamed: PageRank, stored-weight SSSP, MS-BFS and CC hybrid "
@@ -4389,6 +4591,17 @@ def main() -> int:
     tier = phase_tier(kernels, smi)
     tier["numbers"]["phase_s"] = time.perf_counter() - t18
     print(f"  phase 18: {tier['numbers']['phase_s']:.1f} s")
+
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[19/19] slice: the scale-24 tier's path: apps/build_scale24.py "
+          f"(in a process of its own) at RMAT-{S24_SCALE}/{S24_DEGREE} in "
+          f"dst % S shards, apps/bench_scale24.py's rows resident against "
+          f"the host oracles and the unsharded models, and "
+          f"apps/crosscheck_scale20.py's check on the same graph")
+    t19 = time.perf_counter()
+    s24 = phase_scale24(kernels, bfs_ec, bfs_graph, smi)
+    s24["numbers"]["phase_s"] = time.perf_counter() - t19
+    print(f"  phase 19: {s24['numbers']['phase_s']:.1f} s")
 
     if "--profile" in sys.argv:
         profile(pl, prr["graph"], bfs_graph, bfs_root, bfs_ec, bfs_ea,
@@ -4409,7 +4622,8 @@ def main() -> int:
                    **{p: c[kernel] for p, c in meas["launches"].items()},
                    **{p: c[kernel] for p, c in sh["launches"].items()},
                    **{p: c[kernel] for p, c in p2["launches"].items()},
-                   **{p: c[kernel] for p, c in tier["launches"].items()}}
+                   **{p: c[kernel] for p, c in tier["launches"].items()},
+                   **{p: c[kernel] for p, c in s24["launches"].items()}}
         if kernel == "scatter_combine":
             # scatter_combine.launches counts every entry of the source:
             # the general entries' row leaves out the sorted build's
@@ -4483,7 +4697,7 @@ def main() -> int:
         "prim_tables": meas["tables"],
         "autotuner_picks": meas["autotuner_picks"],
         "sharded": sh["numbers"], "part2": p2["numbers"],
-        "tier": tier["numbers"]}))
+        "tier": tier["numbers"], "scale24": s24["numbers"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1981,3 +1981,53 @@ def test_hash_tier_artifact_resident_and_streamed_on_the_card(cuda,
                        streaming.msbfs_streamed(ssg, roots)[0])
     assert torch.equal(sharded.cc_hybrid_sharded_scan(sg, hub)[0],
                        streaming.cc_hybrid_streamed(ssg, hub)[0])
+
+
+def test_scale24_tier_on_the_card(cuda, tmp_path):
+    """The scale-24 tier small: apps/build_scale24.py (a process of its own,
+    no CUDA there) at RMAT-12/8, then apps/bench_scale24.py's rows on the
+    card, one row at a time: only pull_reduce and route_gather_finish
+    launch, S pulls and 2S routes per whole-graph pull (3S with partial
+    SSSP's source mask), and every output equal to the same rows on the
+    CPU (PageRank and HITS bit for bit or within rtol 1e-5)."""
+    import os
+    import subprocess
+    import sys
+    from vectorgraphlibrary_tpu_torch.apps import bench_scale24
+    from vectorgraphlibrary_tpu_torch.ops.cuda import pull_rows as prw
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "vectorgraphlibrary_tpu_torch.apps.build_scale24"],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="", VGL_S24_SCALE="12",
+                 VGL_S24_DEGREE="8", VGL_S24_CACHE=str(tmp_path)))
+    assert r.returncode == 0, r.stdout + r.stderr
+    prefix = str(tmp_path / "rmat12_8_slim")
+    kernels = [rg.route_gather_finish, pl.pull_reduce, pl.segment_reduce,
+               sc.scatter_combine, pe.push_expand, ls.lane_shuffle,
+               ap.and_popcount, prw.pull_rows]
+    want = {}
+    bench_scale24.run(prefix, "cpu", results=want)
+    sg, consts, _ = bench_scale24.load(prefix, "cuda")
+    got = {}
+    for name in bench_scale24.ROWS:
+        for k in kernels:
+            k.launches = 0
+        row = bench_scale24.measure(sg, consts, "cuda", (name,), got)[0]
+        torch.cuda.synchronize()
+        pulls = sg.n_shards * (row["warmup_pull_steps"]
+                               + bench_scale24.REPS * row["pull_steps"])
+        routes = (3 if name == "sssp" else 2) * pulls
+        assert [k.launches for k in kernels] == [routes, pulls] + [0] * 6, name
+    for name in bench_scale24.ROWS:
+        a, b = got[name], want[name]
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        for x, y in zip(a, b):
+            if not isinstance(x, torch.Tensor):
+                assert x == y, name
+            elif name in ("pagerank", "hits"):
+                assert torch.equal(x.cpu(), y) or np.allclose(
+                    x.cpu().numpy(), y.numpy(), rtol=1e-5,
+                    atol=1e-6 * float(y.abs().max())), name
+            else:
+                assert torch.equal(x.cpu(), y), name

@@ -10,8 +10,9 @@ drivers (PageRank, HITS, BFS, CC, SSSP, MS-BFS, CC hybrid and SSSP on
 hashed weights, on full and slim shards), its sharded save and load
 with the weights, the five streamed algorithms, the
 per-primitive profiling pass on a scale-10 graph with and without weights,
-the PageRank app with that pass, the large tier's builder and apps, and
-rmat_fast on two forked workers)
+the PageRank app with that pass, the large tier's builder and apps,
+rmat_fast on two forked workers, and the scale-24 tier's shard-count rule,
+cross-check and bench rows on a small artifact)
 neither loads the JAX package's native library nor launches a kernel."""
 import os
 import subprocess
@@ -150,6 +151,18 @@ from vectorgraphlibrary_tpu_torch.apps import (bench_s22w_resident,
                                                bench_scale25, build_scale25)
 from vectorgraphlibrary_tpu_torch.io.generation import rmat_fast
 rmat_fast(8, 4, seed=1, chunk=256, workers=2)
+from vectorgraphlibrary_tpu_torch.apps import (bench_scale24, build_scale24,
+                                               crosscheck_scale20)
+ec24 = generation.rmat(9, 4, seed=42, weighted=False)
+assert build_scale24.shard_count(ec24) == 2
+assert crosscheck_scale20.crosscheck(ec24, 2, "cpu")["ok"]
+with tempfile.TemporaryDirectory() as d:
+    persistence.save_sharded_graph(shard_build.import_sharded(
+        ec24, 2, device="cpu", slim=True), os.path.join(d, "s"))
+    rev, dmask = sharded.pr_consts(ec24)
+    import numpy as np
+    np.savez(os.path.join(d, "s.prconsts.npz"), rev=rev, dmask=dmask)
+    bench_scale24.run(os.path.join(d, "s"), "cpu")
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "vectorgraphlibrary_tpu" or m.startswith("vectorgraphlibrary_tpu.")]

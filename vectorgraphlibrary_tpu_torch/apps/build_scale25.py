@@ -39,6 +39,10 @@ per shard, maxtasksperchild=1, each shard's edges shared copy-on-write) is
 safe, and rmat_fast's pool too. Prints the host's cores and memory first
 and one JSON line last: seconds to generate and to build, bytes on disk,
 edges per shard and the workers' peak resident memory.
+
+build() is the scale tiers' one builder: apps/build_scale24.py runs it on
+unweighted rmat(seed=42) in dst % S shards, their count chosen from the
+graph.
 """
 from __future__ import annotations
 
@@ -83,7 +87,8 @@ _G: dict = {}
 
 
 def build_shard(s: int) -> dict:
-    """Shard s: its slim file and its route-slot weights, written here."""
+    """Shard s: its slim file and, where the tier stores weights, its
+    route-slot weights, written here."""
     import torch
     from ..graph import persistence
     from ..parallel.shard_build import build_shard_edges
@@ -96,18 +101,22 @@ def build_shard(s: int) -> dict:
     g, hosts = build_shard_edges(src, dst, _G["v"], _G["plan"],
                                  device="cpu", slim=True)
     e = len(src)
-    perm = hosts[1].edge_perm[:e]      # incoming CSR slot -> shard edge
+    route_n = route_slot_count(g)
+    # incoming CSR slot -> shard edge
+    perm = None if w is None else hosts[1].edge_perm[:e]
     del hosts                          # the host CSRs' tiles, before saving
-    slots = np.zeros(route_slot_count(g), np.float32)
-    slots[g.in_route_slots.numpy()] = w[perm]
-    del perm
-    persistence.save_shard_weights(slots, prefix, s)
+    if w is not None:
+        slots = np.zeros(route_n, np.float32)
+        slots[g.in_route_slots.numpy()] = w[perm]
+        del perm
+        persistence.save_shard_weights(slots, prefix, s)
+        del slots
     persistence.save_graph_to_binary_file(g, f"{prefix}.shard{s}.npz",
                                           compressed=False)
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     log(f"shard {s}: done in {time.time() - t0:.1f} s, peak RSS "
         f"{peak:.2f} GiB")
-    return {"s": s, "edges": e, "route_n": int(slots.shape[0]),
+    return {"s": s, "edges": e, "route_n": int(route_n),
             "seconds": time.time() - t0, "peak_rss_gib": peak}
 
 
@@ -115,15 +124,33 @@ def _generate(cfg: dict):
     from ..io import generation
     if cfg["generator"] == "rmat_fast":
         return generation.rmat_fast(cfg["scale"], cfg["degree"], seed=SEED,
-                                    weighted=True,
+                                    weighted=cfg["weighted"],
                                     workers=os.cpu_count() or 1)
     return generation.rmat(cfg["scale"], cfg["degree"], seed=SEED,
-                           weighted=True)
+                           weighted=cfg["weighted"])
 
 
-def build(cfg: dict) -> dict:
+PARTITIONS = {"dst-hash": shard_of,
+              "dst-mod": lambda dst, n_shards: dst % n_shards}
+
+
+def _build_shards(shards: list, workers: int) -> list:
+    """build_shard over `shards` in a fork pool of `workers` processes."""
+    _G["workers"] = workers
+    with mp.get_context("fork").Pool(workers, maxtasksperchild=1) as pool:
+        return pool.map(build_shard, shards, chunksize=1)
+
+
+def build(cfg: dict, shard_count=None) -> dict:
     """Generate, partition and write the tier (module doc); -> the summary
-    that main prints."""
+    that main prints. cfg (scale_tier.settings, settings24): the graph
+    (scale, degree, generator, weighted: whether the generator's weights
+    are stored), the partition (PARTITIONS: "dst-hash" or "dst-mod"), the
+    shard count (shards, or shard_count(ec) where shards is None), the
+    workers and where the files go. A shard that holds more than half the
+    edges (dst % 2 leaves RMAT's shard 0 about three quarters) is built
+    first with no other beside it: a worker's memory grows with its
+    shard's edges."""
     from .. import native
     from ..parallel.shard_build import plan_parts
     from ..parallel.sharded import pr_consts
@@ -131,7 +158,8 @@ def build(cfg: dict) -> dict:
     os.makedirs(cfg["cache"], exist_ok=True)
     t0 = time.time()
     log(f"generating RMAT scale={cfg['scale']} degree={cfg['degree']} "
-        f"(weighted, {cfg['generator']}) ...")
+        f"({'weighted' if cfg['weighted'] else 'unweighted'}, "
+        f"{cfg['generator']}) ...")
     ec = _generate(cfg)
     v, e = ec.vertices_count, ec.edges_count
     gen_s = time.time() - t0
@@ -139,28 +167,34 @@ def build(cfg: dict) -> dict:
     rev, dmask = pr_consts(ec)
     np.savez(f"{prefix}.prconsts.npz", rev=rev, dmask=dmask)
     del rev, dmask
-    sid = shard_of(ec.dst_ids, cfg["shards"])
+    n_shards = cfg["shards"] if cfg["shards"] is not None else shard_count(ec)
+    sid = PARTITIONS[cfg["partition"]](ec.dst_ids, n_shards)
     parts = []
-    for s in range(cfg["shards"]):
+    for s in range(n_shards):
         m = sid == s
-        parts.append((ec.src_ids[m], ec.dst_ids[m], ec.weights[m]))
+        parts.append((ec.src_ids[m], ec.dst_ids[m],
+                      ec.weights[m] if cfg["weighted"] else None))
         log(f"  shard {s}: {len(parts[-1][0]):,} edges")
     del sid, ec, m
     plan = plan_parts([(p[0], p[1]) for p in parts], v)
     log(f"partitioned and planned ({time.time() - t0:.1f} s): v_pad=2^"
         f"{plan.v_pad.bit_length() - 1} e_pad={plan.e_pad:,}")
-    _G.update(parts=parts, plan=plan, v=v, prefix=prefix,
-              workers=cfg["workers"])
+    _G.update(parts=parts, plan=plan, v=v, prefix=prefix)
     native.load_router()               # build the router before forking
     t1 = time.time()
-    with mp.get_context("fork").Pool(cfg["workers"],
-                                     maxtasksperchild=1) as pool:
-        infos = pool.map(build_shard, range(cfg["shards"]), chunksize=1)
+    big = max(range(n_shards), key=lambda s: len(parts[s][0]))
+    rest = list(range(n_shards))
+    infos = []
+    if 2 * len(parts[big][0]) > e:
+        rest.remove(big)
+        infos += _build_shards([big], 1)
+    if rest:
+        infos += _build_shards(rest, min(cfg["workers"], len(rest)))
     build_s = time.time() - t1
     infos.sort(key=lambda i: i["s"])
-    meta = {"n_shards": cfg["shards"], "v": v, "v_pad": int(plan.v_pad),
+    meta = {"n_shards": n_shards, "v": v, "v_pad": int(plan.v_pad),
             "e": e, "edges_per_shard": [i["edges"] for i in infos],
-            "weighted": True, "partition": "dst-hash",
+            "weighted": cfg["weighted"], "partition": cfg["partition"],
             "generator": cfg["generator"], "seed": SEED,
             "route_n": infos[0]["route_n"]}
     with open(f"{prefix}.meta.json", "w") as f:
@@ -169,23 +203,26 @@ def build(cfg: dict) -> dict:
                   for name in os.listdir(cfg["cache"])
                   if name.startswith(os.path.basename(prefix) + "."))
     return {"built": prefix, "scale": cfg["scale"], "degree": cfg["degree"],
-            "shards": cfg["shards"], "workers": cfg["workers"],
-            "generator": cfg["generator"], "v": v, "e": e,
-            "gen_s": gen_s, "build_s": build_s,
+            "shards": n_shards, "workers": cfg["workers"],
+            "generator": cfg["generator"], "partition": cfg["partition"],
+            "v": v, "e": e, "gen_s": gen_s, "build_s": build_s,
             "total_s": time.time() - t0, "bytes_on_disk": on_disk,
             "edges_per_shard": meta["edges_per_shard"],
             "shard_s": [i["seconds"] for i in infos],
+            "shard_peak_rss_gib": [i["peak_rss_gib"] for i in infos],
             "worker_peak_rss_gib": max(i["peak_rss_gib"] for i in infos),
             **host_summary()}
 
 
-def main() -> int:
-    cfg = settings()
+def main(cfg=None, shard_count=None) -> int:
+    """Build the tier of cfg (scale_tier.settings by default) unless its
+    meta file exists; print the summary."""
+    cfg = settings() if cfg is None else cfg
     log(f"host: {json.dumps(host_summary())}")
     if os.path.exists(f"{cfg['prefix']}.meta.json"):
         log(f"already built: {cfg['prefix']}.meta.json")
         return 0
-    print(json.dumps(build(cfg)), flush=True)
+    print(json.dumps(build(cfg, shard_count)), flush=True)
     return 0
 
 

@@ -1,5 +1,6 @@
-"""What the large tier's three apps share (apps/build_scale25.py,
-apps/bench_scale25.py, apps/bench_s22w_resident.py): the settings from the
+"""What the scale tiers' apps share (apps/build_scale25.py,
+apps/bench_scale25.py, apps/bench_s22w_resident.py, and the scale-24 tier's
+apps/build_scale24.py and apps/bench_scale24.py): the settings from the
 environment, the log, the artifact's stored constants and the JSON rows.
 Rows go to stdout only: the apps write no file but the builder's artifact
 (under the gitignored .cache/ by default)."""
@@ -34,8 +35,24 @@ def settings(default_scale: int = 25) -> dict:
     return {"scale": scale, "degree": degree,
             "shards": int(os.environ.get("VGL_S25_SHARDS", "8")),
             "workers": int(os.environ.get("VGL_S25_WORKERS", "2")),
-            "cache": cache, "generator": gen,
+            "cache": cache, "generator": gen, "partition": "dst-hash",
+            "weighted": True,
             "prefix": os.path.join(cache, f"rmat{scale}_{degree}_slimw")}
+
+
+def settings24() -> dict:
+    """The scale-24 tier's settings (the JAX package's apps/build_scale24.py
+    and apps/bench_scale24.py): VGL_S24_SCALE (24), VGL_S24_DEGREE (16),
+    VGL_S24_CACHE (<repo>/.cache); the graph rmat(seed=42) unweighted, in
+    dst % S shards (their count chosen by the builder), and the artifact's
+    prefix {cache}/rmat{S}_{D}_slim, as the JAX script names it."""
+    scale = int(os.environ.get("VGL_S24_SCALE", "24"))
+    degree = int(os.environ.get("VGL_S24_DEGREE", "16"))
+    cache = os.environ.get("VGL_S24_CACHE", os.path.join(REPO, ".cache"))
+    return {"scale": scale, "degree": degree, "shards": None, "workers": 2,
+            "cache": cache, "generator": "rmat", "partition": "dst-mod",
+            "weighted": False,
+            "prefix": os.path.join(cache, f"rmat{scale}_{degree}_slim")}
 
 
 def log(msg: str) -> None:
@@ -47,12 +64,13 @@ def emit(rec: dict) -> dict:
     return rec
 
 
-def no_artifact(prefix: str, app: str) -> bool:
+def no_artifact(prefix: str, app: str, builder: str = "build_scale25"
+                ) -> bool:
     """True (and a JSON note) where the builder has not written prefix."""
     if os.path.exists(f"{prefix}.meta.json"):
         return False
     emit({"note": f"no persisted graph at {prefix}; run "
-          f"python -m vectorgraphlibrary_tpu_torch.apps.build_scale25 "
+          f"python -m vectorgraphlibrary_tpu_torch.apps.{builder} "
           f"first ({app})"})
     return True
 
@@ -66,9 +84,11 @@ def device_label(device: torch.device) -> str:
 class Consts:
     """The builder's .prconsts.npz and what the rows derive from it: rev
     and dmask ([v], parallel/sharded.pr_consts), the out-degrees without
-    self-loops ([v_pad] f32 on the device, for MS-BFS's traversed edges) and
-    the hub (the largest out-degree), SSSP's source and CC's flood root, as
-    the JAX package's apps pick them."""
+    self-loops ([v_pad] f32 on the device, for MS-BFS's traversed edges:
+    1 / rev rounded to the integer it stands for, which f32 holds exactly,
+    so that the count is exact) and the hub (the largest out-degree),
+    SSSP's source and CC's flood root, as the JAX package's apps pick
+    them."""
     rev: np.ndarray
     dmask: np.ndarray
     outdeg: torch.Tensor
@@ -80,7 +100,7 @@ def load_consts(prefix: str, v_pad: int, device) -> Consts:
         rev, dmask = z["rev"], z["dmask"]
     outdeg = np.where(rev > 0, 1.0 / np.maximum(rev, 1e-12), 0.0)
     padded = np.zeros(v_pad, np.float32)
-    padded[:len(outdeg)] = outdeg
+    padded[:len(outdeg)] = np.rint(outdeg)
     return Consts(rev=rev, dmask=dmask,
                   outdeg=torch.from_numpy(padded).to(device),
                   hub=int(np.argmax(outdeg)))

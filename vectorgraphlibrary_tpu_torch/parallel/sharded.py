@@ -352,16 +352,26 @@ def pagerank_sharded_scan(sg: ShardedTileGraph, ec,
                      0.85, max_iterations)
 
 
+def pr_consts_on(sg: ShardedTileGraph, rev, dmask) -> tuple:
+    """The degree constants (rev, dmask as pr_consts gives them, [v] or
+    [v_pad], numpy or torch: a builder's .prconsts.npz) padded to v_pad on
+    the graph's device; a [v_pad] tensor already there is kept as it is."""
+    def on(a, fill):
+        if isinstance(a, torch.Tensor) and a.device == sg.device \
+                and a.numel() == sg.v_pad:
+            return a
+        return torch.as_tensor(_pad_v(np.asarray(a), sg.v_pad, fill)).to(
+            sg.device)
+    return on(rev, 0), on(dmask, False)
+
+
 def pagerank_sharded_scan_consts(sg: ShardedTileGraph, rev, dmask,
                                  max_iterations: int = 100) -> torch.Tensor:
-    """pagerank_sharded_scan from the degree constants themselves (rev,
-    dmask as pr_consts gives them, [v] or [v_pad], numpy or torch: a
-    builder's .prconsts.npz), for a graph whose edges are not at hand."""
-    consts = (torch.as_tensor(_pad_v(np.asarray(rev), sg.v_pad)).to(sg.device),
-              torch.as_tensor(_pad_v(np.asarray(dmask), sg.v_pad, fill=False)
-                              ).to(sg.device))
-    return _pagerank(_scan_pull(sg), consts, sg.v, sg.v_pad, sg.device,
-                     0.85, max_iterations)
+    """pagerank_sharded_scan from the degree constants themselves (as
+    pr_consts_on takes them; its device tensors copy nothing per call),
+    for a graph whose edges are not at hand."""
+    return _pagerank(_scan_pull(sg), pr_consts_on(sg, rev, dmask), sg.v,
+                     sg.v_pad, sg.device, 0.85, max_iterations)
 
 
 def hits_sharded_scan(sg: ShardedTileGraph, iterations: int = 20
