@@ -258,6 +258,23 @@ result line):
    count 0 against scipy's dijkstra on the hashed weights read back from
    the shards, CC's component count equal to scipy's; then
    apps/crosscheck_scale20.crosscheck on the same graph ok.
+20. slice: the LiveJournal-scale path at 1/16 (302,973 vertices,
+   4,312,110 edges, degree cap 1,250; above 2^22 edges, so SSSP takes the
+   partial-active path as at full size): apps/make_lj_replica.replica in
+   memory, apps/bench_lj.py's import (no advance route) and its three rows
+   (8-source SSSP, 4-hub CC hybrid, 64-root MS-BFS; medians of 3 after a
+   warm-up by DeviceTimer), one row at a time with its launches counted
+   and held to the path's rules (SSSP: 2 scatter_combine and 3 routes a
+   sparse push sweep, 1 route a run; CC and MS-BFS: 2 routes a pull;
+   MS-BFS: one pull per level of each word; no other kernel); the rows
+   held to the host oracle (apps/exp_lj_oracle.oracle: every CC run's
+   labels equal to scipy's weak components up to relabelling, each
+   root's reached set and traversed edges exactly, SSSP error count 0
+   per source); then at
+   this graph's shapes pull_reduce (G f32 min of x + w over SSSP's
+   distances, i32 or, int8 any01), the vertex route (i32, f32) and
+   scatter_combine's f32 min of 65,536 messages against their plain
+   versions, exactly, with their times and bounds.
 
 The line before the last is {"kernels": [...]}: for each kernel its launches
 on each path, its error against the plain version, and its time, its plain
@@ -267,7 +284,7 @@ TB/s, or for and_popcount the larger of that and its operations at 67
 TOP/s) at the main path's shapes, "rates", phase 12's and 14's MTEPS,
 "prim_tables", phase 15's per-primitive tables, "autotuner_picks", and
 "sharded", phase 16's numbers, "part2", phase 17's, "tier", phase
-18's, and "scale24", phase 19's.
+18's, "scale24", phase 19's, and "lj", phase 20's.
 The last line is {"ok": true, "device":
 {...}}. --profile DIR also writes torch.profiler tables of one 10-iteration
 PageRank run, one DO-BFS root, one all-active SSSP run and one HITS call to
@@ -4310,6 +4327,168 @@ def phase_scale24(kernels: dict, ec, graph, smi: str) -> dict:
     return {"launches": launches, "numbers": numbers}
 
 
+# phase 20: lj-replica (apps/make_lj_replica.py) at 1/16 of its vertices,
+# edges and degree cap; |E| stays above SSSP's 2^22 all-active threshold
+LJ_V, LJ_E, LJ_MAX_DEG = 302_973, 4_312_110, 1_250
+PATHS20 = tuple(f"lj_{row}_v{LJ_V}" for row in ("sssp", "cc", "msbfs"))
+# the kernels each row must launch on its path
+LJ_KERNELS = {"sssp": ("pull_reduce", "route_gather_finish", "scatter_combine"),
+              "cc": ("pull_reduce", "route_gather_finish"),
+              "msbfs": ("pull_reduce", "route_gather_finish")}
+LJ_PUSH_MESSAGES = 1 << 16      # partial SSSP's largest push capacity
+
+
+def phase_lj(kernels: dict, rg, pl, scm, smi: str) -> dict:
+    """Phase 20: the LiveJournal-scale path at 1/16 (module doc). ->
+    {"launches": {path: counts}, "numbers": {...}, "pull", "route",
+    "scatter": each kernel's error against its plain version and its
+    times at this graph's shapes}."""
+    from vectorgraphlibrary_tpu_torch.apps import (bench_lj, exp_lj_oracle,
+                                                   make_lj_replica)
+    from vectorgraphlibrary_tpu_torch.models import sssp
+    numbers = {}
+    t0 = time.perf_counter()
+    ec = make_lj_replica.replica(LJ_V, LJ_E, LJ_MAX_DEG)
+    numbers["gen_s"] = time.perf_counter() - t0
+    if ec.edges_count < sssp._AA_EDGE_THRESHOLD:
+        raise AssertionError("phase 20's SSSP must take the partial path")
+    wec, graph, ea, numbers["import"] = bench_lj.load(ec, DEVICE)
+    deg = bench_lj.out_degrees(wec)
+    t0 = time.perf_counter()
+    want = exp_lj_oracle.oracle(wec, bench_lj.sources(deg)[1],
+                                bench_lj.roots(deg)[1])
+    numbers["oracle"] = exp_lj_oracle.summary(want)
+    numbers["oracle_s"] = time.perf_counter() - t0
+    print(f"  lj-replica at 1/16: |V| {LJ_V:,}, |E| {LJ_E:,}, cap "
+          f"{LJ_MAX_DEG:,}, generated in {numbers['gen_s']:.2f} s, imported "
+          f"in {numbers['import']['value']:.2f} s (advance route "
+          f"{numbers['import']['advance_route']}, "
+          f"{numbers['import']['graph_bytes'] / 2**20:.1f} MiB of graph and "
+          f"{numbers['import']['weight_bytes'] / 2**20:.1f} MiB of weights on "
+          f"the card, v_pad {graph.v_pad:,}); host oracle "
+          f"{numbers['oracle_s']:.2f} s")
+
+    launches = {}
+    results, rows = {}, []
+    calls = 1 + bench_lj.REPS          # each row's warm-up and timed calls
+    for name, path in zip(bench_lj.ROWS, PATHS20):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        rows += bench_lj.measure(wec, graph, ea, DEVICE, (name,), results)
+        torch.cuda.synchronize()
+        n = launches[path] = {kn: k.launches for kn, k in kernels.items()}
+        pulls, routes = n["pull_reduce"], n["route_gather_finish"]
+        # the path's rules: the partial SSSP's push sweep 2 scatters (the
+        # owner mark, the f32 min) and 3 routes, and 1 route a run; CC's
+        # and MS-BFS's pulls 2 routes each; MS-BFS one pull per level of
+        # each word (bench_lj.msbfs_pulls)
+        if name == "sssp":
+            pushes = n["scatter_combine"] // 2
+            ok = n["scatter_combine"] == 2 * pushes and \
+                routes == 3 * pushes + calls * bench_lj.N_SOURCES
+        else:
+            ok = routes == 2 * pulls
+        if name == "msbfs":
+            want_pulls = rows[-1]["pulls"]["warmup"] + \
+                bench_lj.REPS * rows[-1]["pulls"]["timed"]
+            ok = ok and pulls == want_pulls
+        ok = ok and all(n[kn] > 0 for kn in LJ_KERNELS[name]) and not any(
+            c for kn, c in n.items() if kn not in LJ_KERNELS[name])
+        if not ok:
+            raise AssertionError(f"lj {name}: launches {n} break the path's "
+                                 f"rules (row {rows[-1]})")
+    numbers["rows"] = rows
+    check = bench_lj.check(wec, graph, results, want)
+    numbers["check"] = check
+    if not check["ok"]:
+        raise AssertionError(f"lj: the rows differ from the host oracle: "
+                             f"{check}")
+
+    # the path's kernels against their plain versions at this graph's shapes
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    dist = results["sssp"][0].contiguous()
+    words = torch.randint(-2**31, 2**31 - 1, (graph.v_pad,), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    dg = graph.incoming
+    pull = {"max_err": max(
+        _pull_check(pl, "lj 1/16 G f32 min of x + w", dg, dist, "min", False,
+                    ea.incoming.flat, "add"),
+        _pull_check(pl, "lj 1/16 G i32 or", dg, words, "or", False),
+        _pull_check(pl, "lj 1/16 G int8 any01", dg,
+                    (words & 1).to(torch.int8), "any01", False))}
+    # torch has no min-plus or or-reduce SpMV: no one-call PyTorch
+    pull["f32_min_of_x_plus_w"] = dict(_pull_times(
+        pl, dg, dist, "min", False, "lj 1/16 G f32 min of x + w", smi,
+        ea.incoming.flat, "add"), library_ms=None)
+    pull["i32_or"] = dict(_pull_times(pl, dg, words, "or", False,
+                                      "lj 1/16 G i32 or", smi),
+                          library_ms=None)
+    idx = graph.vertex_route_s_from_g.fwd_idx
+    route = {"max_err": max(_check(rg, "lj 1/16 vertex route i32", words,
+                                   idx, {}),
+                            _check(rg, "lj 1/16 vertex route f32",
+                                   torch.where(torch.isfinite(dist), dist,
+                                               -1.0), idx, {}))}
+    route.update(
+        ms=_median3("route_gather_finish lj 1/16 vertex route i32, kernel",
+                    "ms", [_cuda_ms(lambda: rg.route_gather_finish(
+                        words, idx)) for _ in range(3)], smi),
+        plain_ms=_median3("route_gather_finish lj 1/16 vertex route i32, "
+                          "plain", "ms", [_cuda_ms(
+                              lambda: rg.route_gather_finish_ref(words, idx))
+                              for _ in range(3)], smi),
+        library_ms=_median3("lj 1/16 vertex route i32, index_select", "ms",
+                            [_cuda_ms(lambda: torch.index_select(
+                                words, 0, idx)) for _ in range(3)], smi),
+        bound_ms=_bound_ms(3 * 4 * graph.v_pad))
+    sidx = torch.randint(0, graph.v_pad + graph.v_pad // 8,
+                         (LJ_PUSH_MESSAGES,), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    msg = torch.rand(LJ_PUSH_MESSAGES, generator=gen, device=DEVICE) * 300
+    got = scm.scatter_combine(dist, sidx, msg, "min")
+    ref = scm.scatter_combine_ref(dist, sidx, msg, "min")
+    if not torch.equal(_bits(got), _bits(ref)):
+        raise AssertionError("scatter_combine f32 min != plain version at "
+                             "lj 1/16")
+    scatter = {"max_err": torch.where(got == ref, 0.0, (
+        got.double() - ref.double()).abs()).max().item()}
+    keep = sidx < graph.v_pad
+    idx_in, msg_in = sidx[keep].long(), msg[keep]
+    scatter.update(
+        ms=_median3("scatter_combine lj 1/16 f32 min, kernel", "ms",
+                    [_cuda_ms(lambda: scm.scatter_combine(
+                        dist, sidx, msg, "min")) for _ in range(3)], smi),
+        plain_ms=_median3("scatter_combine lj 1/16 f32 min, plain", "ms",
+                          [_cuda_ms(lambda: scm.scatter_combine_ref(
+                              dist, sidx, msg, "min")) for _ in range(3)],
+                          smi),
+        library_ms=_median3("lj 1/16 f32 min, scatter_reduce", "ms",
+                            [_cuda_ms(lambda: torch.scatter_reduce(
+                                dist, 0, idx_in, msg_in, "amin"))
+                             for _ in range(3)], smi),
+        # the target copied (read and written), each message's index and
+        # value read
+        bound_ms=_bound_ms(2 * 4 * graph.v_pad + 8 * LJ_PUSH_MESSAGES))
+    print(f"  scatter_combine lj 1/16 f32 min, {LJ_PUSH_MESSAGES} messages "
+          f"into {graph.v_pad:,}: bit-exact, bound {scatter['bound_ms']:.4f} "
+          f"ms")
+    print("  rows (median of 3 after a warm-up, DeviceTimer): " + "; ".join(
+        f"{r['metric']} {r['value']:.2f} {r['unit']} ({r['seconds'] * 1e3:.2f}"
+        f" ms, min {r['seconds_min'] * 1e3:.2f}, max "
+        f"{r['seconds_max'] * 1e3:.2f}, peak "
+        f"{r['peak_device_bytes'] / 2**20:.1f} MiB)" for r in rows)
+          + f" on {smi}")
+    print(f"  checks against the host oracle: {check['components'][1]} "
+          f"components, the {bench_lj.N_HUBS} CC runs' labels equal (error "
+          f"counts {check['cc_errors']}), reached sets of "
+          f"{bench_lj.N_ROOTS} roots and "
+          f"{check['edges_traversed'][1]:,} traversed edges equal, SSSP error "
+          f"counts {check['sssp_errors']}; launches {launches}")
+    return {"launches": launches, "numbers": numbers, "pull": pull,
+            "route": route, "scatter": scatter}
+
+
 PRIM_REPS = 3        # profile_graph_primitives' default
 UBENCH_K = 5
 
@@ -4454,7 +4633,7 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     smi = _smi()
-    print(f"[1/19] device: {name} ({torch.cuda.device_count()} visible); "
+    print(f"[1/20] device: {name} ({torch.cuda.device_count()} visible); "
           f"nvidia-smi: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
 
@@ -4469,56 +4648,56 @@ def main() -> int:
         first.result()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"[2/19] build: {time.perf_counter() - t0:.2f} s (nvcc "
+    print(f"[2/20] build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_seconds:.2f} s, one process per source, sm_90a); "
           f"ptxas: " + " | ".join(ptxas))
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print("[3/19] kernel: route_gather_finish vs plain version, n = 2^24")
+    print("[3/20] kernel: route_gather_finish vs plain version, n = 2^24")
     max_err, rand_ms, rand_plain_ms = phase_kernel(rg)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[4/19] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
+    print(f"[4/20] slice: PageRank on RMAT-{SCALE}, and pull_reduce vs plain "
           f"version on its graph")
     prr = phase_pagerank(rg, pl, smi)
     prr["route"]["max_err"] = max(max_err, prr["route"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[5/19] kernel: scatter_combine vs plain version, V = 2^20, and "
+    print(f"[5/20] kernel: scatter_combine vs plain version, V = 2^20, and "
           f"push_expand vs plain version on RMAT-{BFS_SCALE}")
     bfs_ec, bfs_graph, bfs_ea = make_bfs_graph()
     push = phase_scatter(scm, pe, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[6/19] slice: BFS on RMAT-{BFS_SCALE}")
+    print(f"[6/20] slice: BFS on RMAT-{BFS_SCALE}")
     bfs_root, bfs_launches, pull20, root_levels = phase_bfs(
         rg, pl, pe, scm, bfs_ec, bfs_graph, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[7/19] kernel: lane_shuffle vs plain version, "
+    print(f"[7/20] kernel: lane_shuffle vs plain version, "
           f"[{prr['graph'].advance_route.n // 128}, 128]")
     lsr = phase_lane_shuffle(ls, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[8/19] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
+    print(f"[8/20] slice: save and load RMAT-{SCALE}, then PageRank and BFS "
           f"on the loaded graph")
     kernels = _kernels()
     loaded = phase_persistence(kernels, prr, lsr["router_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[9/19] kernel: pull_reduce with edge weights and scatter_combine "
+    print(f"[9/20] kernel: pull_reduce with edge weights and scatter_combine "
           f"f32 vs plain versions on weighted RMAT-{BFS_SCALE}, and the "
           f"host's cost of one launch")
     wk = phase_weighted_kernels(rg, pl, scm, bfs_ec, bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[10/19] slice: SSSP, SSWP, CC and HITS on weighted "
+    print(f"[10/20] slice: SSSP, SSWP, CC and HITS on weighted "
           f"RMAT-{BFS_SCALE}")
     fix = phase_fixpoint(kernels, bfs_ec, bfs_graph, bfs_ea, smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"], wk["pull_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[11/19] kernel: scatter_combine int32 add, its sorted build and "
+    print(f"[11/20] kernel: scatter_combine int32 add, its sorted build and "
           f"and_popcount vs plain versions, at the RMAT-{SCALE} triangle "
           f"count's shapes")
     k6 = phase_slice6_kernels(scm, ap, prr["ec"], smi)
@@ -4527,33 +4706,33 @@ def main() -> int:
                                      k6["scatter_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[12/19] slice: SCC, coloring, label propagation, random walks, "
+    print(f"[12/20] slice: SCC, coloring, label propagation, random walks, "
           f"reachability and triangle count on RMAT-{SCALE}")
     s6 = phase_slice6(kernels, prr["ec"], prr["graph"], k6["oriented"],
                       k6["host_s"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[13/19] slice: GraphSAGE at ogbn-products' widths (in "
+    print(f"[13/20] slice: GraphSAGE at ogbn-products' widths (in "
           f"{SAGE_IN}, hidden {SAGE_HIDDEN}, classes {SAGE_CLASSES}) on "
           f"RMAT-{BFS_SCALE}, sampled on RMAT-{SCALE}, and pull_rows vs plain "
           f"version")
     sage = phase_sage(kernels, prw, bfs_ec, bfs_graph, prr["graph"], smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[14/19] slice: max-flow on RMAT-{SCALE}, and the general advance "
+    print(f"[14/20] slice: max-flow on RMAT-{SCALE}, and the general advance "
           f"and segment_reduce vs plain versions")
     mfr = phase_mf(kernels, pl, prr["ec"], smi)
     prr["pull"]["max_err"] = max(prr["pull"]["max_err"],
                                  mfr["pull"]["max_err"])
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[15/19] slice: the measurement runtime: the per-primitive pass "
+    print(f"[15/20] slice: the measurement runtime: the per-primitive pass "
           f"on RMAT-{SCALE} and weighted RMAT-{BFS_SCALE}, the PageRank app "
           f"with it, ubench_prims and the autotuner's samples")
     meas = phase_measurement(kernels, prr["graph"], bfs_graph, bfs_ea, smi)
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[16/19] slice: distribution on one card: the sharded container "
+    print(f"[16/20] slice: distribution on one card: the sharded container "
           f"and its one-card runners on weighted RMAT-{BFS_SCALE} in "
           f"{SHARDS} shards, the rank-parallel runners ({RANK_SHARDS} gloo "
           f"ranks sharing the card, one NCCL rank), sharded save and load "
@@ -4567,7 +4746,7 @@ def main() -> int:
     print(f"  phase 16: {sh['numbers']['phase_s']:.1f} s")
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[17/19] slice: distribution part 2 on one card: MS-BFS, CC "
+    print(f"[17/20] slice: distribution part 2 on one card: MS-BFS, CC "
           f"hybrid, slim shards and SSSP on hashed weights over phase 16's "
           f"RMAT-{BFS_SCALE} shards, the five rank drivers and the sharded "
           f"GraphSAGE ({RANK_SHARDS} gloo ranks on RMAT-{GLOO_SCALE}, one "
@@ -4582,7 +4761,7 @@ def main() -> int:
     print(f"  phase 17: {p2['numbers']['phase_s']:.1f} s")
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[18/19] slice: the large tier's path: apps/build_scale25.py "
+    print(f"[18/20] slice: the large tier's path: apps/build_scale25.py "
           f"(rmat_fast, in a process of its own) at RMAT-{TIER_SCALE}/"
           f"{TIER_DEGREE} in {TIER_SHARDS} hash shards, loaded resident and "
           f"streamed: PageRank, stored-weight SSSP, MS-BFS and CC hybrid "
@@ -4593,7 +4772,7 @@ def main() -> int:
     print(f"  phase 18: {tier['numbers']['phase_s']:.1f} s")
 
     print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
-    print(f"[19/19] slice: the scale-24 tier's path: apps/build_scale24.py "
+    print(f"[19/20] slice: the scale-24 tier's path: apps/build_scale24.py "
           f"(in a process of its own) at RMAT-{S24_SCALE}/{S24_DEGREE} in "
           f"dst % S shards, apps/bench_scale24.py's rows resident against "
           f"the host oracles and the unsharded models, and "
@@ -4602,6 +4781,22 @@ def main() -> int:
     s24 = phase_scale24(kernels, bfs_ec, bfs_graph, smi)
     s24["numbers"]["phase_s"] = time.perf_counter() - t19
     print(f"  phase 19: {s24['numbers']['phase_s']:.1f} s")
+
+    print(f"  ({time.perf_counter() - t_start:.1f} s since the start)")
+    print(f"[20/20] slice: the LiveJournal-scale path at 1/16: "
+          f"apps/make_lj_replica.py's graph at |V| {LJ_V:,}, |E| {LJ_E:,}, "
+          f"apps/bench_lj.py's SSSP, CC and MS-BFS rows against the host "
+          f"oracle (apps/exp_lj_oracle.py), and the path's kernels against "
+          f"their plain versions at its shapes")
+    t20 = time.perf_counter()
+    lj = phase_lj(kernels, rg, pl, scm, smi)
+    lj["numbers"]["phase_s"] = time.perf_counter() - t20
+    print(f"  phase 20: {lj['numbers']['phase_s']:.1f} s")
+    prr["route"]["max_err"] = max(prr["route"]["max_err"],
+                                  lj["route"]["max_err"])
+    prr["pull"]["max_err"] = max(prr["pull"]["max_err"], lj["pull"]["max_err"])
+    push["scatter"]["max_err"] = max(push["scatter"]["max_err"],
+                                     lj["scatter"]["max_err"])
 
     if "--profile" in sys.argv:
         profile(pl, prr["graph"], bfs_graph, bfs_root, bfs_ec, bfs_ea,
@@ -4623,7 +4818,8 @@ def main() -> int:
                    **{p: c[kernel] for p, c in sh["launches"].items()},
                    **{p: c[kernel] for p, c in p2["launches"].items()},
                    **{p: c[kernel] for p, c in tier["launches"].items()},
-                   **{p: c[kernel] for p, c in s24["launches"].items()}}
+                   **{p: c[kernel] for p, c in s24["launches"].items()},
+                   **{p: c[kernel] for p, c in lj["launches"].items()}}
         if kernel == "scatter_combine":
             # scatter_combine.launches counts every entry of the source:
             # the general entries' row leaves out the sorted build's
@@ -4651,7 +4847,8 @@ def main() -> int:
             device_ms=route["device_ms"],
             library_device_ms=route["library_device_ms"],
             one_launch_128_slots=wk["launch"],
-            rmat20_vertex_route=wk["route"],
+            rmat20_vertex_route=wk["route"], lj_1_16_vertex_route=times(
+                lj["route"]),
             **{k: v for k, v in route.items() if k.startswith("advance_")}),
         row("pull_reduce", "pull_reduce.cu", REPLACES, prr["pull"],
             **{k: prr["pull"][k] for k in (
@@ -4662,12 +4859,15 @@ def main() -> int:
             rmat20_i8_any01_bound_ms=pull20["bound_ms"],
             rmat20_max_abs_err=pull20["max_err"],
             rmat20_weighted={k: times(r) for k, r in wk["pulls"].items()},
-            mf_level_rmat18_i32_min_of_max=times(mfr["pull"])),
+            mf_level_rmat18_i32_min_of_max=times(mfr["pull"]),
+            lj_1_16={k: times(lj["pull"][k])
+                     for k in ("f32_min_of_x_plus_w", "i32_or")}),
         row("scatter_combine", "scatter_combine.cu", REPLACES_SCATTER,
             push["scatter"], device_ms=push["scatter"]["device_ms"],
             library_device_ms=push["scatter"]["library_device_ms"],
             f32_min={k: v for k, v in wk["scatter"].items()},
-            int32_add=k6["add"], int32_retimed_and_in_place=wk["k4"]),
+            int32_add=k6["add"], int32_retimed_and_in_place=wk["k4"],
+            lj_1_16_f32_min=times(lj["scatter"])),
         row("scatter_combine_sorted", "scatter_combine.cu", REPLACES_SCATTER,
             k6["sorted"], **{k: v for k, v in k6["sorted"].items()
                              if k not in ("max_err", "ms", "plain_ms",
@@ -4697,7 +4897,8 @@ def main() -> int:
         "prim_tables": meas["tables"],
         "autotuner_picks": meas["autotuner_picks"],
         "sharded": sh["numbers"], "part2": p2["numbers"],
-        "tier": tier["numbers"], "scale24": s24["numbers"]}))
+        "tier": tier["numbers"], "scale24": s24["numbers"],
+        "lj": lj["numbers"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

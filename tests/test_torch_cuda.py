@@ -2031,3 +2031,34 @@ def test_scale24_tier_on_the_card(cuda, tmp_path):
                     atol=1e-6 * float(y.abs().max())), name
             else:
                 assert torch.equal(x.cpu(), y), name
+
+
+def test_lj_bench_on_the_card(cuda, monkeypatch):
+    """apps/bench_lj.py's rows on the card at a reduced replica (3,001
+    vertices, 42,600 edges), one row at a time: pull_reduce and
+    route_gather_finish in every row, scatter_combine in SSSP's sparse
+    push (small push capacities, so that both branches run); every output
+    equal to the same rows on the CPU, and the check against the host
+    oracle ok."""
+    from vectorgraphlibrary_tpu_torch.apps import (bench_lj, exp_lj_oracle,
+                                                   make_lj_replica)
+    ec = make_lj_replica.replica(3001, 42600, 200)
+    multi = sssp.vgl_dijkstra_multi
+    monkeypatch.setattr(sssp, "vgl_dijkstra_multi", lambda g, w, s: multi(
+        g, w, s, id_cap=64, edge_cap=1024, all_active=False))
+    want = {}
+    bench_lj.run(ec, "cpu", results=want)
+    wec, g, ea, _ = bench_lj.load(ec, "cuda")
+    got = {}
+    for name in bench_lj.ROWS:
+        for k in (rg.route_gather_finish, pl.pull_reduce, sc.scatter_combine):
+            k.launches = 0
+        bench_lj.measure(wec, g, ea, "cuda", (name,), got)
+        torch.cuda.synchronize()
+        assert rg.route_gather_finish.launches and pl.pull_reduce.launches
+        assert bool(sc.scatter_combine.launches) == (name == "sssp")
+        assert torch.equal(got[name].cpu(), want[name]), name
+    deg = bench_lj.out_degrees(wec)
+    oracle = exp_lj_oracle.oracle(wec, bench_lj.sources(deg)[1],
+                                  bench_lj.roots(deg)[1])
+    assert bench_lj.check(wec, g, got, oracle)["ok"]

@@ -11,8 +11,9 @@ hashed weights, on full and slim shards), its sharded save and load
 with the weights, the five streamed algorithms, the
 per-primitive profiling pass on a scale-10 graph with and without weights,
 the PageRank app with that pass, the large tier's builder and apps,
-rmat_fast on two forked workers, and the scale-24 tier's shard-count rule,
-cross-check and bench rows on a small artifact)
+rmat_fast on two forked workers, the scale-24 tier's shard-count rule,
+cross-check and bench rows on a small artifact, and the LiveJournal
+replica's generator, bench rows and host oracle at a small size)
 neither loads the JAX package's native library nor launches a kernel."""
 import os
 import subprocess
@@ -163,6 +164,9 @@ with tempfile.TemporaryDirectory() as d:
     import numpy as np
     np.savez(os.path.join(d, "s.prconsts.npz"), rev=rev, dmask=dmask)
     bench_scale24.run(os.path.join(d, "s"), "cpu")
+from vectorgraphlibrary_tpu_torch.apps import bench_lj, make_lj_replica
+assert bench_lj.run(make_lj_replica.replica(700, 6000, 60), "cpu",
+                    check_rows=True)[-1]["ok"]
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "vectorgraphlibrary_tpu" or m.startswith("vectorgraphlibrary_tpu.")]

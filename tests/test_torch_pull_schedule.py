@@ -3,11 +3,12 @@ and a numpy model of how csrc/pull_reduce.cu runs it, on the CPU.
 
 The plan cuts the CSR's n row ends and e slots, as one merge-path sequence
 of n + e items, into tiles of TILE items. The tests hold it to that
-definition on the port's graphs (RMAT, self-loops, hub rows, both
-directions) and on CSRs that put it at its edges (every edge in one row,
-rows of one tile's items and one more or less, tiles that start on an
-empty row, empty rows in the middle and at the tail, no edges, no rows, a
-row_ptr that does not start at 0), at the kernel's tile and at small ones
+definition on the port's graphs (RMAT, self-loops, hub rows, a reduced
+LiveJournal replica's Chung-Lu skew, both directions) and on CSRs that
+put it at its edges (every edge in one row, rows of one tile's items and
+one more or less, tiles that start on an empty row, empty rows in the
+middle and at the tail, no edges, no rows, a row_ptr that does not start
+at 0), at the kernel's tile and at small ones
 that cut many rows: every slot in exactly one tile, in order; every row
 ending in exactly one tile; the rows cut by a tile boundary listed with the
 tile of their first slot. The model walks each tile as the kernel's
@@ -24,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from vectorgraphlibrary_tpu_torch.apps import make_lj_replica
 from vectorgraphlibrary_tpu_torch.config import TraversalDirection as TDir
 from vectorgraphlibrary_tpu_torch.graph.device import import_graph
 from vectorgraphlibrary_tpu_torch.io import generation
@@ -41,6 +43,8 @@ SHAPES = [(THREADS, ITEMS), (4, 2), (8, 3)]
 def _graph_csr(kind, d):
     if kind == "rmat":
         ec = generation.rmat(10, 8, seed=5, weighted=False)
+    elif kind == "lj":
+        ec = make_lj_replica.replica(3001, 42600, 200)
     else:
         rng = np.random.default_rng(11)
         v, e = 900, 9000
@@ -90,7 +94,8 @@ def _adversarial_csr(kind, tile):
 
 ADVERSARIAL = ["one row", "tile rows", "empty at tile start", "empty rows",
                "no edges", "no rows", "one edge", "offset"]
-GRAPHS = [(k, d) for k in ("rmat", "selfloops", "hub") for d in ("G", "S")]
+GRAPHS = [(k, d) for k in ("rmat", "selfloops", "hub", "lj")
+          for d in ("G", "S")]
 
 
 def _csr(case, tile):

@@ -4,8 +4,9 @@ scale-13 artifact of apps/build_scale25.py. Each emits one JSON line per
 row with the rows' fields, writes no tracked file (git status is the same
 before and after), and exits 1 with a JSON note where the artifact is
 missing, as the JAX package's apps do. Also: `run_tests --tier xlarge`
-takes the tier's 3600 s timeout (without running the tier), and the apps'
-entry points default to the card."""
+takes the tier's 3600 s timeout (without running the tier), the apps'
+entry points default to the card, and the resident PageRank row's timed
+calls get their degree constants already on the graph's device."""
 import inspect
 import json
 import os
@@ -120,3 +121,32 @@ def test_entry_points_default_to_the_card(cache, monkeypatch):
         for app in APPS.values():
             with pytest.raises((RuntimeError, AssertionError)):
                 app.main([])
+
+
+def test_resident_pagerank_copies_nothing_per_call(cache, monkeypatch,
+                                                   capsys):
+    """The resident PageRank row puts its degree constants on the graph's
+    device at v_pad before the warm-up: every call (the warm-up and the
+    timed one) gets those same tensors, which pr_consts_on keeps as they
+    are, so no call pads or copies them."""
+    from vectorgraphlibrary_tpu_torch.parallel import sharded
+    seen = []
+    scan = sharded.pagerank_sharded_scan_consts
+
+    def spy(sg, rev, dmask, iters):
+        seen.append((sg, rev, dmask))
+        return scan(sg, rev, dmask, iters)
+    monkeypatch.setattr(sharded, "pagerank_sharded_scan_consts", spy)
+    prefix = os.path.join(cache, f"rmat{SCALE}_{DEGREE}_slimw")
+    rows = bench_s22w_resident.run(prefix, "cpu", ("pagerank",))
+    capsys.readouterr()
+    assert [r["metric"] for r in rows] == ["resident_load",
+                                           f"pagerank_rmat{SCALE}_mteps"]
+    assert len(seen) == 2
+    for sg, rev, dmask in seen:
+        for t in (rev, dmask):
+            assert isinstance(t, torch.Tensor) and t.device == sg.device
+            assert t.numel() == sg.v_pad
+        kept = sharded.pr_consts_on(sg, rev, dmask)
+        assert kept[0] is rev and kept[1] is dmask
+    assert seen[0][1] is seen[1][1] and seen[0][2] is seen[1][2]

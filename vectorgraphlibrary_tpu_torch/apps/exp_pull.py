@@ -1,14 +1,17 @@
 """Where does the CSR pull spend its time on the card, and how does it
 compare with another checkout's kernel? (CUDA only, raises without a card)
 
-    python -m vectorgraphlibrary_tpu_torch.apps.exp_pull [-s 18] [-e 32] [--mf]
+    python -m vectorgraphlibrary_tpu_torch.apps.exp_pull [-s 18] [-e 32] [--mf] [-load G.el_container]
 
-On RMAT-s (average degree e, seed 42) with values from a seeded generator,
+On RMAT-s (average degree e, seed 42), or with -load on the graph of an
+.el_container file (such as apps/make_lj_replica.py's), with values from a
+seeded generator,
 device ms per call by torch.profiler (the kernels' durations, the mean of
 10 calls; where a call runs two kernels, both count):
 
   a) the whole pull over the GATHER and SCATTER CSRs: f32 add (GATHER also
-     without self-loops, as PageRank pulls), i32 min, int8 any01, and with
+     without self-loops, as PageRank pulls), i32 min, i32 or (MS-BFS's
+     words), int8 any01, and with
      weights in [1, 100) f32 min of x + w and max of min(x, w), and f32 add
      of x + w with w = 0 (the unweighted function by the weighted kernel);
   b) f32 add over each degree class of the GATHER CSR alone, as the row
@@ -153,11 +156,13 @@ def _mf_cases(ec, dev, res) -> None:
 
 
 def measure(scale: int = 18, degree: int = 32, with_mf: bool = False,
-            device: str = "cuda") -> dict:
+            device: str = "cuda", ec=None) -> dict:
+    """The cases (module doc) on RMAT-scale, or on `ec` where given."""
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("exp_pull measures the kernel on a CUDA device")
-    ec = generation.rmat(scale, degree, seed=SEED, weighted=False)
-    g = import_graph(ec, device=device)
+    if ec is None:
+        ec = generation.rmat(scale, degree, seed=SEED, weighted=False)
+    g = import_graph(ec, device=device, build_route=False)
     gen = torch.Generator(device=device).manual_seed(SEED)
     n = g.v_pad
     xf = torch.rand(n, device=device, generator=gen)
@@ -175,6 +180,7 @@ def measure(scale: int = 18, degree: int = 32, with_mf: bool = False,
             _case(res, "G f32 add excl", dg, None, xf, "add", True)
         _case(res, f"{tag} f32 add", dg, None, xf, "add")
         _case(res, f"{tag} i32 min", dg, None, xi, "min")
+        _case(res, f"{tag} i32 or", dg, None, xi, "or")
         _case(res, f"{tag} i8 any01", dg, None, xb, "any01")
         _case(res, f"{tag} f32 min of x + w", dg, None, dist, "min", False,
               w, "add")
@@ -206,14 +212,22 @@ def main() -> None:
     p.add_argument("-e", type=int, default=32)
     p.add_argument("--mf", action="store_true",
                    help="also time the max-flow residual CSR's pulls")
+    p.add_argument("-load", default=None,
+                   help="an .el_container graph in place of RMAT-s")
     args = p.parse_args()
+    ec = None
+    if args.load:
+        from vectorgraphlibrary_tpu_torch.io.edges_container import (
+            EdgesContainer)
+        ec = EdgesContainer.load_from_binary_file(args.load)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "plan": PLAN,
-                      "ms": measure(args.s, args.e, args.mf)}))
+                      "graph": args.load or f"rmat{args.s}_{args.e}",
+                      "ms": measure(args.s, args.e, args.mf, ec=ec)}))
 
 
 if __name__ == "__main__":

@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import subprocess
 import time
 
 import numpy as np
@@ -106,11 +107,29 @@ def load_consts(prefix: str, v_pad: int, device) -> Consts:
                   hub=int(np.argmax(outdeg)))
 
 
+def traversed_per_root(levels: torch.Tensor, outdeg: torch.Tensor) -> list:
+    """MS-BFS's traversed edges root by root: the out-degrees (integer
+    valued, [v_pad]) of the vertices each row of levels ([k, v_pad],
+    reached where > 0) reaches, summed exactly in int64."""
+    deg = outdeg.to(torch.int64)
+    return [int(torch.where(row > 0, deg, 0).sum()) for row in levels]
+
+
 def traversed_edges(levels: torch.Tensor, outdeg: torch.Tensor) -> int:
-    """MS-BFS's traversed edges: each root's reached vertices' out-degrees
-    (levels int8 [32, v_pad], reached where > 0)."""
-    return int(round(float(torch.where(
-        levels > 0, outdeg.to(torch.float64), 0.0).sum())))
+    """MS-BFS's traversed edges over all roots (traversed_per_root)."""
+    return sum(traversed_per_root(levels, outdeg))
+
+
+def smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them ("" on a
+    machine without it)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return ""
 
 
 def tensor_bytes(obj) -> int:

@@ -65,6 +65,39 @@ def step_annotate(name: str, step: int):
     return torch.profiler.record_function(f"{name}#{step}")
 
 
+def _device_us(evt) -> float:
+    """An operator's own device time (us), by whichever name this torch
+    gives it."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_call(fn, top: int = 8) -> dict:
+    """One call of fn under torch.profiler on the card: its wall seconds
+    (host clock to a synchronize), the device's busy seconds (the sum of
+    the kernels' and copies' durations) and their share of the wall, and
+    the `top` operators by their own device time, each with its calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    ops = sorted(((_device_us(e), e.key, e.count)
+                  for e in prof.key_averages()), reverse=True)[:top]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "busy_share": busy / wall if wall else None,
+            "top": [{"op": k, "device_ms": us / 1e3, "calls": n}
+                    for us, k, n in ops if us > 0]}
+
+
 def device_memory_profile(path: str, device=None) -> None:
     """Pickle the CUDA caching allocator's state
     (torch.cuda.memory_snapshot(): its segments and blocks, with the
