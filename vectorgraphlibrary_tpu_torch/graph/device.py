@@ -19,6 +19,7 @@ import torch
 from ..config import GraphFormat, VGLConfig, DEFAULT_CONFIG, TraversalDirection
 from ..io.edges_container import EdgesContainer
 from ..ops.route import RoutePlan, make_route_plan
+from ..runtime.profiling import annotate
 from .build import build_directed_csr
 from .route_build import build_advance_route
 
@@ -195,27 +196,32 @@ def from_host(h_out, h_in, selfloop_edges: np.ndarray, v: int, e: int,
     out the advance route (advance_route None, out_slots = in_slots = 0, as
     in the reference); the vertex routes are built either way."""
     device = torch.device(device)
-    out = _to_device_directed(h_out, device)
-    inc = _to_device_directed(h_in, device)
+    with annotate("vgl.import.to_device", keep=True):
+        out = _to_device_directed(h_out, device)
+        inc = _to_device_directed(h_in, device)
     assert out.v_pad == inc.v_pad
     route, out_slots, in_slots = None, 0, 0
     if build_route:
-        route, out_slots, in_slots = build_advance_route(
-            h_out, h_in, selfloop_edges=selfloop_edges, device=device)
-    vpad = h_out.vertices_pad
-    # scatter_vals[i] = gather_vals[g_of_s[i]]: gather-space id of the vertex
-    # whose scatter-space id is i (identity on padding slots)
-    g_of_s = np.arange(vpad, dtype=np.int64)
-    g_of_s[:v] = h_in.orig_to_sorted[h_out.sorted_to_orig[:v]]
-    # ORIGINAL -> sorted orderings: sorted_vals[i] = orig_vals[s2o[i]]
-    o_of_s = np.arange(vpad, dtype=np.int64)
-    o_of_s[:v] = h_out.sorted_to_orig[:v]
-    o_of_g = np.arange(vpad, dtype=np.int64)
-    o_of_g[:v] = h_in.sorted_to_orig[:v]
+        with annotate("vgl.import.advance_route", keep=True):
+            route, out_slots, in_slots = build_advance_route(
+                h_out, h_in, selfloop_edges=selfloop_edges, device=device)
+    with annotate("vgl.import.vertex_routes", keep=True):
+        vpad = h_out.vertices_pad
+        # scatter_vals[i] = gather_vals[g_of_s[i]]: gather-space id of the
+        # vertex whose scatter-space id is i (identity on padding slots)
+        g_of_s = np.arange(vpad, dtype=np.int64)
+        g_of_s[:v] = h_in.orig_to_sorted[h_out.sorted_to_orig[:v]]
+        # ORIGINAL -> sorted orderings: sorted_vals[i] = orig_vals[s2o[i]]
+        o_of_s = np.arange(vpad, dtype=np.int64)
+        o_of_s[:v] = h_out.sorted_to_orig[:v]
+        o_of_g = np.arange(vpad, dtype=np.int64)
+        o_of_g[:v] = h_in.sorted_to_orig[:v]
+        s_from_g, s_from_o, g_from_o = (make_route_plan(a, device=device)
+                                        for a in (g_of_s, o_of_s, o_of_g))
     return VGLGraph(outgoing=out, incoming=inc, advance_route=route,
-                    vertex_route_s_from_g=make_route_plan(g_of_s, device=device),
-                    vertex_route_s_from_o=make_route_plan(o_of_s, device=device),
-                    vertex_route_g_from_o=make_route_plan(o_of_g, device=device),
+                    vertex_route_s_from_g=s_from_g,
+                    vertex_route_s_from_o=s_from_o,
+                    vertex_route_g_from_o=g_from_o,
                     v=v, v_pad=out.v_pad, e=e, out_slots=out_slots,
                     in_slots=in_slots, graph_format=graph_format)
 
@@ -240,11 +246,16 @@ def import_graph(ec: EdgesContainer, cfg: VGLConfig = DEFAULT_CONFIG,
     copies (graph/edges.py); the host CSRs' edge_perm (_host_out) lays out
     values in CSR slot order."""
     del keep_edge_slots
-    h_out = build_directed_csr(ec.src_ids, ec.dst_ids, ec.vertices_count, cfg)
-    h_in = build_directed_csr(ec.dst_ids, ec.src_ids, ec.vertices_count, cfg)
-    if _host_out is not None:
-        _host_out.extend([h_out, h_in])
-    return from_host(h_out, h_in, ec.src_ids == ec.dst_ids, ec.vertices_count,
-                     ec.edges_count, device,
-                     build_route and graph_format == GraphFormat.TILE_CSR,
-                     graph_format)
+    with annotate("vgl.import", keep=True):
+        with annotate("vgl.import.csr", keep=True):
+            h_out = build_directed_csr(ec.src_ids, ec.dst_ids,
+                                       ec.vertices_count, cfg)
+        with annotate("vgl.import.csr", keep=True):
+            h_in = build_directed_csr(ec.dst_ids, ec.src_ids,
+                                      ec.vertices_count, cfg)
+        if _host_out is not None:
+            _host_out.extend([h_out, h_in])
+        return from_host(h_out, h_in, ec.src_ids == ec.dst_ids,
+                         ec.vertices_count, ec.edges_count, device,
+                         build_route and graph_format == GraphFormat.TILE_CSR,
+                         graph_format)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import TraversalDirection
+from ..runtime.profiling import annotate
 from .device import VGLGraph
 
 
@@ -44,13 +45,14 @@ def build_edge_array_from_host(coo_values: np.ndarray, graph: VGLGraph,
     HostDirectedCSR of either package, as graph.device.from_host takes them)."""
     coo_values = np.asarray(coo_values)
     dirs = []
-    for h, dg in ((h_out, graph.outgoing), (h_in, graph.incoming)):
-        if (h.edges_count, h.edges_pad) != (dg.e, dg.e_pad):
-            raise ValueError("host CSR does not belong to this graph")
-        flat = np.full(h.edges_pad, pad_value, dtype=coo_values.dtype)
-        flat[:h.edges_count] = coo_values[h.edge_perm[:h.edges_count]]
-        dirs.append(DirectedEdgeValues(
-            flat=torch.from_numpy(flat).to(graph.device)))
+    with annotate("vgl.import.edge_values", keep=True):
+        for h, dg in ((h_out, graph.outgoing), (h_in, graph.incoming)):
+            if (h.edges_count, h.edges_pad) != (dg.e, dg.e_pad):
+                raise ValueError("host CSR does not belong to this graph")
+            flat = np.full(h.edges_pad, pad_value, dtype=coo_values.dtype)
+            flat[:h.edges_count] = coo_values[h.edge_perm[:h.edges_count]]
+            dirs.append(DirectedEdgeValues(
+                flat=torch.from_numpy(flat).to(graph.device)))
     return EdgeArray(outgoing=dirs[0], incoming=dirs[1])
 
 

@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from ..config import Sparsity, TraversalDirection
+from ..runtime.profiling import annotate
 from .device import VGLGraph
 
 
@@ -75,16 +76,17 @@ def compact_ids(frontier: Frontier,
     (the overflow contract). One sort of keyed ids, as in the reference
     (the analog of vector_copy_if_indexes, copy_if.hpp:12-90), so nothing
     is read back to the host."""
-    v_pad = frontier.mask.shape[0]
-    dev = frontier.mask.device
-    idx = torch.arange(v_pad, dtype=torch.int32, device=dev)
-    keys = torch.where(frontier.mask, idx, v_pad)
-    ids = torch.sort(keys).values[:capacity]
-    if capacity > v_pad:      # keep ids capacity-long
-        ids = torch.cat([ids, ids.new_full((capacity - v_pad,), v_pad)])
-    valid = torch.arange(capacity, dtype=torch.int32,
-                         device=dev) < frontier.size
-    return ids, valid
+    with annotate("vgl.frontier.compact"):
+        v_pad = frontier.mask.shape[0]
+        dev = frontier.mask.device
+        idx = torch.arange(v_pad, dtype=torch.int32, device=dev)
+        keys = torch.where(frontier.mask, idx, v_pad)
+        ids = torch.sort(keys).values[:capacity]
+        if capacity > v_pad:      # keep ids capacity-long
+            ids = torch.cat([ids, ids.new_full((capacity - v_pad,), v_pad)])
+        valid = torch.arange(capacity, dtype=torch.int32,
+                             device=dev) < frontier.size
+        return ids, valid
 
 
 def classify_sparsity(active_ratio: float, cfg_dense_threshold: float) -> Sparsity:

@@ -32,6 +32,7 @@ from ..graph.device import VGLGraph
 from ..graph.frontier import Frontier, compact_ids
 from ..graph.vertices import VertexArray
 from ..ops.advance import advance_pull_value, advance_push_sparse_const
+from ..runtime.profiling import annotate
 from . import common
 
 S, G = TraversalDirection.SCATTER, TraversalDirection.GATHER
@@ -186,36 +187,46 @@ def _do_bfs_levels(graph: VGLGraph, source_sorted_s: torch.Tensor,
     tiers = common.capacity_tiers(id_cap, edge_cap)
 
     zero = torch.zeros((), dtype=torch.int32, device=graph.device)
-    levels = _levels_from(graph, source_sorted_s)
-    size, nbrs = 1, int(outdeg_s[source_sorted_s])
-    cur, unexplored = FIRST_LEVEL, e
-    while size > 0:
-        # Beamer's two-sided test, in f32 as the reference computes it:
-        # top-down while the frontier's out-edges are few against the
-        # unexplored edges, or once the frontier is below v / beta
-        td_ok = ((_F32(nbrs) < _F32(unexplored) / _F32(alpha))
-                 or (_F32(size) * _F32(beta) < _F32(v)))
-        tier = next((t for t in tiers
-                     if td_ok and size < t[0] and nbrs < t[1]), None)
-        if tier is not None:
-            mask_s = levels == cur
-            fr = Frontier(mask=mask_s, size=torch.sum(mask_s, dtype=torch.int32),
-                          neighbours_count=zero, direction=S)
-            ids, valid = compact_ids(fr, tier[0])
-            newly = _push(graph, levels, ids, valid, tier[1], cur) < levels
-        else:
-            on_s = levels == cur
-            reached_g = advance_pull_value(graph, on_s, "or", direction=G,
-                                           src_in_src_order=True)
-            reached_s = common.to_direction(graph, reached_g, G, S)
-            newly = (levels == _INF32) & reached_s
-        if trace is not None:
-            trace.append(("td",) + tier if tier is not None else ("bu",))
-        levels = torch.where(newly, cur + 1, levels)
-        size, nbrs = common.read_scalars(*_counts(newly, outdeg_s))
-        cur += 1
-        unexplored = max(unexplored - nbrs, 0)
-    return _finish(levels)
+    with annotate("vgl.bfs"):
+        # the source's start: indexing by its device id reads the id on
+        # the host, and its degree is read
+        with annotate("vgl.host_read"):
+            levels = _levels_from(graph, source_sorted_s)
+            nbrs = int(outdeg_s[source_sorted_s])
+        size = 1
+        cur, unexplored = FIRST_LEVEL, e
+        while size > 0:
+            # Beamer's two-sided test, in f32 as the reference computes it:
+            # top-down while the frontier's out-edges are few against the
+            # unexplored edges, or once the frontier is below v / beta
+            td_ok = ((_F32(nbrs) < _F32(unexplored) / _F32(alpha))
+                     or (_F32(size) * _F32(beta) < _F32(v)))
+            tier = next((t for t in tiers
+                         if td_ok and size < t[0] and nbrs < t[1]), None)
+            if trace is not None:
+                trace.append(("td",) + tier if tier is not None else ("bu",))
+            with annotate("vgl.bfs.level.td" if tier is not None
+                          else "vgl.bfs.level.bu"):
+                if tier is not None:
+                    mask_s = levels == cur
+                    fr = Frontier(mask=mask_s,
+                                  size=torch.sum(mask_s, dtype=torch.int32),
+                                  neighbours_count=zero, direction=S)
+                    ids, valid = compact_ids(fr, tier[0])
+                    newly = _push(graph, levels, ids, valid, tier[1],
+                                  cur) < levels
+                else:
+                    on_s = levels == cur
+                    reached_g = advance_pull_value(graph, on_s, "or",
+                                                   direction=G,
+                                                   src_in_src_order=True)
+                    reached_s = common.to_direction(graph, reached_g, G, S)
+                    newly = (levels == _INF32) & reached_s
+                levels = torch.where(newly, cur + 1, levels)
+                size, nbrs = common.read_scalars(*_counts(newly, outdeg_s))
+            cur += 1
+            unexplored = max(unexplored - nbrs, 0)
+        return _finish(levels)
 
 
 def vgl_bfs_device(graph: VGLGraph, source_vertex: int, alpha: float = 15.0,

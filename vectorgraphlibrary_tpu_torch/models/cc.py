@@ -20,6 +20,7 @@ import torch
 from ..config import TraversalDirection
 from ..graph.device import VGLGraph
 from ..graph.vertices import VertexArray
+from ..runtime.profiling import annotate
 from . import common
 
 O = TraversalDirection.ORIGINAL
@@ -36,7 +37,8 @@ def _fixpoint_from_minus_one(step, labels0: torch.Tensor,
     """The reference's label loop: state (labels0, -1, 0), step(labels, it)
     while it < max_iterations and any(labels != prev)."""
     labels, prev, it = labels0, torch.full_like(labels0, -1), 0
-    while it < max_iterations and bool(torch.any(labels != prev)):
+    while it < max_iterations and common.read_scalar(
+            torch.any(labels != prev)):
         labels, prev, it = step(labels, it), labels, it + 1
     return labels, it
 
@@ -89,9 +91,10 @@ def _cc_hybrid_run(graph: VGLGraph, hub: int, max_flood: int,
 
     reach = frontier = ids == hub
     flood_lv = 0
-    while flood_lv < max_flood and bool(torch.any(frontier)):
-        frontier = und_or(frontier) & ~reach & real
-        reach = reach | frontier
+    while flood_lv < max_flood and common.read_scalar(torch.any(frontier)):
+        with annotate("vgl.cc.flood"):
+            frontier = und_or(frontier) & ~reach & real
+            reach = reach | frontier
         flood_lv += 1
 
     # non-closure guard: if the flood hit max_flood with a live frontier
@@ -105,12 +108,13 @@ def _cc_hybrid_run(graph: VGLGraph, hub: int, max_flood: int,
     labels0 = torch.where(real, labels0, v)
 
     def step(labels, it):
-        m = common.undirected_value_pull(graph, labels, "min")
-        new = torch.minimum(labels, torch.where(real, m, _BIGI))
-        # no pointer jumps: the flood covered the deep component and the
-        # tails are shallow
-        new = torch.where(freeze, hub, new)         # frozen hub component
-        return torch.where(real, new, v)
+        with annotate("vgl.cc.hook"):
+            m = common.undirected_value_pull(graph, labels, "min")
+            new = torch.minimum(labels, torch.where(real, m, _BIGI))
+            # no pointer jumps: the flood covered the deep component and the
+            # tails are shallow
+            new = torch.where(freeze, hub, new)     # frozen hub component
+            return torch.where(real, new, v)
 
     labels, iters = _fixpoint_from_minus_one(step, labels0, max_iterations)
     return labels, flood_lv, iters
@@ -121,11 +125,13 @@ def vgl_cc_hybrid(graph: VGLGraph, hub: Optional[int] = None,
                   ) -> tuple[VertexArray, int]:
     """Flood-hybrid CC; hub defaults to the max-out-degree vertex (the first
     of them in ORIGINAL ordering)."""
-    if hub is None:
-        outdeg_o = common.outdegrees_in(graph, O)
-        hub = int(torch.argmax(outdeg_o[:graph.v]))
-    labels, _, iters = _cc_hybrid_run(graph, int(hub), max_flood,
-                                      max_iterations)
+    with annotate("vgl.cc"):
+        if hub is None:
+            with annotate("vgl.cc.hub"):
+                outdeg_o = common.outdegrees_in(graph, O)
+                hub = common.read_scalar(torch.argmax(outdeg_o[:graph.v]))
+        labels, _, iters = _cc_hybrid_run(graph, int(hub), max_flood,
+                                          max_iterations)
     return VertexArray(values=labels, direction=O), iters
 
 

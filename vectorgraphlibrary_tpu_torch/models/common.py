@@ -11,6 +11,7 @@ from ..graph.device import VGLGraph
 from ..graph.vertices import VertexArray, reorder
 from ..ops import monoid as M
 from ..ops.advance import advance_pull_value
+from ..runtime.profiling import annotate
 
 
 def select_random_source(ec_or_degrees, seed: int = 0) -> int:
@@ -85,7 +86,16 @@ def capacity_tiers(id_cap: int, edge_cap: int) -> list:
 
 def read_scalars(*scalars) -> list:
     """The host's one read of a level's or sweep's device scalars."""
-    return torch.stack(scalars).tolist()
+    stacked = torch.stack(scalars)
+    with annotate("vgl.host_read"):
+        return stacked.tolist()
+
+
+def read_scalar(scalar: torch.Tensor):
+    """The host's read of one device scalar, as a Python bool, int or
+    float."""
+    with annotate("vgl.host_read"):
+        return scalar.item()
 
 
 def fixpoint(step: Callable, x0: torch.Tensor,
@@ -95,6 +105,6 @@ def fixpoint(step: Callable, x0: torch.Tensor,
     (step(x0), x0, 1) with the condition `it < max_iterations and any(x !=
     prev)`, as a host loop that reads one flag per application."""
     x, prev, it = step(x0), x0, 1
-    while it < max_iterations and bool(torch.any(x != prev)):
+    while it < max_iterations and read_scalar(torch.any(x != prev)):
         x, prev, it = step(x), x, it + 1
     return x, it

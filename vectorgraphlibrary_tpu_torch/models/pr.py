@@ -24,6 +24,8 @@ from ..ops.advance import advance_cells, advance_pull_value
 from ..ops.compute import compute
 from ..ops.reduce import reduce as vgl_reduce
 from ..ops.route import apply_route
+from ..runtime.profiling import annotate
+from .common import read_scalar
 
 G = TraversalDirection.GATHER
 
@@ -33,46 +35,56 @@ def _pr_run(graph: VGLGraph, max_iterations: int, use_convergence: bool,
     dev = graph.device
     v = graph.v
     f32 = torch.float32
-    ids = torch.arange(graph.v_pad, dtype=torch.int32, device=dev)
-    real = ids < v
-    zero = torch.zeros((), dtype=f32, device=dev)
+    with annotate("vgl.pr"):
+        with annotate("vgl.pr.constants"):
+            ids = torch.arange(graph.v_pad, dtype=torch.int32, device=dev)
+            real = ids < v
+            zero = torch.zeros((), dtype=f32, device=dev)
 
-    # self-loop counts per vertex: one cell pass over incoming tiles
-    loops = advance_cells(
-        graph, lambda src_ids, dst_ids, w: (src_ids == dst_ids).to(torch.int32),
-        "add", direction=G)
-    # out-degrees in gather order: one inverse vertex route
-    outdeg = apply_route(graph.vertex_route_s_from_g, graph.outgoing.degrees,
-                         inverse=True)
-    outdeg_wo = torch.where(real, outdeg - loops, 0)
-    rev_deg = torch.where(outdeg_wo > 0, 1.0 / outdeg_wo.to(f32), zero)
-    dangling_mask = real & (outdeg_wo == 0)
+            # self-loop counts per vertex: one cell pass over incoming tiles
+            loops = advance_cells(
+                graph,
+                lambda src_ids, dst_ids, w: (src_ids == dst_ids).to(
+                    torch.int32),
+                "add", direction=G)
+            # out-degrees in gather order: one inverse vertex route
+            outdeg = apply_route(graph.vertex_route_s_from_g,
+                                 graph.outgoing.degrees, inverse=True)
+            outdeg_wo = torch.where(real, outdeg - loops, 0)
+            rev_deg = torch.where(outdeg_wo > 0, 1.0 / outdeg_wo.to(f32),
+                                  zero)
+            dangling_mask = real & (outdeg_wo == 0)
 
-    # f32 scalars, as the reference computes them
-    damping_t = torch.tensor(damping, dtype=f32, device=dev)
-    k = (1.0 - damping_t) / v
-    ranks = torch.where(real, torch.tensor(1.0 / v, dtype=f32, device=dev),
-                        zero)
+            # f32 scalars, as the reference computes them
+            damping_t = torch.tensor(damping, dtype=f32, device=dev)
+            k = (1.0 - damping_t) / v
+            ranks = torch.where(
+                real, torch.tensor(1.0 / v, dtype=f32, device=dev), zero)
 
-    it = 0
-    while it < max_iterations:
-        dangling = vgl_reduce(graph, torch.where(dangling_mask, ranks, zero),
-                              "add", direction=G) / v
-        # one restricted-form advance: the pull kernel skips self-loops
-        acc = advance_pull_value(graph, ranks * rev_deg, "add",
-                                 exclude_self_loops=True, direction=G)
-        new_ranks = compute(
-            graph, {"r": ranks},
-            lambda ids, degs, arr: {"r": k + damping_t * (acc + dangling)},
-            direction=G)["r"]
-        delta = vgl_reduce(graph, (new_ranks - ranks).abs(), "add",
-                           direction=G)
-        ranks = new_ranks
-        it += 1
-        # the convergence test reads delta on the host: one sync per
-        # iteration, only in that mode
-        if use_convergence and not bool(delta > tol):
-            break
+        it = 0
+        while it < max_iterations:
+            with annotate("vgl.pr.iteration"):
+                dangling = vgl_reduce(
+                    graph, torch.where(dangling_mask, ranks, zero), "add",
+                    direction=G) / v
+                # one restricted-form advance: the pull kernel skips
+                # self-loops
+                acc = advance_pull_value(graph, ranks * rev_deg, "add",
+                                         exclude_self_loops=True,
+                                         direction=G)
+                new_ranks = compute(
+                    graph, {"r": ranks},
+                    lambda ids, degs, arr: {
+                        "r": k + damping_t * (acc + dangling)},
+                    direction=G)["r"]
+                delta = vgl_reduce(graph, (new_ranks - ranks).abs(), "add",
+                                   direction=G)
+                ranks = new_ranks
+                it += 1
+                # the convergence test reads delta on the host: one sync
+                # per iteration, only in that mode
+                if use_convergence and not read_scalar(delta > tol):
+                    break
     return ranks, it
 
 

@@ -33,6 +33,7 @@ from ..graph.frontier import Frontier, compact_ids
 from ..graph.vertices import VertexArray
 from ..ops.advance import advance_pull_value, advance_push_sparse
 from ..ops.frontier_ops import generate_new_frontier
+from ..runtime.profiling import annotate
 from . import common
 
 S, G = TraversalDirection.SCATTER, TraversalDirection.GATHER
@@ -54,12 +55,17 @@ def _all_active_run(graph: VGLGraph, weights_in, source_sorted_gather,
     """Bellman-Ford to fixpoint (GATHER ordering)."""
 
     def relax(dist):
-        cand = advance_pull_value(graph, dist, "min", edge_values=weights_in,
-                                  weight_op="add", direction=G)
-        return torch.minimum(dist, cand)
+        with annotate("vgl.sssp.sweep.all"):
+            cand = advance_pull_value(graph, dist, "min",
+                                      edge_values=weights_in,
+                                      weight_op="add", direction=G)
+            return torch.minimum(dist, cand)
 
-    dist0, _ = _source_state(graph, source_sorted_gather)
-    return common.fixpoint(relax, dist0, max_iterations)
+    with annotate("vgl.sssp"):
+        # indexing by the source's device id reads the id on the host
+        with annotate("vgl.host_read"):
+            dist0, _ = _source_state(graph, source_sorted_gather)
+        return common.fixpoint(relax, dist0, max_iterations)
 
 
 def vgl_dijkstra_all_active(graph: VGLGraph, weights: EdgeArray,
@@ -172,38 +178,49 @@ def _sssp_partial_device(graph: VGLGraph, w_in, w_out, source_sorted_g,
 
     trace: if a list, each sweep appends ("push", id_cap, edge_cap) or
     ("dense",) for the branch it took."""
-    outdeg_g = common.outdegrees_in(graph, G)
-    zero = torch.zeros((), dtype=torch.int32, device=graph.device)
-    dist, changed = _source_state(graph, source_sorted_g)
-    tiers = common.capacity_tiers(id_cap, edge_cap)
-
-    size, nbrs, it = 1, int(outdeg_g[source_sorted_g]), 0
-    while it < max_iterations and size > 0:
-        tier = next((t for t in tiers if size < t[0] and nbrs < t[1]), None)
-        if tier is not None:
-            dist_s = common.to_direction(graph, dist, G, S)
-            changed_s = common.to_direction(graph, changed, G, S)
-            fr = Frontier(mask=changed_s,
-                          size=torch.sum(changed_s, dtype=torch.int32),
-                          neighbours_count=zero, direction=S)
-            ids, valid = compact_ids(fr, tier[0])
-            out_s = advance_push_sparse(graph, ids, valid, tier[1],
-                                        {"d": dist_s}, _relax_edge, "min",
-                                        dist_s, edge_values=w_out, direction=S)
-            out = common.to_direction(graph, out_s, S, G)
-        else:
-            cand = advance_pull_value(graph, dist, "min", edge_values=w_in,
-                                      weight_op="add", src_active=changed,
-                                      direction=G)
-            out = torch.minimum(dist, cand)
-        if trace is not None:
-            trace.append(("push",) + tier if tier is not None else ("dense",))
-        changed = out < dist
-        dist = out
-        size, nbrs = common.read_scalars(
-            torch.sum(changed, dtype=torch.int32),
-            torch.sum(torch.where(changed, outdeg_g, 0), dtype=torch.int32))
-        it += 1
+    with annotate("vgl.sssp"):
+        outdeg_g = common.outdegrees_in(graph, G)
+        zero = torch.zeros((), dtype=torch.int32, device=graph.device)
+        # the source's start: indexing by its device id reads the id on
+        # the host, and its degree is read
+        with annotate("vgl.host_read"):
+            dist, changed = _source_state(graph, source_sorted_g)
+            nbrs = int(outdeg_g[source_sorted_g])
+        tiers = common.capacity_tiers(id_cap, edge_cap)
+        size, it = 1, 0
+        while it < max_iterations and size > 0:
+            tier = next((t for t in tiers if size < t[0] and nbrs < t[1]),
+                        None)
+            if trace is not None:
+                trace.append(("push",) + tier if tier is not None
+                             else ("dense",))
+            with annotate("vgl.sssp.sweep.push" if tier is not None
+                          else "vgl.sssp.sweep.dense"):
+                if tier is not None:
+                    dist_s = common.to_direction(graph, dist, G, S)
+                    changed_s = common.to_direction(graph, changed, G, S)
+                    fr = Frontier(mask=changed_s,
+                                  size=torch.sum(changed_s,
+                                                 dtype=torch.int32),
+                                  neighbours_count=zero, direction=S)
+                    ids, valid = compact_ids(fr, tier[0])
+                    out_s = advance_push_sparse(
+                        graph, ids, valid, tier[1], {"d": dist_s},
+                        _relax_edge, "min", dist_s, edge_values=w_out,
+                        direction=S)
+                    out = common.to_direction(graph, out_s, S, G)
+                else:
+                    cand = advance_pull_value(
+                        graph, dist, "min", edge_values=w_in,
+                        weight_op="add", src_active=changed, direction=G)
+                    out = torch.minimum(dist, cand)
+                changed = out < dist
+                dist = out
+                size, nbrs = common.read_scalars(
+                    torch.sum(changed, dtype=torch.int32),
+                    torch.sum(torch.where(changed, outdeg_g, 0),
+                              dtype=torch.int32))
+            it += 1
     return dist, it
 
 

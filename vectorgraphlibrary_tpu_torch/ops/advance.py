@@ -49,6 +49,7 @@ from . import monoid as M
 from . import tiles as T
 from .cuda.pull_reduce import Plan, make_plan, pull_reduce, segment_reduce
 from .cuda.push_expand import push_expand
+from ..runtime.profiling import annotate
 from .route import apply_route
 
 
@@ -97,42 +98,48 @@ def advance_pull_value(graph: VGLGraph,
     combine's identity, which must stay the identity through the weight op
     (inf + w = inf, min(-inf, w) = -inf), so only min or max combines or a
     mul weight op take it with weights."""
-    mon = M.get(combine)
-    dg = graph.direction(direction)
-    weights = None
-    if weight_op is not None:
-        if edge_values is None:
-            raise ValueError("advance_pull_value: weight_op needs edge_values")
-        weights = edge_values.flat
-        # absorbing-value src_active masking must survive the weight combine
-        assert src_active is None or mon.name in ("min", "max") \
-            or weight_op == "mul", (mon.name, weight_op)
-    is_bool = src_vec.dtype == torch.bool
-    if is_bool:
-        # bool pulls run as int8 (1 B per vertex read)
-        src_vec = src_vec.to(torch.int8)
-        if mon.name == "or":
-            mon = M.ANY01            # or over {0,1} == max, identity 0
-    dtype = out_dtype or (torch.result_type(src_vec, weights)
-                          if weights is not None else src_vec.dtype)
-    src_vec = src_vec.to(dtype)
-    if src_active is not None:
-        # bool "or" runs as max over {0,1}: its identity stays 0
-        ident = torch.zeros((), dtype=dtype) if is_bool else mon.identity(dtype)
-        src_vec = torch.where(src_active, src_vec, ident.to(src_vec.device))
-    if src_in_src_order:
-        # S -> G is the inverse of s_from_g, G -> S its forward
-        src_vec = apply_route(graph.vertex_route_s_from_g, src_vec,
-                              inverse=direction == TraversalDirection.GATHER)
-    if weights is not None and weights.dtype != dtype:
-        weights = weights.to(dtype)
-    out = pull_reduce(dg.row_ptr, dg.col_idx, src_vec, mon.name,
-                      exclude_self_loops, pull_plan(dg), weights=weights,
-                      weight_op=weight_op)
-    if is_bool:
-        # strictly-positive test, not a cast (reference advance.py:605-609)
-        out = out > 0
-    return out
+    with annotate("vgl.advance.pull"):
+        mon = M.get(combine)
+        dg = graph.direction(direction)
+        weights = None
+        if weight_op is not None:
+            if edge_values is None:
+                raise ValueError(
+                    "advance_pull_value: weight_op needs edge_values")
+            weights = edge_values.flat
+            # absorbing-value src_active masking must survive the weight
+            # combine
+            assert src_active is None or mon.name in ("min", "max") \
+                or weight_op == "mul", (mon.name, weight_op)
+        is_bool = src_vec.dtype == torch.bool
+        if is_bool:
+            # bool pulls run as int8 (1 B per vertex read)
+            src_vec = src_vec.to(torch.int8)
+            if mon.name == "or":
+                mon = M.ANY01            # or over {0,1} == max, identity 0
+        dtype = out_dtype or (torch.result_type(src_vec, weights)
+                              if weights is not None else src_vec.dtype)
+        src_vec = src_vec.to(dtype)
+        if src_active is not None:
+            # bool "or" runs as max over {0,1}: its identity stays 0
+            ident = torch.zeros((), dtype=dtype) if is_bool \
+                else mon.identity(dtype)
+            src_vec = torch.where(src_active, src_vec,
+                                  ident.to(src_vec.device))
+        if src_in_src_order:
+            # S -> G is the inverse of s_from_g, G -> S its forward
+            src_vec = apply_route(
+                graph.vertex_route_s_from_g, src_vec,
+                inverse=direction == TraversalDirection.GATHER)
+        if weights is not None and weights.dtype != dtype:
+            weights = weights.to(dtype)
+        out = pull_reduce(dg.row_ptr, dg.col_idx, src_vec, mon.name,
+                          exclude_self_loops, pull_plan(dg), weights=weights,
+                          weight_op=weight_op)
+        if is_bool:
+            # strictly-positive test, not a cast (reference advance.py:605-609)
+            out = out > 0
+        return out
 
 
 def _slot_rows(dg: DeviceDirectedGraph) -> torch.Tensor:
@@ -319,52 +326,54 @@ def advance_push_sparse(graph: VGLGraph,
     new array. A slot that holds no edge reads some value of the array (the
     padding's, clipped) and its message is dropped. Edges past the capacity (a frontier whose degree sum exceeds
     it) are dropped. Nothing is read back to the host."""
-    mon = M.get(combine)
-    dg = graph.direction(direction)
-    cap = frontier_ids.shape[0]
-    dev = out.device
-    i32 = torch.int32
-    ids = frontier_ids.long()
+    with annotate("vgl.advance.push"):
+        mon = M.get(combine)
+        dg = graph.direction(direction)
+        cap = frontier_ids.shape[0]
+        dev = out.device
+        i32 = torch.int32
+        ids = frontier_ids.long()
 
-    def take(a, index):
-        """jnp.take(a, index, mode="clip")"""
-        return a[index.clamp(0, a.shape[0] - 1)]
+        def take(a, index):
+            """jnp.take(a, index, mode="clip")"""
+            return a[index.clamp(0, a.shape[0] - 1)]
 
-    degs = torch.where(frontier_valid, take(dg.degrees, ids), 0)
-    row_start_c = take(dg.row_ptr, ids)
-    ends = torch.cumsum(degs, 0, dtype=i32)                     # inclusive
-    starts_local = ends - degs
-    # per-frontier-row constant: e_slot = pos + delta[owner]
-    delta_c = row_start_c - starts_local
-    sv_cap = {k: take(a, ids) for k, a in src_arrays.items()}
-    total = ends[-1] if cap > 0 else torch.zeros((), dtype=i32, device=dev)
+        degs = torch.where(frontier_valid, take(dg.degrees, ids), 0)
+        row_start_c = take(dg.row_ptr, ids)
+        ends = torch.cumsum(degs, 0, dtype=i32)                     # inclusive
+        starts_local = ends - degs
+        # per-frontier-row constant: e_slot = pos + delta[owner]
+        delta_c = row_start_c - starts_local
+        sv_cap = {k: take(a, ids) for k, a in src_arrays.items()}
+        total = ends[-1] if cap > 0 else torch.zeros((), dtype=i32, device=dev)
 
-    pos = torch.arange(edge_capacity, dtype=i32, device=dev)
-    # owner row of each flat edge slot: each nonempty row's index is marked
-    # at its start offset, then a running max fills the run. Zero-degree rows
-    # share start offsets and must not mark; rows starting past the capacity
-    # drop (a clamp would steal the last slot's ownership). The marks go
-    # into the target made here, in place.
-    frontier_idx = torch.arange(cap, dtype=i32, device=dev)
-    mark_slot = torch.where(frontier_valid & (degs > 0)
-                            & (starts_local < edge_capacity),
-                            starts_local, edge_capacity)
-    owner_c = M.MAX.scatter_at_(
-        torch.full((edge_capacity,), -1, dtype=i32, device=dev), mark_slot,
-        frontier_idx)
-    owner_c = torch.cummax(owner_c, 0).values
-    evalid = (pos < total) & (owner_c >= 0)
-    owner_c = owner_c.clamp(0, cap - 1).long()
+        pos = torch.arange(edge_capacity, dtype=i32, device=dev)
+        # owner row of each flat edge slot: each nonempty row's index is marked
+        # at its start offset, then a running max fills the run. Zero-degree
+        # rows share start offsets and must not mark; rows starting past the
+        # capacity drop (a clamp would steal the last slot's ownership). The
+        # marks go into the target made here, in place.
+        frontier_idx = torch.arange(cap, dtype=i32, device=dev)
+        mark_slot = torch.where(frontier_valid & (degs > 0)
+                                & (starts_local < edge_capacity),
+                                starts_local, edge_capacity)
+        owner_c = M.MAX.scatter_at_(
+            torch.full((edge_capacity,), -1, dtype=i32, device=dev), mark_slot,
+            frontier_idx)
+        owner_c = torch.cummax(owner_c, 0).values
+        evalid = (pos < total) & (owner_c >= 0)
+        owner_c = owner_c.clamp(0, cap - 1).long()
 
-    e_slot = torch.where(evalid, pos + take(delta_c, owner_c), dg.e_pad)
-    dsts = take(dg.col_idx, e_slot.long())
-    sv = {k: take(a, owner_c)[:, None] for k, a in sv_cap.items()}
-    w = (None if edge_values is None
-         else take(edge_values.flat, e_slot.long())[:, None])
-    msg = edge_op(sv, {}, w)[:, 0].to(out.dtype)
+        e_slot = torch.where(evalid, pos + take(delta_c, owner_c), dg.e_pad)
+        dsts = take(dg.col_idx, e_slot.long())
+        sv = {k: take(a, owner_c)[:, None] for k, a in sv_cap.items()}
+        w = (None if edge_values is None
+             else take(edge_values.flat, e_slot.long())[:, None])
+        msg = edge_op(sv, {}, w)[:, 0].to(out.dtype)
 
-    scatter_idx = torch.where(evalid, dsts, out.shape[0])   # OOB -> dropped
-    return mon.scatter_at(out, scatter_idx, msg, mode="drop")
+        # out of bounds: dropped
+        scatter_idx = torch.where(evalid, dsts, out.shape[0])
+        return mon.scatter_at(out, scatter_idx, msg, mode="drop")
 
 
 def advance_push_sparse_const(graph: VGLGraph,
@@ -380,6 +389,8 @@ def advance_push_sparse_const(graph: VGLGraph,
     int32 constant per edge) combined by min, max or or into the int32
     array ``out``; returns the new array. One push_expand launch on the
     card; edges past the capacity drop, as there."""
-    dg = graph.direction(direction)
-    return push_expand(out, dg.row_ptr, dg.col_idx, dg.degrees, frontier_ids,
-                       frontier_valid, edge_capacity, msg, M.get(combine).name)
+    with annotate("vgl.advance.push"):
+        dg = graph.direction(direction)
+        return push_expand(out, dg.row_ptr, dg.col_idx, dg.degrees,
+                           frontier_ids, frontier_valid, edge_capacity, msg,
+                           M.get(combine).name)

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..runtime.profiling import annotate
 from .cuda.lane_shuffle import lane_shuffle
 from .cuda.route_gather import route_gather_finish
 
@@ -81,26 +82,28 @@ def apply_route(plan: RoutePlan, x: torch.Tensor, inverse: bool = False,
     """y[i] = x[perm[i]] (forward) or y[perm[i]] = x[i] (inverse), with the
     optional fused finish (`weights`: per-output-slot values for
     finish.weight_op). One launch of the route-gather kernel on the card."""
-    assert x.shape == (plan.n,), (tuple(x.shape), plan.n)
-    flags = None
-    if finish is not None:
-        flags = plan.flags_inv if inverse else plan.flags_fwd
-        assert flags is not None, "plan built without finish flags"
-        assert (weights is not None) == (finish.weight_op is not None)
-    is_bool = x.dtype == torch.bool
-    if is_bool:
-        # the kernel moves bools as their bytes (0 or 1 in PyTorch): a view,
-        # no cast and no copy
-        x = x.view(torch.int8)
-    out = route_gather_finish(
-        x, plan.inv_idx if inverse else plan.fwd_idx, flags=flags,
-        weights=weights,
-        weight_op=None if finish is None else finish.weight_op,
-        exclude_self_loops=finish is not None and finish.exclude_self_loops,
-        ident=0 if finish is None else finish.ident)
-    if is_bool and finish is None:
-        out = out.view(torch.bool)
-    return out
+    with annotate("vgl.route"):
+        assert x.shape == (plan.n,), (tuple(x.shape), plan.n)
+        flags = None
+        if finish is not None:
+            flags = plan.flags_inv if inverse else plan.flags_fwd
+            assert flags is not None, "plan built without finish flags"
+            assert (weights is not None) == (finish.weight_op is not None)
+        is_bool = x.dtype == torch.bool
+        if is_bool:
+            # the kernel moves bools as their bytes (0 or 1 in PyTorch): a
+            # view, no cast and no copy
+            x = x.view(torch.int8)
+        out = route_gather_finish(
+            x, plan.inv_idx if inverse else plan.fwd_idx, flags=flags,
+            weights=weights,
+            weight_op=None if finish is None else finish.weight_op,
+            exclude_self_loops=finish is not None
+            and finish.exclude_self_loops,
+            ident=0 if finish is None else finish.ident)
+        if is_bool and finish is None:
+            out = out.view(torch.bool)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)

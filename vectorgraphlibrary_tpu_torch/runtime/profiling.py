@@ -5,8 +5,9 @@ The reference pairs its `performance_stats` singleton with NEC ftrace
 compiler hooks (`graph_library.h:22-24`, `apps/Makefile:36-38`). Here the
 per-primitive accounting lives in runtime/perf_stats.py, and this module
 adds the device-level layer: torch.profiler traces (CPU and CUDA activity)
-written as Chrome traces, with named regions per call, and a dump of the
-CUDA caching allocator's state. Nothing is recorded unless asked for.
+written as Chrome traces, with named spans (`annotate`), and a dump of
+the CUDA caching allocator's state. Nothing is recorded unless asked for:
+without a profiler a span costs one check of its state.
 
     from vectorgraphlibrary_tpu_torch.runtime import profiling
     with profiling.trace("/tmp/vgl_trace"):      # writes a Chrome trace
@@ -18,6 +19,7 @@ measured rounds, one region per round.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import pickle
@@ -55,47 +57,51 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    """A named region in the trace (torch.profiler.record_function)."""
-    return torch.profiler.record_function(name)
+def annotate(name: str, keep: bool = False):
+    """A span named `name` over a block, on the profiler's host clock.
+
+    While no torch.profiler records, it is one shared no-op context: a
+    span in a hot loop costs one check of the profiler's state. While one
+    records, it is a RecordFunction of the profiler's function scope, the
+    scope of the aten operators: a user-scope record_function would also
+    lay a copy of the span onto the device's timeline, where a reader of
+    the trace would take it for device work. Spans nest by the block
+    structure of the one host thread. The port's own spans are named
+    vgl.<layer>...
+
+    keep=True also appends (name, start, end) in time.perf_counter
+    seconds to a bounded list (`kept_spans`), whether or not a profiler
+    records: for the few long phases of a graph import."""
+    if keep:
+        return _kept_span(name)
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+_NO_SPAN = contextlib.nullcontext()
+_KEPT: collections.deque = collections.deque(maxlen=256)
+
+
+@contextlib.contextmanager
+def _kept_span(name: str) -> Iterator[None]:
+    with annotate(name):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            _KEPT.append((name, start, time.perf_counter()))
+
+
+def kept_spans() -> list:
+    """The kept spans, oldest end first: [(name, start_s, end_s)] on
+    time.perf_counter's clock (the last 256)."""
+    return list(_KEPT)
 
 
 def step_annotate(name: str, step: int):
-    """The region of one iteration, named `name#step`."""
-    return torch.profiler.record_function(f"{name}#{step}")
-
-
-def _device_us(evt) -> float:
-    """An operator's own device time (us), by whichever name this torch
-    gives it."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
-def profile_call(fn, top: int = 8) -> dict:
-    """One call of fn under torch.profiler on the card: its wall seconds
-    (host clock to a synchronize), the device's busy seconds (the sum of
-    the kernels' and copies' durations) and their share of the wall, and
-    the `top` operators by their own device time, each with its calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e6
-    ops = sorted(((_device_us(e), e.key, e.count)
-                  for e in prof.key_averages()), reverse=True)[:top]
-    return {"wall_s": wall, "device_busy_s": busy,
-            "busy_share": busy / wall if wall else None,
-            "top": [{"op": k, "device_ms": us / 1e3, "calls": n}
-                    for us, k, n in ops if us > 0]}
+    """The span of one iteration, named `name#step`."""
+    return annotate(f"{name}#{step}")
 
 
 def device_memory_profile(path: str, device=None) -> None:
