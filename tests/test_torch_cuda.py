@@ -2062,3 +2062,63 @@ def test_lj_bench_on_the_card(cuda, monkeypatch):
     oracle = exp_lj_oracle.oracle(wec, bench_lj.sources(deg)[1],
                                   bench_lj.roots(deg)[1])
     assert bench_lj.check(wec, g, got, oracle)["ok"]
+
+
+def test_device_import_equals_host_build_on_the_card(cuda):
+    """graph/device.import_graph builds both directions on the card
+    (graph/build_torch): at RMAT-18/16 (4,194,304 edges) every tensor of
+    the graph, the edge values and each direction's edge_perm equal the
+    numpy host build uploaded by from_host, compared on the host; each
+    import keeps exactly two vgl.import.csr.device spans, each inside its
+    vgl.import.csr span."""
+    import dataclasses
+    from vectorgraphlibrary_tpu_torch.graph.build import build_directed_csr
+    from vectorgraphlibrary_tpu_torch.graph.device import from_host
+    from vectorgraphlibrary_tpu_torch.runtime import profiling
+
+    def fields(obj, prefix=""):
+        if isinstance(obj, torch.Tensor):
+            return {prefix: obj}
+        if dataclasses.is_dataclass(obj):
+            return {k: x for f in dataclasses.fields(obj) for k, x in
+                    fields(getattr(obj, f.name), f"{prefix}.{f.name}").items()}
+        if isinstance(obj, (tuple, list)):
+            return {k: x for i, y in enumerate(obj)
+                    for k, x in fields(y, f"{prefix}[{i}]").items()}
+        return {prefix: obj}
+
+    ec = generation.rmat(scale=18, avg_degree=16, seed=5)
+    hosts = [build_directed_csr(ec.src_ids, ec.dst_ids, ec.vertices_count),
+             build_directed_csr(ec.dst_ids, ec.src_ids, ec.vertices_count)]
+    want = from_host(hosts[0], hosts[1], ec.src_ids == ec.dst_ids,
+                     ec.vertices_count, ec.edges_count, device=cuda,
+                     build_route=False)
+    records = []
+    got = import_graph(ec, device=cuda, _host_out=records, build_route=False)
+    kept = profiling.kept_spans()
+    (_, lo, hi), = [k for k in kept if k[0] == "vgl.import"][-1:]
+    csr = [k for k in kept if k[0] == "vgl.import.csr" and lo <= k[1] <= hi]
+    dev = [k for k in kept
+           if k[0] == "vgl.import.csr.device" and lo <= k[1] <= hi]
+    assert len(csr) == len(dev) == 2
+    assert all(c[1] <= d[1] <= d[2] <= c[2] for c, d in zip(csr, dev))
+    assert got.device.type == "cuda"
+    a, b = fields(want), fields(got)
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], torch.Tensor):
+            assert b[k].device.type == "cuda", k
+            assert a[k].dtype == b[k].dtype, k
+            assert np.array_equal(a[k].cpu().numpy(), b[k].cpu().numpy()), k
+        else:
+            assert a[k] == b[k], k
+    for h, r in zip(hosts, records):
+        assert r.edge_perm.device.type == "cuda"
+        np.testing.assert_array_equal(r.edge_perm[:h.edges_count].cpu()
+                                      .numpy(), h.edge_perm[:h.edges_count])
+    w_host = build_edge_array_from_host(ec.weights, want, hosts[0], hosts[1])
+    w_dev = build_edge_array_from_host(ec.weights, got, records[0],
+                                       records[1])
+    for d in ("outgoing", "incoming"):
+        assert np.array_equal(getattr(w_host, d).flat.cpu().numpy(),
+                              getattr(w_dev, d).flat.cpu().numpy()), d

@@ -203,19 +203,27 @@ def test_the_import_keeps_its_phases():
     names = [k[0] for k in kept]
     assert sorted(names) == sorted(
         ["vgl.import", "vgl.import.csr", "vgl.import.csr",
+         "vgl.import.csr.device", "vgl.import.csr.device",
          "vgl.import.to_device", "vgl.import.advance_route",
          "vgl.import.vertex_routes", "vgl.import.edge_values"])
     (_, lo, hi), = [k for k in kept if k[0] == "vgl.import"]
     phases = [k for k in kept if k[0].startswith("vgl.import.")
               and k[0] != "vgl.import.edge_values"]
     assert all(lo <= s <= e <= hi for _, s, e in phases)
-    assert sum(e - s for n, s, e in kept if n != "vgl.import") <= wall
+    # each direction's device build lies inside its own vgl.import.csr
+    csr = [k for k in kept if k[0] == "vgl.import.csr"]
+    dev = [k for k in kept if k[0] == "vgl.import.csr.device"]
+    assert all(c[1] <= d[1] <= d[2] <= c[2] for c, d in zip(csr, dev))
+    assert sum(e - s for n, s, e in kept
+               if n not in ("vgl.import", "vgl.import.csr.device")) <= wall
     # under a profiler the kept spans are spans of the trace as well
     _, roots, _ = spans_of(lambda: import_graph(ec, device="cpu",
                                                 build_route=False))
     (root,) = roots
     assert root.name == "vgl.import"
-    assert root.names() == ["vgl.import.csr", "vgl.import.csr",
-                            "vgl.import.to_device",
+    assert root.names() == ["vgl.import.to_device", "vgl.import.csr",
+                            "vgl.import.csr",
                             "vgl.import.vertex_routes"]
+    assert [c.names() for c in root.children[1:3]] == \
+        [["vgl.import.csr.device"]] * 2
     assert profiling.kept_spans()[-1][0] == "vgl.import"

@@ -20,7 +20,6 @@ from ..config import GraphFormat, VGLConfig, DEFAULT_CONFIG, TraversalDirection
 from ..io.edges_container import EdgesContainer
 from ..ops.route import RoutePlan, make_route_plan
 from ..runtime.profiling import annotate
-from .build import build_directed_csr
 from .route_build import build_advance_route
 
 
@@ -96,7 +95,23 @@ class DeviceDirectedGraph:
 
 
 def _i32(a: np.ndarray, device) -> torch.Tensor:
+    """a as int32 on `device`; raises ValueError where a holds a value
+    past int32 (a CSR of 2^31 arcs or more), which a cast would wrap."""
+    a = np.asarray(a)
+    if a.dtype != np.int32 and a.size and (
+            a.max() >= 2**31 or a.min() < -2**31):
+        raise ValueError(f"values up to {int(a.max()):,} do not fit the "
+                         f"device's int32 (a CSR takes fewer than 2^31 "
+                         f"arcs)")
     return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on `device` (a CUDA device; nothing to wait
+    for on the CPU): so that a kept span holds the device work it queued."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _to_device_directed(h, device, slim: bool = False
@@ -199,23 +214,43 @@ def from_host(h_out, h_in, selfloop_edges: np.ndarray, v: int, e: int,
     with annotate("vgl.import.to_device", keep=True):
         out = _to_device_directed(h_out, device)
         inc = _to_device_directed(h_in, device)
+    return _with_routes(out, inc, h_out, h_in, selfloop_edges, v, e, device,
+                        build_route, graph_format)
+
+
+def _with_routes(out: DeviceDirectedGraph, inc: DeviceDirectedGraph, h_out,
+                 h_in, selfloop_edges: Optional[np.ndarray], v: int, e: int,
+                 device, build_route: bool,
+                 graph_format: GraphFormat) -> VGLGraph:
+    """The VGLGraph of both directions on the device, with its routes.
+    h_out, h_in: the directions' host CSRs (graph/build.py) or, from the
+    device build, graph/build_torch.DeviceDirectedCSR."""
+    from .build_torch import DeviceDirectedCSR, host_csr
     assert out.v_pad == inc.v_pad
+    on_device = isinstance(h_out, DeviceDirectedCSR)
     route, out_slots, in_slots = None, 0, 0
     if build_route:
         with annotate("vgl.import.advance_route", keep=True):
+            hosts = ((host_csr(h_out), host_csr(h_in)) if on_device
+                     else (h_out, h_in))
             route, out_slots, in_slots = build_advance_route(
-                h_out, h_in, selfloop_edges=selfloop_edges, device=device)
+                *hosts, selfloop_edges=selfloop_edges, device=device)
     with annotate("vgl.import.vertex_routes", keep=True):
-        vpad = h_out.vertices_pad
+        maps = (h_out.sorted_to_orig, h_in.orig_to_sorted,
+                h_in.sorted_to_orig)
+        if on_device:
+            maps = torch.stack(maps).cpu().numpy()     # one copy down
+        s2o_out, o2s_in, s2o_in = maps
+        vpad = out.v_pad
         # scatter_vals[i] = gather_vals[g_of_s[i]]: gather-space id of the
         # vertex whose scatter-space id is i (identity on padding slots)
         g_of_s = np.arange(vpad, dtype=np.int64)
-        g_of_s[:v] = h_in.orig_to_sorted[h_out.sorted_to_orig[:v]]
+        g_of_s[:v] = o2s_in[s2o_out[:v]]
         # ORIGINAL -> sorted orderings: sorted_vals[i] = orig_vals[s2o[i]]
         o_of_s = np.arange(vpad, dtype=np.int64)
-        o_of_s[:v] = h_out.sorted_to_orig[:v]
+        o_of_s[:v] = s2o_out[:v]
         o_of_g = np.arange(vpad, dtype=np.int64)
-        o_of_g[:v] = h_in.sorted_to_orig[:v]
+        o_of_g[:v] = s2o_in[:v]
         s_from_g, s_from_o, g_from_o = (make_route_plan(a, device=device)
                                         for a in (g_of_s, o_of_s, o_of_g))
     return VGLGraph(outgoing=out, incoming=inc, advance_route=route,
@@ -232,10 +267,14 @@ def import_graph(ec: EdgesContainer, cfg: VGLConfig = DEFAULT_CONFIG,
                  build_route: bool = True,
                  keep_edge_slots: Optional[bool] = None) -> VGLGraph:
     """COO → VGLGraph (both directions, tiles, the flagged advance route and
-    the three vertex routes), reference vgl_graph.hpp:60-64. _host_out: a
-    list that receives the two host CSRs (outgoing, incoming), which
+    the three vertex routes), reference vgl_graph.hpp:60-64. Each direction
+    is built on `device` (graph/build_torch.build_directed_csr_torch) from
+    the edge ids, uploaded once: the same tensors as graph/build.py's host
+    build uploaded by from_host. _host_out: a list that receives the two
+    directions' records (graph/build_torch.DeviceDirectedCSR: outgoing,
+    incoming), whose edge_perm, on the device,
     graph.edges.build_edge_array_from_host needs to lay out edge values.
-    build_route=False skips only the advance route (from_host), as
+    build_route=False skips only the advance route, as
     models/tc.reachability does for its condensed graph.
 
     graph_format (reference device.py:184-247): only TILE_CSR builds the
@@ -243,19 +282,36 @@ def import_graph(ec: EdgesContainer, cfg: VGLConfig = DEFAULT_CONFIG,
     why). keep_edge_slots is accepted for the reference's signature and
     stores nothing: the reference keeps per-slot edge indices on the device
     to lay out its tile copies of edge values, and the port keeps no such
-    copies (graph/edges.py); the host CSRs' edge_perm (_host_out) lays out
-    values in CSR slot order."""
+    copies (graph/edges.py); edge_perm (_host_out) lays out values in CSR
+    slot order. Spans: _csr_on_device."""
     del keep_edge_slots
+    device = torch.device(device)
+    v = ec.vertices_count
+    route = build_route and graph_format == GraphFormat.TILE_CSR
     with annotate("vgl.import", keep=True):
-        with annotate("vgl.import.csr", keep=True):
-            h_out = build_directed_csr(ec.src_ids, ec.dst_ids,
-                                       ec.vertices_count, cfg)
-        with annotate("vgl.import.csr", keep=True):
-            h_in = build_directed_csr(ec.dst_ids, ec.src_ids,
-                                      ec.vertices_count, cfg)
+        with annotate("vgl.import.to_device", keep=True):
+            src = torch.from_numpy(np.ascontiguousarray(ec.src_ids)).to(device)
+            dst = torch.from_numpy(np.ascontiguousarray(ec.dst_ids)).to(device)
+            synchronize(device)
+        d_out = _csr_on_device(src, dst, v, cfg, device)
+        d_in = _csr_on_device(dst, src, v, cfg, device)
+        del src, dst
         if _host_out is not None:
-            _host_out.extend([h_out, h_in])
-        return from_host(h_out, h_in, ec.src_ids == ec.dst_ids,
-                         ec.vertices_count, ec.edges_count, device,
-                         build_route and graph_format == GraphFormat.TILE_CSR,
-                         graph_format)
+            _host_out.extend([d_out, d_in])
+        return _with_routes(d_out.graph, d_in.graph, d_out, d_in,
+                            ec.src_ids == ec.dst_ids if route else None, v,
+                            ec.edges_count, device, route, graph_format)
+
+
+def _csr_on_device(src: torch.Tensor, dst: torch.Tensor, v: int,
+                   cfg: VGLConfig, device: torch.device):
+    """One direction built on the device (graph/build_torch) in a kept
+    vgl.import.csr span, its device work in a kept vgl.import.csr.device
+    span; the outer span ends after a device synchronize, so that the
+    build's queued work stays inside it."""
+    from .build_torch import build_directed_csr_torch
+    with annotate("vgl.import.csr", keep=True):
+        with annotate("vgl.import.csr.device", keep=True):
+            built = build_directed_csr_torch(src, dst, v, cfg)
+        synchronize(device)
+    return built

@@ -19,7 +19,7 @@ import torch
 
 from ..config import TraversalDirection
 from ..runtime.profiling import annotate
-from .device import VGLGraph
+from .device import VGLGraph, synchronize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,21 +38,40 @@ class EdgeArray:
 
 def build_edge_array_from_host(coo_values: np.ndarray, graph: VGLGraph,
                                h_out, h_in, pad_value=0) -> EdgeArray:
-    """Lay COO-ordered per-edge values out per direction using the host edge
+    """Lay COO-ordered per-edge values out per direction using the edge
     perms (the reference's edges_reorder_indexes path, import.hpp:157-165):
     flat[:e] = coo_values[edge_perm[:e]], the padding slots hold pad_value.
-    h_out, h_in: the host CSRs the graph was built from (graph/build.py
-    HostDirectedCSR of either package, as graph.device.from_host takes them)."""
+    h_out, h_in: the records of the graph's import, as
+    graph.device.import_graph(_host_out=...) gives them
+    (graph/build_torch.DeviceDirectedCSR, whose edge_perm is on the device
+    of that import, which may be another than the graph's: the values are
+    uploaded once and laid out on the graph's device), or the host CSRs
+    (graph/build.py HostDirectedCSR of either package) that
+    graph.device.from_host takes. The span ends after a device
+    synchronize."""
     coo_values = np.asarray(coo_values)
+    values = None               # coo_values on the device, uploaded once
     dirs = []
     with annotate("vgl.import.edge_values", keep=True):
         for h, dg in ((h_out, graph.outgoing), (h_in, graph.incoming)):
             if (h.edges_count, h.edges_pad) != (dg.e, dg.e_pad):
-                raise ValueError("host CSR does not belong to this graph")
-            flat = np.full(h.edges_pad, pad_value, dtype=coo_values.dtype)
-            flat[:h.edges_count] = coo_values[h.edge_perm[:h.edges_count]]
-            dirs.append(DirectedEdgeValues(
-                flat=torch.from_numpy(flat).to(graph.device)))
+                raise ValueError("the records do not belong to this graph")
+            e = h.edges_count
+            if isinstance(h.edge_perm, torch.Tensor):
+                if values is None:
+                    values = torch.from_numpy(
+                        np.ascontiguousarray(coo_values)).to(graph.device)
+                flat = torch.full((h.edges_pad,), pad_value,
+                                  dtype=values.dtype, device=graph.device)
+                # the records may come from an import on another device
+                flat[:e] = torch.index_select(
+                    values, 0, h.edge_perm[:e].to(graph.device))
+            else:
+                host = np.full(h.edges_pad, pad_value, dtype=coo_values.dtype)
+                host[:e] = coo_values[h.edge_perm[:e]]
+                flat = torch.from_numpy(host).to(graph.device)
+            dirs.append(DirectedEdgeValues(flat=flat))
+        synchronize(graph.device)
     return EdgeArray(outgoing=dirs[0], incoming=dirs[1])
 
 

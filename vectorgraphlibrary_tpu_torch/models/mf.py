@@ -68,17 +68,16 @@ def _build_residual(ec: EdgesContainer, device) -> Residual:
     host = []
     g2 = import_graph(EdgesContainer(src2, dst2, ec.vertices_count),
                       device=device, _host_out=host, build_route=False)
-    h_in = host[1]
-    arc = h_in.edge_perm[:e2].astype(np.int64)        # CSR slot -> arc
+    arc = host[1].edge_perm[:e2].cpu().numpy()       # CSR slot -> arc
     slot = np.empty(e2, np.int64)
     slot[arc] = np.arange(e2)
     rev_slot = slot[np.where(arc < e, arc + e, arc - e)]
-    res0 = np.zeros(h_in.edges_pad, np.float32)
+    res0 = np.zeros(g2.incoming.e_pad, np.float32)
     fwd = arc < e
     res0[:e2][fwd] = ec.weights[arc[fwd]]
     return Residual(g2, torch.from_numpy(res0).to(g2.device),
                     torch.from_numpy(rev_slot.astype(np.int32)).to(g2.device),
-                    np.asarray(h_in.col_idx), arc)
+                    g2.incoming.col_idx.cpu().numpy(), arc)
 
 
 def _ek_run(g2: VGLGraph, res0: torch.Tensor, rev_slot: torch.Tensor,
