@@ -1,8 +1,9 @@
 """PyTorch port, connected components end to end: Shiloach-Vishkin, the
 flood hybrid (default hub, a bad hub, a flood cut short), its multi-hub form
 and the BFS-based variant against the JAX package's on RMAT-10, RU-9 and a
-path graph — labels AND iteration counts equal (integers: exact) — against
-the sequential oracle, and the app's CLI contract. The JAX package runs as
+path graph — labels AND iteration counts equal (integers: exact) where the
+flood closes, least-id labels where it does not — against the sequential
+oracle, and the app's CLI contract. The JAX package runs as
 its own tests run it (tests/conftest.py: routed paths, Pallas in interpret
 mode)."""
 import os
@@ -66,6 +67,18 @@ HYBRID = {
     "flood-cut-short": dict(hub=30, max_flood=2),
     "iteration-cap": dict(max_flood=0, max_iterations=2),
 }
+# variants whose flood does not close: the port finishes by link rounds
+# (models/cc._link_rounds), the JAX package by hook-min up to its cap, so
+# their round counts differ; with "iteration-cap" the JAX package stops
+# short of its fixpoint, the port reaches it within the same cap
+LINKED = ("flood-cut-short", "iteration-cap")
+
+
+def _least_ids(oracle):
+    """Each vertex's label: the least vertex id of its component."""
+    first = np.full(oracle.max() + 1, len(oracle))
+    np.minimum.at(first, oracle, np.arange(len(oracle)))
+    return first[oracle]
 
 
 @pytest.mark.parametrize("graph", GRAPHS)
@@ -86,13 +99,18 @@ def test_cc_hybrid_matches_jax_and_oracle(graphs, graph, variant):
     kw = HYBRID[variant]
     got, iters = tcc.vgl_cc_hybrid(tg, **kw)
     want, jiters = jcc.vgl_cc_hybrid(jg, **kw)
-    assert iters == jiters
+    if variant not in LINKED:
+        assert iters == jiters
+        _check(got, want, tg, oracle)
+        return
+    np.testing.assert_array_equal(got.values.numpy()[:tg.v],
+                                  _least_ids(oracle))
+    assert bool((got.values[tg.v:] == tg.v).all())          # padding
     if variant == "iteration-cap":
-        np.testing.assert_array_equal(got.values.numpy(),
-                                      np.asarray(want.values))
-        assert iters == 2
+        assert jiters == 2 and 1 <= iters <= 2
     else:
         _check(got, want, tg, oracle)
+        assert 1 <= iters < jiters
 
 
 @pytest.mark.parametrize("graph", GRAPHS)

@@ -1188,6 +1188,35 @@ def test_hits_and_cc_on_cuda_match_cpu(weighted_cuda):
                        cc.vgl_bfs_based(cg).values)
 
 
+def test_cc_hybrid_links_past_its_flood_on_cuda(cuda):
+    """A shuffled 3 x 2,500 grid strip, whose flood is cut at 20 levels:
+    the link rounds (models/cc._link_rounds) on the card give the CPU's
+    labels and rounds, one component, with 2 pulls a flood level and a
+    link, and one in-place scatter_combine a link that hooked."""
+    from vectorgraphlibrary_tpu_torch.io.edges_container import \
+        EdgesContainer
+    ids = np.arange(3 * 2500).reshape(2500, 3)
+    a = np.concatenate([ids[:, :-1].ravel(), ids[:-1, :].ravel()])
+    b = np.concatenate([ids[:, 1:].ravel(), ids[1:, :].ravel()])
+    perm = np.random.default_rng(1).permutation(ids.size)
+    a, b = perm[a], perm[b]
+    ec = EdgesContainer(np.concatenate([a, b]).astype(np.int32),
+                        np.concatenate([b, a]).astype(np.int32), ids.size)
+    g = import_graph(ec, device=cuda, build_route=False)
+    cg = import_graph(ec, device="cpu", build_route=False)
+    _reset(pl.pull_reduce, sc.scatter_combine)
+    labels, rounds = cc.vgl_cc_hybrid(g, max_flood=20)
+    torch.cuda.synchronize()
+    assert sc.scatter_combine.launches == rounds >= 2
+    assert pl.pull_reduce.launches == 2 * (20 + rounds + 1)
+    clabels, crounds = cc.vgl_cc_hybrid(cg, max_flood=20)
+    assert rounds == crounds
+    assert torch.equal(labels.values.cpu(), clabels.values)
+    assert bool((labels.values[:ids.size] == 0).all())
+    with pytest.raises(RuntimeError, match="no fixpoint"):
+        cc.vgl_cc_hybrid(g, max_flood=20, max_iterations=1)
+
+
 # (rows, words, edges, chunk): a ragged last chunk, the triangle count's
 # RMAT-18 word count with many chunks, one chunk of the main path's size,
 # chunks of one edge, an empty edge list
